@@ -1,0 +1,130 @@
+"""Builds the package's CUDA kernels and binds them through ctypes.
+
+Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
+plain C interface, at first use, into `build/fasthevc_tpu_torch/` under the
+checkout root, keyed by a hash of the sources and flags (a stale library is
+never loaded).  No PyTorch headers are included, so a build takes seconds.
+
+Each C entry point launches on the stream it is given (PyTorch's current
+stream) and returns `cudaGetLastError()`; `check` raises if that is not 0.
+
+`LAUNCHES` counts kernel launches by kernel name.  Each wrapper adds one
+where it launches its kernel, and nowhere else, so a run can show that its
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fasthevc_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argument types (the stream is always last)
+_SIGNATURES = {
+    # top, left, modes|NULL, mode_tab, out, B, n, lg, M, edge, max_val,
+    # stream
+    "fhv_intra_pred": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # src, preds, out, B, M, n, stream
+    "fhv_satd": [_P, _P, _P, _I, _I, _I, _P],
+    # res, mat, levels, recon, B, n, lg, qp, bit_depth, stream
+    "fhv_tq_roundtrip": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # res, rq, levels, dist, rate, B, n, lg, w0..w5, stream
+    "fhv_sse_rate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                     _F, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a host with the CUDA toolkit")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libfhv_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if no library of the current sources exists;
+    returns the library's path."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cu = [s for s in sources() if s.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def stream_handle(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors, dtype=None) -> None:
+    """Raise unless every tensor is contiguous on one CUDA device (and of
+    `dtype` where given): the kernels take nothing else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
