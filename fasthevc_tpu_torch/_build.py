@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels and binds them through ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
-plain C interface, at first use, into `build/fasthevc_tpu_torch/` under the
+Every `csrc/*.cu` file is compiled by its own `nvcc` process (all started
+together) and the objects are linked into one shared library with a plain
+C interface, at first use, into `build/fasthevc_tpu_torch/` under the
 checkout root, keyed by a hash of the sources and flags (a stale library is
 never loaded).  No PyTorch headers are included, so a build takes seconds.
 
@@ -28,7 +29,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fasthevc_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -47,6 +48,20 @@ _SIGNATURES = {
     # res, rq, levels, dist, rate, B, n, lg, w0..w5, stream
     "fhv_sse_rate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                      _F, _P],
+    # src y/cb/cr, depth, mode, rec y/cb/cr, lv y/cb/cr, dct, scans,
+    # mode_tab, tiles, ntx, nty, ftab, itab, meta, lam, F, ph, pw, coded_w,
+    # coded_h, qp_y, qp_c, sdh, rdoq, bit_depth, stream
+    "fhv_commit_intra": [_P] * 15 + [_I, _I, _P, _P, _P, _F] + [_I] * 10
+    + [_P],
+    # in y/cb/cr, out y/cb/cr, depth, beta_tab, tc_tab, F, H, W, log2_ctu,
+    # qp, qp_cb, qp_cr, bit_depth, dir, stream
+    "fhv_deblock": [_P] * 9 + [_I] * 9 + [_P],
+    # src y/cb/cr, rec y/cb/cr, params, F, H, W, log2_ctu, bit_depth, stream
+    "fhv_sao_stats": [_P] * 7 + [_I] * 5 + [_P],
+    # rec y/cb/cr, out y/cb/cr, params, F, H, W, log2_ctu, bit_depth, stream
+    "fhv_sao_apply": [_P] * 7 + [_I] * 5 + [_P],
+    # planes, out, F, H, W, stream
+    "fhv_checksum": [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -83,12 +98,29 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cu = [s for s in sources() if s.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for s, o in zip(cu, objs)]
+    errors = []
+    for src, proc in zip(cu, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
+                          f"{out}\n{err}")
+    if not errors:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            errors.append(f"link ({proc.returncode}):\n{proc.stdout}\n"
+                          f"{proc.stderr}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, so)
     return so
 

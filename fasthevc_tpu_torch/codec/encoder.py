@@ -1,13 +1,19 @@
-"""Encoder top of the port: GPU intra search -> shared C++ commit, filters
-and CABAC.
+"""Encoder top of the port: the all-intra routes of TpuEncoder.
 
-Counterpart of fasthevc_tpu/codec/encoder.py TpuEncoder on its pipelined
-all-intra route (`_encode_all_intra_pipelined`): the decision search runs
-on the torch device in groups of FRAME_GROUP frames, two groups in flight,
-and the C++ slice engine (`fasthevc_tpu.cabac_cpp.encode_slice_native`)
-commits each frame exactly, deblocks, applies SAO and emits CABAC on a
-thread pool.  Given the same config and frames, the stream is the one
-TpuEncoder writes on that route.
+Counterpart of fasthevc_tpu/codec/encoder.py TpuEncoder on its two
+all-intra routes, chosen as TpuEncoder chooses them:
+  * the device route (`_encode_all_intra_device`, the default for CTU 32,
+    8-bit): search, exact commit, deblock, SAO and checksum of each group
+    of FRAME_GROUP frames run on the torch device
+    (`device_pipeline.encode_group_device`), two groups in flight; the
+    host emits CABAC from the levels (`cabac_cpp.entropy_slice_native`)
+    on a thread pool;
+  * the pipelined route (`_encode_all_intra_pipelined`, CTU 64 or
+    FASTHEVC_FORCE_CLASSIC set): the search runs on the device and the
+    C++ slice engine (`cabac_cpp.encode_slice_native`) commits each frame,
+    deblocks, applies SAO and emits CABAC on a thread pool.
+Given the same config and frames, the stream is the one TpuEncoder writes
+on the same route.
 
 Every other route raises NotImplementedError naming the ROADMAP.md item
 that ports it; nothing falls back to the JAX package.
@@ -37,8 +43,9 @@ from fasthevc_tpu.spec.syntax import (
     write_sps,
     write_vps,
 )
-from fasthevc_tpu.utils.video import pad_plane, picture_hash
+from fasthevc_tpu.utils.video import HASH_CHECKSUM, pad_plane, picture_hash
 
+from .device_pipeline import device_path_ok, encode_group_device
 from .search import search_intra_maps_batch
 
 # Frames per search dispatch (fasthevc_tpu/codec/encoder.py FRAME_GROUP).
@@ -52,11 +59,14 @@ def _unported(what: str, item: str):
 
 
 class TorchEncoder:
-    """All-intra encoder with the intra search on a torch device.
+    """All-intra encoder on a torch device.
 
-    device: where the search runs ("cuda" launches the hand-written
+    device: where the device work runs ("cuda" launches the hand-written
     kernels; "cpu" runs their plain twins).  plain=True runs the twins on
-    any device, to hold the kernels against them.
+    any device, to hold the kernels against them.  `timing` holds the
+    phase times of the last encode: device_s, wait_s, entropy_s and
+    wall_s on the device route; search_s, wait_s, commit_s and wall_s on
+    the pipelined route.
     """
 
     def __init__(self, cfg: EncoderConfig, device="cuda",
@@ -113,6 +123,13 @@ class TorchEncoder:
         order = coding_order(self.cfg, len(frames), start_poc)
         if not all(st == SLICE_I for _, st, _, _ in order):
             raise _unported("P/B coding orders", "8-9")
+        # the reference's routing (fasthevc_tpu/codec/encoder.py:240-256):
+        # FASTHEVC_FORCE_CLASSIC selects the pipelined route; both routes
+        # run on the card
+        if (not os.environ.get("FASTHEVC_FORCE_CLASSIC")
+                and device_path_ok(self.cfg, sp)):
+            return self._encode_all_intra_device(frames, start_poc, out,
+                                                 on_frame)
         return self._encode_all_intra_pipelined(frames, start_poc, out,
                                                 on_frame)
 
@@ -122,69 +139,68 @@ class TorchEncoder:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _encode_all_intra_pipelined(self, frames, start_poc, out, on_frame):
-        """Search each group of frames on the device (two groups in
-        flight), then commit frames on a thread pool: the C++ slice engine
-        releases the GIL, so commits overlap each other and the search."""
+    def _upload_group(self, frames, i0: int, i1: int) -> tuple:
+        """Frames i0..i1 of [(y, cb, cr)] edge-padded to the CTU grid and
+        uploaded: ([F, PH, PW], [F, PH/2, PW/2], [F, PH/2, PW/2])."""
         sp = self.sp
-        cfg = self.cfg
         ctu = 1 << sp.log2_ctu
         pw = -(-sp.coded_width // ctu) * ctu
         ph = -(-sp.coded_height // ctu) * ctu
-        srcs = []
-        for y, cb, cr in frames:
-            src = Planes(sp)
-            src.y[:] = pad_plane(np.asarray(y, np.int32), sp.coded_height,
-                                 sp.coded_width)
-            src.cb[:] = pad_plane(np.asarray(cb, np.int32),
-                                  sp.coded_height // 2, sp.coded_width // 2)
-            src.cr[:] = pad_plane(np.asarray(cr, np.int32),
-                                  sp.coded_height // 2, sp.coded_width // 2)
-            srcs.append(src)
+        dtype = np.uint8 if sp.bit_depth == 8 else np.int32
+        return tuple(
+            self._upload([pad_plane(np.asarray(frames[i][p], np.int32), h, w)
+                          .astype(dtype) for i in range(i0, i1)])
+            for p, h, w in ((0, ph, pw), (1, ph // 2, pw // 2),
+                            (2, ph // 2, pw // 2)))
+
+    def _run_groups(self, frames, run_group, frame_job, span_key: str,
+                    job_key: str) -> list:
+        """Run the frame groups on the device, two in flight, and the
+        frames of each finished group through `frame_job` on a thread pool
+        (its native calls release the GIL, so frames overlap each other and
+        the device).
+
+        run_group(y, cb, cr) enqueues one group's device work on its
+        uploaded planes and returns a dict of output tensors, which come
+        back into pinned host memory behind a CUDA event; frame_job(host,
+        i, j) turns frame j of a group's outputs (numpy), frame i of the
+        clip, into (nal_bytes, planes).  Returns the frames' results in
+        order, and sets self.timing: span_key, the groups' spans on the
+        device (host time on the CPU); wait_s, the host's time blocked on
+        them; job_key, the frame jobs' times summed over the pool's
+        threads; wall_s."""
         n = len(frames)
-        group = min(cfg.frame_group or FRAME_GROUP, n)
-        up_dtype = np.uint8 if sp.bit_depth == 8 else np.int32
+        group = min(self.cfg.frame_group or FRAME_GROUP, n)
         starts = list(range(0, n, group))
-        pending: dict = {}
         cuda = self.device.type == "cuda"
+        timing = {span_key: 0.0, "wait_s": 0.0, job_key: 0.0}
+        pending: dict = {}
 
         def dispatch(ci):
-            rng = range(starts[ci], min(starts[ci] + group, n))
-            ys = self._upload([pad_plane(srcs[i].y, ph, pw).astype(up_dtype)
-                               for i in rng])
-            cbs = self._upload([pad_plane(srcs[i].cb, ph // 2, pw // 2)
-                                .astype(up_dtype) for i in rng])
-            crs = self._upload([pad_plane(srcs[i].cr, ph // 2, pw // 2)
-                                .astype(up_dtype) for i in rng])
+            planes = self._upload_group(frames, starts[ci],
+                                        min(starts[ci] + group, n))
             t_host = time.perf_counter()
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-            packed = search_intra_maps_batch(
-                ys, self.lambda_sqrt, sp.log2_ctu, sp.log2_min_cu,
-                sp.coded_width, sp.coded_height, cb_batch=cbs, cr_batch=crs,
-                rd_cands=cfg.num_intra_rd_candidates, plain=self.plain)
+            res = run_group(*planes)
             if not cuda:
-                timing["search_s"] += time.perf_counter() - t_host
-                pending[ci] = (packed, None, None)
+                timing[span_key] += time.perf_counter() - t_host
+                pending[ci] = (res, None, None)
                 return
-            # copy the maps back behind the search, without blocking
-            host = torch.empty(packed.shape, dtype=packed.dtype,
-                               pin_memory=True)
-            host.copy_(packed, non_blocking=True)
+            host = {}
+            for k, v in res.items():
+                host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                      pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             pending[ci] = (host, start, end)
 
-        def commit(src, packed):
+        def job(host, i, j):
             t = time.perf_counter()
-            result = self._encode_frame_native(src, packed)
-            return result, time.perf_counter() - t
+            return frame_job(host, i, j), time.perf_counter() - t
 
-        # search_s: the searches' spans on the device (host time on the
-        # CPU); wait_s: host time blocked on search results; commit_s: the
-        # frames' commit times summed over the pool's threads
-        timing = {"search_s": 0.0, "wait_s": 0.0, "commit_s": 0.0}
         t0 = time.perf_counter()
         workers = max(2, min(4, os.cpu_count() or 2))
         with ThreadPoolExecutor(max_workers=workers) as ex:
@@ -196,22 +212,24 @@ class TorchEncoder:
                 host, start, end = pending.pop(ci)
                 if end is not None:
                     end.synchronize()
-                    timing["search_s"] += start.elapsed_time(end) / 1e3
-                packed_all = host.numpy()
+                    timing[span_key] += start.elapsed_time(end) / 1e3
+                host = {k: v.numpy() for k, v in host.items()}
                 timing["wait_s"] += time.perf_counter() - tw
                 if ci + 2 < len(starts):
                     dispatch(ci + 2)
-                for j in range(packed_all.shape[0]):
-                    # every all-intra frame is an IDR: CVS-local POC is 0
-                    futs.append(ex.submit(commit, srcs[s + j],
-                                          packed_all[j]))
+                futs += [ex.submit(job, host, s + j, j)
+                         for j in range(min(group, n - s))]
             results = []
             for fut in futs:
                 result, dt = fut.result()
                 results.append(result)
-                timing["commit_s"] += dt
+                timing[job_key] += dt
         timing["wall_s"] = time.perf_counter() - t0
         self.timing = timing
+        return results
+
+    @staticmethod
+    def _emit(results, out, start_poc, on_frame):
         recons = []
         for i, (nal_bytes, planes) in enumerate(results):
             out += nal_bytes
@@ -219,6 +237,99 @@ class TorchEncoder:
             if on_frame is not None:
                 on_frame(start_poc + i, True, bytes(nal_bytes))
         return bytes(out), recons
+
+    def _encode_all_intra_device(self, frames, start_poc, out, on_frame):
+        """Device route: each group of frames runs search, exact commit,
+        deblock, SAO and checksum on the device; the host emits CABAC from
+        the fetched levels.  Counterpart of
+        fasthevc_tpu/codec/encoder.py:330-464, 496-516, without rate
+        control.  timing: device_s, wait_s, entropy_s, wall_s."""
+        sp = self.sp
+        cfg = self.cfg
+        ctu = 1 << sp.log2_ctu
+        qp = cfg.qp
+        qp_y, qp_cb, qp_cr = tu_qps(sp, qp)
+        tbx = tuple(int(b) * ctu for b in sp.tile_col_bounds()[1:-1])
+        tby = tuple(int(b) * ctu for b in sp.tile_row_bounds()[1:-1])
+        sao_on = bool(sp.sao_enabled)
+        cksum_hash = cfg.hash_type == HASH_CHECKSUM
+        gh, gw = sp.coded_height >> 3, sp.coded_width >> 3
+
+        def run_group(ys, cbs, crs):
+            return encode_group_device(
+                ys, cbs, crs, self.lambda_sqrt, qp_y, qp_cb, qp_cr, qp,
+                sp.log2_ctu, sp.log2_min_cu, sp.coded_width,
+                sp.coded_height, bool(sp.sign_data_hiding),
+                not sp.deblocking_disabled, sao_on, tbx, tby,
+                rd_cands=cfg.num_intra_rd_candidates, rdoq=bool(cfg.rdoq),
+                checksum=cksum_hash, plain=self.plain)
+
+        def emit_frame(res, i, j):
+            depth = np.ascontiguousarray(res["packed"][j, :gh, :gw, 0]
+                                         .astype(np.int8))
+            mode = np.ascontiguousarray(res["packed"][j, :gh, :gw, 1]
+                                        .astype(np.int8))
+            subs = cabac_cpp.entropy_slice_native(
+                sp, qp_y, qp_cb, qp_cr, depth, mode, res["lv_y"][j],
+                res["lv_cb"][j], res["lv_cr"][j], ContextSet(0, qp),
+                sao_params=res["sao"][j] if sao_on else None,
+                sdh=sp.sign_data_hiding, ts=sp.transform_skip_enabled)
+            sh = SliceHeader(
+                slice_type=SLICE_I, slice_qp=qp, is_idr=True, poc_lsb=0,
+                sao_luma=sao_on, sao_chroma=sao_on,
+                entry_points=tuple(len(s) for s in subs[:-1]))
+            w = write_slice_header(sh, sp, bs.NAL_IDR_W_RADL)
+            for s_bytes in subs:
+                w.append_bytes(s_bytes)
+            planes = Planes.__new__(Planes)
+            planes.y = res["rec_y"][j].astype(np.int32)
+            planes.cb = res["rec_cb"][j].astype(np.int32)
+            planes.cr = res["rec_cr"][j].astype(np.int32)
+            if cksum_hash:
+                md5s = [int(v).to_bytes(4, "big") for v in res["cksum"][j]]
+            else:
+                md5s = picture_hash((planes.y, planes.cb, planes.cr),
+                                    cfg.hash_type)
+            nal = bs.write_nal(bs.NAL_IDR_W_RADL, w.get_bytes())
+            nal += bs.write_nal(bs.NAL_SUFFIX_SEI,
+                                write_picture_hash_sei(md5s, cfg.hash_type))
+            return nal, planes
+
+        results = self._run_groups(frames, run_group, emit_frame,
+                                   "device_s", "entropy_s")
+        return self._emit(results, out, start_poc, on_frame)
+
+    def _encode_all_intra_pipelined(self, frames, start_poc, out, on_frame):
+        """Pipelined route: the search of each group runs on the device;
+        the C++ slice engine commits, filters and emits each frame.
+        timing: search_s, wait_s, commit_s, wall_s."""
+        sp = self.sp
+        srcs = []
+        for y, cb, cr in frames:
+            src = Planes(sp)
+            src.y[:] = pad_plane(np.asarray(y, np.int32), sp.coded_height,
+                                 sp.coded_width)
+            src.cb[:] = pad_plane(np.asarray(cb, np.int32),
+                                  sp.coded_height // 2, sp.coded_width // 2)
+            src.cr[:] = pad_plane(np.asarray(cr, np.int32),
+                                  sp.coded_height // 2, sp.coded_width // 2)
+            srcs.append(src)
+
+        def run_group(ys, cbs, crs):
+            return {"packed": search_intra_maps_batch(
+                ys, self.lambda_sqrt, sp.log2_ctu, sp.log2_min_cu,
+                sp.coded_width, sp.coded_height, cb_batch=cbs, cr_batch=crs,
+                rd_cands=self.cfg.num_intra_rd_candidates,
+                plain=self.plain)}
+
+        def commit(res, i, j):
+            # every all-intra frame is an IDR: CVS-local POC is 0
+            return self._encode_frame_native(srcs[i], res["packed"][j])
+
+        results = self._run_groups([(s.y, s.cb, s.cr) for s in srcs],
+                                   run_group, commit, "search_s",
+                                   "commit_s")
+        return self._emit(results, out, start_poc, on_frame)
 
     def _encode_frame_native(self, src, packed):
         """One IDR picture through the C++ slice engine: packed decision

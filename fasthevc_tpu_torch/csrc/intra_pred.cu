@@ -4,7 +4,8 @@
 // predict_selected (:239).  Planar, DC with the luma edge filters for n<32,
 // the 33 angular modes with the inverse-angle reference extension, the
 // [1 2 1] reference smoothing chosen per mode (spec.intra.should_filter),
-// and the mode 10/26 boundary filters.
+// and the mode 10/26 boundary filters (the per-sample formula is shared
+// with K5 through intra_common.cuh).
 //
 // Bound on the H100: device-memory writes.  The output [B, M, n, n] int32
 // is 35 * n^2 * 4 bytes per block (292 MB per 1080p frame at every n)
@@ -18,6 +19,8 @@
 // workaround and is not carried over.
 
 #include <cuda_runtime.h>
+
+#include "intra_common.cuh"
 
 namespace {
 
@@ -49,23 +52,9 @@ __global__ void intra_pred_kernel(const int* __restrict__ top,
     const int j = i / L, k = i - j * L;
     const int* t = refs + j * stride;
     const int* l = t + L;
-    int tf, lf;
-    if (k == 0) {
-      tf = lf = (l[1] + 2 * t[0] + t[1] + 2) >> 2;
-    } else if (k == L - 1) {
-      tf = t[k];
-      lf = l[k];
-    } else {
-      tf = (t[k - 1] + 2 * t[k] + t[k + 1] + 2) >> 2;
-      lf = (l[k - 1] + 2 * l[k] + l[k + 1] + 2) >> 2;
-    }
-    refs[j * stride + 2 * L + k] = tf;
-    refs[j * stride + 3 * L + k] = lf;
-    if (k == 0) {
-      int dc = n;
-      for (int q = 1; q <= n; ++q) dc += t[q] + l[q];
-      refs[j * stride + 4 * L] = dc >> (lg + 1);
-    }
+    intra_filter_ref(t, l, k, L, &refs[j * stride + 2 * L + k],
+                     &refs[j * stride + 3 * L + k]);
+    if (k == 0) refs[j * stride + 4 * L] = intra_dc(t, l, n, lg);
   }
   __syncthreads();
 
@@ -82,43 +71,9 @@ __global__ void intra_pred_kernel(const int* __restrict__ top,
     const int* t = refs + j * stride;
     const int* l = t + L;
     const bool filt = tab[70 + mode] != 0;
-    const int* ft = filt ? t + 2 * L : t;
-    const int* fl = filt ? t + 3 * L : l;
-    int v;
-    if (mode == 0) {  // planar
-      v = ((n - 1 - x) * fl[1 + y] + (x + 1) * ft[n + 1] +
-           (n - 1 - y) * ft[1 + x] + (y + 1) * fl[n + 1] + n) >> (lg + 1);
-    } else if (mode == 1) {  // DC
-      const int dc = t[4 * L];
-      v = dc;
-      if (edge) {
-        if (x == 0 && y == 0)
-          v = (l[1] + 2 * dc + t[1] + 2) >> 2;
-        else if (y == 0)
-          v = (t[1 + x] + 3 * dc + 2) >> 2;
-        else if (x == 0)
-          v = (l[1 + y] + 3 * dc + 2) >> 2;
-      }
-    } else {  // angular 2..34; modes < 18 are the transpose of vertical
-      const int angle = tab[mode];
-      const int inv = tab[35 + mode];
-      const bool vert = mode >= 18;
-      const int* main_ref = vert ? ft : fl;
-      const int* side_ref = vert ? fl : ft;
-      const int yy = vert ? y : x;
-      const int xx = vert ? x : y;
-      const int pos = (yy + 1) * angle;
-      const int idx = pos >> 5, fact = pos & 31;
-      const int ka = xx + idx + 1;
-      const int kb = min(xx + idx + 2, 2 * n);
-      const int a = ka >= 0 ? main_ref[ka] : side_ref[(ka * inv + 128) >> 8];
-      const int c = kb >= 0 ? main_ref[kb] : side_ref[(kb * inv + 128) >> 8];
-      v = ((32 - fact) * a + fact * c + 16) >> 5;
-      if (edge && mode == 26 && x == 0)
-        v = min(max(t[1] + ((l[1 + y] - l[0]) >> 1), 0), max_val);
-      if (edge && mode == 10 && y == 0)
-        v = min(max(l[1] + ((t[1 + x] - t[0]) >> 1), 0), max_val);
-    }
+    const int v = intra_sample(mode, x, y, n, lg, t, l, filt ? t + 2 * L : t,
+                               filt ? t + 3 * L : l, t[4 * L], tab[mode],
+                               tab[35 + mode], edge, max_val);
     out[(size_t)b * per + r] = v;
   }
 }

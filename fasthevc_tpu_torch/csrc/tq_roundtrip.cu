@@ -13,9 +13,12 @@
 // threads per group of blocks (256 / n^2 blocks when n <= 16, one block at
 // n = 32); the DCT matrix and two n x n int32 work tiles per block live in
 // shared memory; each thread computes whole output samples of each
-// matrix stage, with a barrier between stages.
+// matrix stage, with a barrier between stages.  The stages are shared with
+// K5 through tq_common.cuh.
 
 #include <cuda_runtime.h>
+
+#include "tq_common.cuh"
 
 namespace {
 
@@ -51,52 +54,32 @@ __global__ void tq_kernel(const int* __restrict__ res,
     A[j * 2 * nn + p] = res[(size_t)(b0 + j) * nn + p];
   }
   __syncthreads();
-  // forward stage 1: tmp[k][m] = sum_j T[k][j] x[j][m]
   for (int i = threadIdx.x; i < tot; i += blockDim.x) {
-    const int j = i / nn, p = i - j * nn, k = p >> lg, m = p & (n - 1);
-    const int* x = A + j * 2 * nn;
-    int acc = 0;
-    for (int q = 0; q < n; ++q) acc += T[k * n + q] * x[q * n + m];
-    if (shift1 > 0) acc = (acc + (1 << (shift1 - 1))) >> shift1;
-    A[j * 2 * nn + nn + p] = acc;
+    const int j = i / nn, p = i - j * nn;
+    A[j * 2 * nn + nn + p] =
+        tq_fwd1(T, A + j * 2 * nn, n, p >> lg, p & (n - 1), shift1);
   }
   __syncthreads();
-  // forward stage 2 + quantise + dequantise:
-  // coef[k][l] = sum_m tmp[k][m] T[l][m]
+  // forward stage 2, quantise, dequantise
   for (int i = threadIdx.x; i < tot; i += blockDim.x) {
-    const int j = i / nn, p = i - j * nn, k = p >> lg, l = p & (n - 1);
-    const int* tmp = A + j * 2 * nn + nn;
-    int acc = 0;
-    for (int q = 0; q < n; ++q) acc += tmp[k * n + q] * T[l * n + q];
-    const long long c = (acc + (1 << (shift2 - 1))) >> shift2;
-    long long lv = ((c < 0 ? -c : c) * scale + f) >> qbits;
-    lv = lv > 32767 ? 32767 : lv;
-    lv = c < 0 ? -lv : (c > 0 ? lv : 0);
-    levels[(size_t)(b0 + j) * nn + p] = (int)lv;
-    long long d = ((lv * dq) << (qp / 6)) + (1LL << (bd_shift - 1));
-    d >>= bd_shift;
-    d = d < -32768 ? -32768 : (d > 32767 ? 32767 : d);
-    A[j * 2 * nn + p] = (int)d;
+    const int j = i / nn, p = i - j * nn;
+    const int c = tq_fwd2(A + j * 2 * nn + nn, T, n, p >> lg, p & (n - 1),
+                          shift2);
+    const int lv = tq_quant(c, scale, f, qbits);
+    levels[(size_t)(b0 + j) * nn + p] = lv;
+    A[j * 2 * nn + p] = tq_dequant(lv, dq, qp / 6, bd_shift);
   }
   __syncthreads();
-  // inverse stage 1: e[k][m] = sum_q T[q][k] deq[q][m], clipped to 16 bits
   for (int i = threadIdx.x; i < tot; i += blockDim.x) {
-    const int j = i / nn, p = i - j * nn, k = p >> lg, m = p & (n - 1);
-    const int* dqt = A + j * 2 * nn;
-    int acc = 0;
-    for (int q = 0; q < n; ++q) acc += T[q * n + k] * dqt[q * n + m];
-    acc = (acc + 64) >> 7;
-    A[j * 2 * nn + nn + p] = min(max(acc, -32768), 32767);
+    const int j = i / nn, p = i - j * nn;
+    A[j * 2 * nn + nn + p] = tq_inv1(T, A + j * 2 * nn, n, p >> lg,
+                                     p & (n - 1));
   }
   __syncthreads();
-  // inverse stage 2: r[k][l] = sum_m e[k][m] T[m][l]
   for (int i = threadIdx.x; i < tot; i += blockDim.x) {
-    const int j = i / nn, p = i - j * nn, k = p >> lg, l = p & (n - 1);
-    const int* e = A + j * 2 * nn + nn;
-    int acc = 0;
-    for (int q = 0; q < n; ++q) acc += e[k * n + q] * T[q * n + l];
-    acc = (acc + (1 << (inv_shift2 - 1))) >> inv_shift2;
-    recon[(size_t)(b0 + j) * nn + p] = min(max(acc, -32768), 32767);
+    const int j = i / nn, p = i - j * nn;
+    recon[(size_t)(b0 + j) * nn + p] =
+        tq_inv2(A + j * 2 * nn + nn, T, n, p >> lg, p & (n - 1), inv_shift2);
   }
 }
 

@@ -1,10 +1,19 @@
-"""Exact integer T -> Q -> IQ -> IT of the intra search.
+"""Exact integer transforms and quantisers: the search's T/Q/IQ/IT round
+trip and the commit's building blocks.
 
-Counterpart of fasthevc_tpu/ops/transform.py tq_roundtrip_fast, the JAX
-search's f32 stand-in, computed here in the exact integer form of its
-tq_roundtrip (the two agree on the search's inputs; see the tests).
-`tq_roundtrip` goes through kernel K3 (csrc/tq_roundtrip.cu) for CUDA
-tensors; `tq_roundtrip_plain` is its PyTorch twin.
+Counterpart of fasthevc_tpu/ops/transform.py.  `fwd_transform`,
+`inv_transform`, `quantize`, `quantize_mixed`, `dequantize` and the thin
+`tq_roundtrip_plain` over them are the plain PyTorch forms of the JAX
+functions of the same names; on the card the commit runs them inside
+kernel K5 (csrc/commit_intra.cu).  `tq_roundtrip` goes through kernel K3
+(csrc/tq_roundtrip.cu) for CUDA tensors: the exact integer form of the JAX
+search's f32 stand-in `tq_roundtrip_fast`.  K3 and K5 share one device
+implementation of these stages (csrc/tq_common.cuh).
+
+The matrix stages run in float64, which is exact here (every product and
+sum stays below 2^31); shifts, clips and the quantisers are int64.
+`dequantize` follows spec/transform.py where the JAX function's int32
+product wraps (|level| * 1152 << qp//6 >= 2^31; ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import torch
 
 from fasthevc_tpu.spec.tables import (
     DCT_MATRICES,
+    DST4,
     INV_QUANT_SCALES,
     MAX_TR_DYNAMIC_RANGE,
     QUANT_SCALES,
@@ -25,12 +35,13 @@ from .. import _build
 _DEVICE_MATS: dict = {}
 
 
-def _dct(n: int, device, dtype) -> torch.Tensor:
-    key = (n, str(device), dtype)
+def _mat(log2_size: int, use_dst: bool, device, dtype) -> torch.Tensor:
+    key = (log2_size, use_dst, str(device), dtype)
     if key not in _DEVICE_MATS:
+        m = DST4 if use_dst else DCT_MATRICES[1 << log2_size]
         _DEVICE_MATS[key] = torch.from_numpy(
-            np.ascontiguousarray(DCT_MATRICES[n], dtype=np.int64)
-        ).to(device=device, dtype=dtype)
+            np.ascontiguousarray(m, dtype=np.int64)).to(device=device,
+                                                        dtype=dtype)
     return _DEVICE_MATS[key]
 
 
@@ -38,36 +49,67 @@ def _round_shift(x: torch.Tensor, shift: int) -> torch.Tensor:
     return (x + (1 << (shift - 1))) >> shift
 
 
-def tq_roundtrip_plain(res: torch.Tensor, qp: int, log2_size: int,
-                       bit_depth: int = 8):
-    """K3's twin: res [B, N, N] -> (levels, recon residual), int32.
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)
+                        ).round().to(torch.int64)
 
-    The matrix stages run in float64, which is exact here (every product
-    and sum stays below 2^31); shifts, clips and the quantiser are int64."""
-    n = 1 << log2_size
-    t = _dct(n, res.device, torch.float64)
 
-    def mm(a, b):
-        return torch.matmul(a.to(torch.float64), b.to(torch.float64)
-                            ).round().to(torch.int64)
-
-    x = res.to(torch.float64)
+def fwd_transform(res: torch.Tensor, log2_size: int, bit_depth: int = 8,
+                  use_dst: bool = False) -> torch.Tensor:
+    """Forward core transform of [..., N, N] residuals (int64 out)."""
+    t = _mat(log2_size, use_dst, res.device, torch.float64)
     shift1 = log2_size + bit_depth - 9
-    tmp = mm(t, x)                                      # T @ X
+    tmp = _mm(t, res)                                   # T @ X
     if shift1 > 0:
         tmp = _round_shift(tmp, shift1)
-    coeffs = _round_shift(mm(tmp, t.T), log2_size + 6)  # (T X) @ T^T
+    return _round_shift(_mm(tmp, t.T), log2_size + 6)   # (T X) @ T^T
+
+
+def inv_transform(coeffs: torch.Tensor, log2_size: int, bit_depth: int = 8,
+                  use_dst: bool = False) -> torch.Tensor:
+    """Normative inverse transform (spec 8.6.4) of [..., N, N] (int64)."""
+    t = _mat(log2_size, use_dst, coeffs.device, torch.float64)
+    e = _round_shift(_mm(t.T, coeffs), 7).clamp(-32768, 32767)  # T^T @ D
+    return _round_shift(_mm(e, t), 20 - bit_depth).clamp(-32768, 32767)
+
+
+def quantize_mixed(coeffs: torch.Tensor, qp: int, log2_size: int,
+                   bit_depth: int, intra_mask: torch.Tensor) -> torch.Tensor:
+    """Dead-zone quantiser with a per-block offset: 171/512 where
+    intra_mask [B] is set, 85/512 elsewhere.  coeffs [B, N, N]."""
     qbits = QUANT_SHIFT + qp // 6 + (MAX_TR_DYNAMIC_RANGE - bit_depth
                                      - log2_size)
     scale = int(QUANT_SCALES[qp % 6])
-    level = ((coeffs.abs() * scale + (171 << (qbits - 9))) >> qbits)
-    levels = torch.sign(coeffs) * level.clamp(0, 32767)
+    dz = torch.where(intra_mask, 171, 85).to(torch.int64)[:, None, None]
+    c = coeffs.to(torch.int64)
+    level = ((c.abs() * scale + (dz << (qbits - 9))) >> qbits).clamp(0, 32767)
+    return torch.sign(c) * level
+
+
+def quantize(coeffs: torch.Tensor, qp: int, log2_size: int,
+             bit_depth: int = 8, is_intra: bool = True) -> torch.Tensor:
+    """Forward scalar quantisation of [B, N, N] at one QP."""
+    mask = torch.full((coeffs.shape[0],), is_intra, dtype=torch.bool,
+                      device=coeffs.device)
+    return quantize_mixed(coeffs, qp, log2_size, bit_depth, mask)
+
+
+def dequantize(levels: torch.Tensor, qp: int, log2_size: int,
+               bit_depth: int = 8) -> torch.Tensor:
+    """Normative flat-list dequantisation (spec 8.6.3), int64 products."""
     bd_shift = bit_depth + log2_size - 5
-    dscale = int(INV_QUANT_SCALES[qp % 6]) * 16
-    deq = _round_shift((levels * dscale) << (qp // 6), bd_shift)
-    deq = deq.clamp(-32768, 32767)
-    e = _round_shift(mm(t.T, deq), 7).clamp(-32768, 32767)   # T^T @ D
-    r = _round_shift(mm(e, t), 20 - bit_depth).clamp(-32768, 32767)
+    scale = int(INV_QUANT_SCALES[qp % 6]) * 16
+    d = _round_shift((levels.to(torch.int64) * scale) << (qp // 6), bd_shift)
+    return d.clamp(-32768, 32767)
+
+
+def tq_roundtrip_plain(res: torch.Tensor, qp: int, log2_size: int,
+                       bit_depth: int = 8):
+    """K3's twin: res [B, N, N] -> (levels, recon residual), int32."""
+    levels = quantize(fwd_transform(res, log2_size, bit_depth), qp,
+                      log2_size, bit_depth)
+    r = inv_transform(dequantize(levels, qp, log2_size, bit_depth),
+                      log2_size, bit_depth)
     return levels.to(torch.int32), r.to(torch.int32)
 
 
@@ -86,7 +128,7 @@ def tq_roundtrip(res: torch.Tensor, qp: int, log2_size: int,
     b = res.shape[0]
     levels = torch.empty_like(res)
     recon = torch.empty_like(res)
-    mat = _dct(n, res.device, torch.int32)
+    mat = _mat(log2_size, False, res.device, torch.int32)
     rc = _build.lib().fhv_tq_roundtrip(
         res.data_ptr(), mat.data_ptr(), levels.data_ptr(), recon.data_ptr(),
         b, n, log2_size, int(qp), bit_depth, _build.stream_handle(res))

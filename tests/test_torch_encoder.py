@@ -65,10 +65,16 @@ def test_plain_flag_gives_the_same_stream():
 def test_port_imports_no_jax():
     code = ("import sys; import fasthevc_tpu_torch.codec.encoder; "
             "import fasthevc_tpu_torch.codec.search; "
+            "import fasthevc_tpu_torch.codec.device_pipeline; "
+            "import fasthevc_tpu_torch.ops.rdoq; "
+            "import fasthevc_tpu_torch.ops.commit; "
+            "import fasthevc_tpu_torch.ops.deblock; "
+            "import fasthevc_tpu_torch.ops.sao; "
             "import fasthevc_tpu_torch._build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax', 'fasthevc_tpu.ops', "
-            "'fasthevc_tpu.codec.search', 'fasthevc_tpu.codec.encoder'))]; "
+            "'fasthevc_tpu.codec.search', 'fasthevc_tpu.codec.encoder', "
+            "'fasthevc_tpu.codec.device_pipeline'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

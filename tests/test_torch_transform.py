@@ -47,3 +47,47 @@ def test_tq_roundtrip_matches_spec_oracle(lg):
             spec_tr.dequantize(levels, 30, 8), 8, False)
         np.testing.assert_array_equal(lv[i].numpy(), levels)
         np.testing.assert_array_equal(rq[i].numpy(), recon)
+
+
+@pytest.mark.parametrize("lg,use_dst", [(2, False), (2, True), (3, False),
+                                        (4, False), (5, False)])
+def test_exact_stages_match_jax(lg, use_dst):
+    """fwd_transform, quantize(_mixed), dequantize and inv_transform are
+    the JAX functions of the same names, exactly."""
+    res = _residuals(lg, 40, seed=60 + lg)
+    jc = np.asarray(jtr.fwd_transform(jnp.asarray(res), lg, 8, use_dst))
+    tc = transform.fwd_transform(torch.from_numpy(res), lg, 8, use_dst)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    mask = np.arange(res.shape[0]) % 3 != 0
+    for qp in (22, 37):
+        jl = np.asarray(jtr.quantize_mixed(jnp.asarray(jc), jnp.int32(qp), lg,
+                                           8, jnp.asarray(mask)))
+        tl = transform.quantize_mixed(tc, qp, lg, 8, torch.from_numpy(mask))
+        np.testing.assert_array_equal(tl.numpy(), jl)
+        for intra in (True, False):
+            np.testing.assert_array_equal(
+                transform.quantize(tc, qp, lg, 8, intra).numpy(),
+                np.asarray(jtr.quantize(jnp.asarray(jc), qp, lg, 8, intra)))
+        jd = np.asarray(jtr.dequantize(jnp.asarray(jl), qp, lg, 8))
+        td = transform.dequantize(tl, qp, lg, 8)
+        np.testing.assert_array_equal(td.numpy(), jd)
+        np.testing.assert_array_equal(
+            transform.inv_transform(td, lg, 8, use_dst).numpy(),
+            np.asarray(jtr.inv_transform(jnp.asarray(jd), lg, 8, use_dst)))
+
+
+@pytest.mark.parametrize("qp", [36, 42, 51])
+def test_dequantize_follows_the_spec_where_jax_wraps(qp):
+    """|level| * 1152 << qp//6 reaches 2^31 at high QPs: the spec's int64
+    product saturates to +-32767/-32768, JAX's int32 product (no x64)
+    wraps and flips the sign at QP 42 and 51.  The port follows the spec
+    (ROADMAP.md queue 3 logs the reference's side)."""
+    lv = np.zeros((4, 4), np.int32)
+    lv[0, :4] = [32767, -32767, 8000, -7282]
+    lv[1, :2] = [1000, -1]
+    want = spec_tr.dequantize(lv, qp, 8)
+    got = transform.dequantize(torch.from_numpy(lv)[None], qp, 2, 8)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    jax_out = np.asarray(jtr.dequantize(jnp.asarray(lv)[None], jnp.int32(qp),
+                                        2, 8))[0]
+    assert np.array_equal(jax_out, want) == (qp == 36)
