@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the fasthevc_tpu_torch all-intra encoder once on one CUDA card.
+"""Drive the fasthevc_tpu_torch encoder once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --profile    # only the profiled 1080p LDP encode
 
 Phases (any failure raises, and the script exits non-zero):
   0. the card: requires torch.cuda.is_available(); prints nvidia-smi's
@@ -9,26 +10,43 @@ Phases (any failure raises, and the script exits non-zero):
   1. builds the CUDA kernels from fasthevc_tpu_torch/csrc (one nvcc per
      source, all started together);
   2. runs every kernel against its plain PyTorch twin on the card, from
-     seeded numpy inputs at the shapes a 1920x1080 group of 8 frames gives
-     it: K1-K4 (the search) exactly, K4's rate within 1e-5 relative;
-     then, on the decision maps of one search of that group, K5 (the
-     wavefront commit with the RDOQ trellis; its twin on the first 2
-     frames, since the twin runs wave by wave), K6 (deblock), K7 (SAO) and
-     K8 (checksum) on all 8 frames, exactly; prints each median time
-     beside the twin's (CUDA events);
+     seeded inputs at the shapes the 1920x1080 main paths give it, and
+     prints each median time (CUDA events) beside the twin's, its bound
+     and what sets the bound:
+     a. K1-K4 (the search) on a group of 8 frames, exactly (K4's rate
+        within 1e-5 relative); then, on the decision maps of one search of
+        that group, K5 (the wavefront commit with the RDOQ trellis; its
+        twin on the first 2 frames), K6 (deblock), K7 (SAO) and K8
+        (checksum), exactly;
+     b. the P kernels on one P frame of phase 7's clip with two
+        references at SR 64: K9 (decimation, coarse full search, +-3
+        refinement), K10 (sub-pel), K11 (merge-candidate MC and the
+        commit's MC planes), K5's mixed form (RDOQ on) and K6 with
+        boundary strengths, exactly;
   3. encodes synthesized 1920x1080 QP32 frames with TorchEncoder on its
-     device route (bench.py's tools: default tools, auto_tile_grid tiles,
-     hash type 2): one warm-up group, then 16 timed frames; prints fps,
-     kbit/frame, Y-PSNR and the device / host-wait / entropy split, and
-     requires every kernel K1-K8 to have been launched by that encode;
-  4. encodes the same 16 frames with the twins on the card: the stream
-     must be byte-identical;
+     all-intra device route (bench.py's tools: default tools,
+     auto_tile_grid tiles, hash type 2): one warm-up group, then 16 timed
+     frames; prints fps, kbit/frame, Y-PSNR and the device / host-wait /
+     entropy split, and requires every kernel of the route to have been
+     launched by that encode;
+  4. encodes the first 8 of those frames with the kernels and with the
+     twins on the card: the streams must be byte-identical;
   5. encodes a 416x240 2-frame clip on the device route on the card and
      with the twins on the CPU: identical streams that decode with
      matching picture hashes in SpecDecoder;
   6. the pipelined route (CTU 64: device search, host C++ commit): the
      same 416x240 check, then 8 timed 1080p frames after a warm-up, fps
-     printed beside phase 3's, requiring K1-K4 to have been launched.
+     printed beside phase 3's, requiring K1-K4 to have been launched;
+  7. the low-delay P device route: low_delay_p(1920, 1080, qp=32,
+     hash_type=2) on synthesized frames, a warm-up, then one I frame and 8
+     P frames timed;
+     prints fps, kbit/frame, Y-PSNR and the split, and requires every
+     kernel of the route (K1-K11 with K5's mixed form and K6's strengths)
+     to have been launched by that encode;
+  8. the first 3 frames of that clip through the kernels and through the
+     twins on the card: byte-identical streams;
+  9. a 416x240 4-frame low-delay P clip on the card and with the twins on
+     the CPU: identical streams that decode hash-clean in SpecDecoder.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -46,23 +64,44 @@ import numpy as np
 
 WIDTH, HEIGHT, GROUP, TIMED = 1920, 1080, 8, 16
 QP = 32
+SR = 64                  # low_delay_p's search range (config.py default)
+LDP_TIMED_P = 8          # P frames of the timed low-delay encode
+LDP_TWIN_FRAMES = 3      # its twin-route check (K5's twin: ~1 min a frame)
 RATE_RTOL = 1e-5
 TWIN_FRAMES = 2          # K5's twin at 1080p: the first frames of the group
+# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W):
+# 3.35 TB/s of device memory; 67 TFLOP/s f32 outside the tensor cores is
+# 132 SMs x 128 lanes x 2 (multiply-add) x 1.98 GHz, and an SM has half as
+# many int32 lanes, so int32 work peaks at 33.5 T operations/s (a
+# multiply-add counted as two).  The kernels here are int32 work.
+PEAK_BYTES_S = 3.35e12
+PEAK_INT32_OPS_S = 33.5e12
 SEARCH_KERNELS = ("intra_pred", "satd", "tq_roundtrip", "sse_rate")
-DEVICE_KERNELS = SEARCH_KERNELS + ("commit_intra", "deblock", "sao",
-                                   "checksum")
+INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
+P_KERNELS = ("me_downsample4", "me_full_search", "me_refine", "subpel",
+             "mc_sel", "inter_pred", "commit_mixed", "deblock_bs",
+             "deblock_cbf")
+LDP_ROUTE = INTRA_ROUTE + P_KERNELS
 META = {
     "intra_pred": ("csrc/intra_pred.cu", "fasthevc_tpu/ops/intra.py:171"),
     "satd": ("csrc/satd.cu", "fasthevc_tpu/ops/cost.py:26"),
     "tq_roundtrip": ("csrc/tq_roundtrip.cu",
                      "fasthevc_tpu/ops/transform.py:151"),
     "sse_rate": ("csrc/sse_rate.cu", "fasthevc_tpu/ops/cost.py:53"),
-    "commit_intra": ("csrc/commit_intra.cu",
-                     "fasthevc_tpu/ops/commit.py:545"),
+    "commit_intra": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:545"),
     "deblock": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:236"),
     "sao": ("csrc/sao.cu", "fasthevc_tpu/ops/sao.py:264"),
     "checksum": ("csrc/checksum.cu",
                  "fasthevc_tpu/codec/device_pipeline.py:55"),
+    "me_downsample4": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:129"),
+    "me_full_search": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:42"),
+    "me_refine": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:220"),
+    "subpel": ("csrc/subpel.cu", "fasthevc_tpu/ops/me.py:343"),
+    "mc_sel": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:671"),
+    "inter_pred": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
+    "commit_mixed": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:570"),
+    "deblock_bs": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:177"),
+    "deblock_cbf": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
 }
 
 
@@ -103,6 +142,14 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def _bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the int32 operations over the int32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _lambda_sqrt(qp: int) -> float:
     return float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
 
@@ -128,7 +175,27 @@ def _same(torch, name, a, b):
         raise AssertionError(f"{name}: {bad} values differ from the twin")
 
 
-def phase_search_kernels(torch, y, c, errs, timed):
+def _transform_ops(dm) -> float:
+    """Multiply-adds (as two ops) of the exact forward and inverse
+    transforms of every CU of depth maps dm [F, H/8, W/8] (CTU 32, TU ==
+    CU): 4 one-dimensional passes of n^3 multiply-adds for an n x n luma
+    block and its two n/2 chroma blocks."""
+    total = 0.0
+    for d in range(3):
+        n = 32 >> d
+        cus = float((dm == d).sum().item()) / (n // 8) ** 2
+        total += cus * 4 * 2 * (n ** 3 + 2 * (n // 2) ** 3)
+    return total
+
+
+def _interp_ops(n: int, taps: int) -> float:
+    """Multiply-adds (as two ops) of the separable interpolation of one
+    n x n block with a taps-tap filter: (n + taps - 1) rows of n horizontal
+    filters, then n x n vertical ones, taps multiply-adds each."""
+    return 2 * taps * ((n + taps - 1) * n + n * n)
+
+
+def phase_search_kernels(torch, y, c, errs, timed, work):
     from fasthevc_tpu_torch.codec.search import _blocks, search_qp
     from fasthevc_tpu_torch.ops import cost, intra, transform
 
@@ -161,17 +228,26 @@ def phase_search_kernels(torch, y, c, errs, timed):
         k4_check(f"n={n}", cost.sse_rate(res, rk, lk),
                  cost.sse_rate_plain(res, rk, lk))
         if n == 8:  # the largest batch: B = 8 * 136 * 240 blocks
+            b, bt = src.shape[0], res.shape[0]
             timed["intra_pred"] = (
                 _median_ms(lambda: intra.predict_all_modes(top, left, lg)),
                 _median_ms(lambda: intra.predict_plain(top, left, lg)))
+            work["intra_pred"] = (4 * (2 * b * (2 * n + 1) + b * 35 * n * n),
+                                  6 * b * 35 * n * n)
             timed["satd"] = (_median_ms(lambda: cost.satd(src, pk)),
                              _median_ms(lambda: cost.satd_plain(src, pk)))
+            work["satd"] = (4 * (b * n * n + b * 35 * n * n + b * 35),
+                            9 * b * 35 * n * n)
             timed["tq_roundtrip"] = (
                 _median_ms(lambda: transform.tq_roundtrip(res, qp, lg)),
                 _median_ms(lambda: transform.tq_roundtrip_plain(res, qp, lg)))
+            work["tq_roundtrip"] = (4 * 3 * bt * n * n,
+                                    bt * (4 * 2 * n ** 3 + 10 * n * n))
             timed["sse_rate"] = (
                 _median_ms(lambda: cost.sse_rate(res, rk, lk)),
                 _median_ms(lambda: cost.sse_rate_plain(res, rk, lk)))
+            work["sse_rate"] = (4 * 3 * bt * n * n + 8 * bt,
+                                12 * bt * n * n)
         del pk, sk, res, lk, rk, lp, rp
     # chroma DM: one selected mode per block
     gen = torch.Generator(device="cpu").manual_seed(7)
@@ -193,12 +269,12 @@ def phase_search_kernels(torch, y, c, errs, timed):
     torch.cuda.synchronize()
 
 
-def phase_pixel_kernels(torch, y, c, sp, timed):
+def phase_pixel_kernels(torch, y, c, sp, timed, work):
     """K5-K8 against their twins on the decisions of one 1080p search."""
-    from fasthevc_tpu.spec.ctu import tu_qps
     from fasthevc_tpu_torch.codec import device_pipeline as dp
     from fasthevc_tpu_torch.codec.search import search_intra_maps_batch
     from fasthevc_tpu_torch.ops import commit, deblock, sao
+    from fasthevc_tpu_torch.spec.ctu import tu_qps
 
     cb, cr = c, 255 - c
     ls = _lambda_sqrt(QP)
@@ -229,6 +305,10 @@ def phase_pixel_kernels(torch, y, c, sp, timed):
     k5_group_ms = _median_ms(lambda: run_commit(GROUP, False), reps=3)
     timed["commit_intra"] = (
         _median_ms(lambda: run_commit(TWIN_FRAMES, False), reps=3), twin_ms)
+    # source in, recon out (int32), levels out (int16), 1.5 planes each
+    px = TWIN_FRAMES * HEIGHT * WIDTH * 1.5
+    work["commit_intra"] = (px * (4 + 4 + 2),
+                            _transform_ops(dm[:TWIN_FRAMES]))
     print(f"kernel commit_intra: {k5_group_ms:.4f} ms for the group of "
           f"{GROUP} frames (1080p, RDOQ on)")
 
@@ -241,6 +321,9 @@ def phase_pixel_kernels(torch, y, c, sp, timed):
     timed["deblock"] = (_median_ms(lambda: deblock.deblock(*dargs)),
                         _median_ms(lambda: deblock.deblock(*dargs,
                                                            plain=True)))
+    gpx = GROUP * HEIGHT * WIDTH
+    segs = GROUP * (HEIGHT // 4 * gw + WIDTH // 4 * gh)
+    work["deblock"] = (gpx * 1.5 * 4 * 2 + 4 * GROUP * gh * gw, 120 * segs)
     sargs = (sy, scb, scr) + tuple(dk) + (5,)
     sk = sao.sao(*sargs)
     for name, a, b in zip(("y", "cb", "cr", "params"), sk,
@@ -248,12 +331,171 @@ def phase_pixel_kernels(torch, y, c, sp, timed):
         _same(torch, f"K7 {name}", a, b)
     timed["sao"] = (_median_ms(lambda: sao.sao(*sargs)),
                     _median_ms(lambda: sao.sao(*sargs, plain=True)))
+    work["sao"] = (gpx * 1.5 * 4 * 3, 30 * gpx * 1.5)
     y8 = sk[0].to(torch.uint8)
     _same(torch, "K8", dp.device_checksum(y8),
           dp.device_checksum(y8, plain=True))
     timed["checksum"] = (
         _median_ms(lambda: dp.device_checksum(y8)),
         _median_ms(lambda: dp.device_checksum(y8, plain=True)))
+    work["checksum"] = (gpx + 4 * GROUP, 4 * gpx)
+    torch.cuda.synchronize()
+
+
+def _p_frames(torch, dev):
+    """Frame 2 of the synthesized 1080p clip of phase 7 as a P frame, with
+    frames 1 and 0 as its references: (src [3 planes], refs [3 planes of
+    [2, H, W]]), int32 on dev."""
+    clip = _ldp_clip()[:3]
+
+    def planes(k):
+        return [torch.from_numpy(np.asarray(p, np.int32)).to(dev)
+                for p in clip[k]]
+
+    src, ref_a, ref_b = planes(2), planes(1), planes(0)
+    return src, [torch.stack([a, b]) for a, b in zip(ref_a, ref_b)]
+
+
+def phase_inter_kernels(torch, timed, work):
+    """K9-K11, K5's mixed form and K6 with strengths against their twins
+    on one 1080p P frame (SR 64, two references)."""
+    from fasthevc_tpu_torch.codec.search import search_p_maps
+    from fasthevc_tpu_torch.ops import commit, deblock, me
+
+    dev = torch.device("cuda")
+    src, refs = _p_frames(torch, dev)
+    ph = -(-HEIGHT // 32) * 32
+    pad = (0, 0, 0, ph - HEIGHT)
+    y = torch.nn.functional.pad(src[0][None].float(), pad,
+                                mode="replicate")[0].to(torch.int32)
+    r = torch.nn.functional.pad(refs[0].float(), pad,
+                                mode="replicate").to(torch.int32)
+    ls = _lambda_sqrt(QP)
+    hw, rr = ph * WIDTH, r.shape[0]
+
+    # K9: decimation, coarse full search (tier 16 on the 1/4 planes), the
+    # +-3 refinement of the 8-blocks around their 16-parent's base
+    planes = torch.cat([y[None], r])
+    ds = me.downsample4(planes)
+    _same(torch, "K9 downsample4", ds, me.downsample4(planes, plain=True))
+    timed["me_downsample4"] = (
+        _median_ms(lambda: me.downsample4(planes)),
+        _median_ms(lambda: me.downsample4(planes, plain=True)))
+    work["me_downsample4"] = (4 * 3 * hw * (1 + 1 / 16), 17 * 3 * hw / 16)
+    sr4 = -(-SR // 4)
+    fargs = (ds[0], ds[1:], None, 4, sr4, 4, 4, SR)
+    base16 = me.sad_search(*fargs)
+    _same(torch, "K9 full search", base16, me.sad_search(*fargs, plain=True))
+    timed["me_full_search"] = (
+        _median_ms(lambda: me.sad_search(*fargs), reps=3),
+        _median_ms(lambda: me.sad_search(*fargs, plain=True), reps=1))
+    b16 = hw // 256
+    work["me_full_search"] = (4 * (3 * hw / 16 + rr * b16 * 2),
+                              3 * rr * b16 * (2 * sr4 + 1) ** 2 * 16)
+    rargs = (y, r, base16, 8, 3, 16, 1, SR)
+    mv8 = me.sad_search(*rargs)
+    _same(torch, "K9 refine", mv8, me.sad_search(*rargs, plain=True))
+    timed["me_refine"] = (
+        _median_ms(lambda: me.sad_search(*rargs)),
+        _median_ms(lambda: me.sad_search(*rargs, plain=True), reps=1))
+    b8 = hw // 64
+    work["me_refine"] = (4 * (3 * hw + rr * b8 * 2), 3 * rr * b8 * 49 * 64)
+
+    # K10 on the 8-blocks, the largest batch
+    sk = me.subpel(y, r, mv8, 8, ls)
+    sp = me.subpel(y, r, mv8, 8, ls, plain=True)
+    for name, a, b in zip(("cost", "mvq", "pred"), sk, sp):
+        _same(torch, f"K10 {name}", a, b)
+    timed["subpel"] = (
+        _median_ms(lambda: me.subpel(y, r, mv8, 8, ls)),
+        _median_ms(lambda: me.subpel(y, r, mv8, 8, ls, plain=True), reps=1))
+    work["subpel"] = (4 * (3 * hw + rr * b8 * (3 + 64)),
+                      rr * b8 * 17 * (15 * 8 * 16 + 64 * 16 + 64 * 12))
+
+    # K11: the merge candidates' MC (left neighbours' MVs, mixed refs)
+    mvq = sk[1][0].reshape(ph // 8, WIDTH // 8, 2)
+    left = torch.cat([torch.zeros_like(mvq[:, :1]), mvq[:, :-1]], 1)
+    left = left.reshape(-1, 2).contiguous()
+    sel = (torch.arange(b8, device=dev) % 3 == 0).to(torch.int32)
+    margs = (r, base16, left, sel, 8, 16)
+    mk = me.mc_sel(*margs)
+    mp = me.mc_sel(*margs, plain=True)
+    if not torch.equal(mk[1], mp[1]) or not bool(mk[1].any()):
+        raise AssertionError("K11 mc_sel: valid differs from the twin")
+    _same(torch, "K11 mc_sel raw", mk[0], mp[0])
+    timed["mc_sel"] = (_median_ms(lambda: me.mc_sel(*margs)),
+                       _median_ms(lambda: me.mc_sel(*margs, plain=True)))
+    work["mc_sel"] = (4 * (rr * hw + b8 * (64 + 4)),
+                      b8 * _interp_ops(8, 8))
+
+    # the P search of the frame gives the commit's decisions
+    pk = search_p_maps(y[None], r[None], [ls], 5, 3, WIDTH, HEIGHT, SR,
+                       nref=[2])
+    gh, gw = HEIGHT // 8, WIDTH // 8
+    dm, mm, im = (pk[:, :gh, :gw, k].to(torch.int32) for k in (0, 1, 2))
+    mv = pk[:, :gh, :gw, 3:7].to(torch.int32)
+    rm = pk[:, :gh, :gw, 7:9].to(torch.int32)
+    inter = float((im > 0).float().mean().item())
+    ref1 = float((rm[..., 0] == 1).float().mean().item())
+    print(f"P search of the phase-2 frame: {inter:.3f} of the granules "
+          f"inter, {ref1:.3f} on the second reference")
+    ref_stacks = tuple(p[None] for p in refs)
+
+    def pred(plain=False):
+        return me.inter_pred_planes(ref_stacks, None, im, mv, ref_map=rm,
+                                    plain=plain)
+
+    pred_k = pred()
+    for name, a, b in zip(("y", "cb", "cr"), pred_k, pred(True)):
+        _same(torch, f"K11 inter_pred {name}", a, b)
+    timed["inter_pred"] = (_median_ms(pred), _median_ms(lambda: pred(True)))
+    fpx = HEIGHT * WIDTH
+    # uni-prediction: one luma 8x8 and two chroma 4x4 granules each
+    work["inter_pred"] = (
+        4 * (rr * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
+        gh * gw * (_interp_ops(8, 8) + 2 * _interp_ops(4, 4)))
+
+    # K5's mixed form, one frame, RDOQ on
+    qy, qc = QP, QP
+    lam = float(torch.tensor(ls, dtype=torch.float32) ** 2)
+    srcs = [p[None] for p in src]
+
+    def run_mixed(plain):
+        return commit.wavefront_commit_mixed(
+            *srcs, dm, mm, im, *pred_k, [qy], [qc], [qc], WIDTH, HEIGHT,
+            True, rdoq=True, lam=[lam], plain=plain)
+
+    rec = run_mixed(False)
+    twin, twin_ms = _timed_once(lambda: run_mixed(True))
+    for name, a, b in zip(("rec_y", "rec_cb", "rec_cr", "lv_y", "lv_cb",
+                           "lv_cr"), rec, twin):
+        _same(torch, f"K5 mixed {name}", a, b)
+    timed["commit_mixed"] = (_median_ms(lambda: run_mixed(False), reps=3),
+                             twin_ms)
+    work["commit_mixed"] = (fpx * 1.5 * (4 + 4 + 4 + 2),
+                            _transform_ops(dm))
+
+    # K6 with strengths (and the cbf pass), one frame
+    dargs = (*rec[:3], dm, [QP], [qc], [qc], 5)
+    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, lv_y=rec[3])
+    dk = deblock.deblock(*dargs, **kw)
+    for name, a, b in zip(("y", "cb", "cr"), dk,
+                          deblock.deblock(*dargs, plain=True, **kw)):
+        _same(torch, f"K6 bs {name}", a, b)
+    timed["deblock_bs"] = (
+        _median_ms(lambda: deblock.deblock(*dargs, **kw)),
+        _median_ms(lambda: deblock.deblock(*dargs, plain=True, **kw)))
+    segs = HEIGHT // 4 * gw + WIDTH // 4 * gh
+    work["deblock_bs"] = (fpx * 1.5 * 4 * 2 + 4 * gh * gw * 8,
+                          (120 + 40) * segs)
+    # the cbf pass alone: its share of the call above
+    lv = rec[3]
+    _same(torch, "K6 cbf", deblock.granule_nz(lv),
+          deblock.granule_nz(lv, plain=True))
+    timed["deblock_cbf"] = (
+        _median_ms(lambda: deblock.granule_nz(lv)),
+        _median_ms(lambda: deblock.granule_nz(lv, plain=True)))
+    work["deblock_cbf"] = (2 * fpx + 4 * gh * gw, fpx)
     torch.cuda.synchronize()
 
 
@@ -267,13 +509,20 @@ def _encode(torch, cfg, clip, device="cuda", plain=False):
     return stream, recons, time.perf_counter() - t0, enc
 
 
+def _require(launches: dict, names, what: str) -> None:
+    for name in names:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{what}")
+
+
 def phase_device_route(torch):
     """Phases 3 and 4; returns (launches, fps)."""
-    from fasthevc_tpu.config import EncoderConfig
-    from fasthevc_tpu.config.config import auto_tile_grid
-    from fasthevc_tpu.utils import psnr, synthesize_yuv, yuv_from_planes
     from fasthevc_tpu_torch import _build
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.config import EncoderConfig
+    from fasthevc_tpu_torch.config.config import auto_tile_grid
+    from fasthevc_tpu_torch.utils import psnr, synthesize_yuv, yuv_from_planes
 
     clip = synthesize_yuv(WIDTH, HEIGHT, GROUP + TIMED, seed=1)
     warm, timed_clip = clip[:GROUP], clip[GROUP:]
@@ -300,54 +549,56 @@ def phase_device_route(torch):
           f"{tm['wait_s']:.4f} s); host CABAC {tm['entropy_s']:.3f} "
           f"thread-s over the pool")
     print(f"launches in the timed device-route encode: {launches}")
-    for name in DEVICE_KERNELS:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 f"device-route encode")
-    # phase 4: the same frames through the twins on the card
+    _require(launches, INTRA_ROUTE, "all-intra device-route encode")
+    # phase 4: one group of those frames through the kernels and the twins
+    cfg4 = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=GROUP,
+                         tile_cols=tc, tile_rows=tr, hash_type=2)
+    kernel_stream, _, _, _ = _encode(torch, cfg4, timed_clip[:GROUP])
     before = dict(_build.LAUNCHES)
-    plain_stream, _, pdt, _ = _encode(torch, cfg, timed_clip, plain=True)
-    print(f"twin device route: {TIMED / pdt:.4f} fps")
+    plain_stream, _, pdt, _ = _encode(torch, cfg4, timed_clip[:GROUP],
+                                      plain=True)
+    print(f"twin device route: {GROUP / pdt:.4f} fps")
     if dict(_build.LAUNCHES) != before:
         raise AssertionError("the twin route launched a kernel")
-    if plain_stream != stream:
+    if plain_stream != kernel_stream:
         raise AssertionError("kernel-route stream differs from the twin "
                              "route's")
-    print(f"kernel route == twin route: {len(stream)} bytes identical")
+    print(f"kernel route == twin route: {len(kernel_stream)} bytes "
+          f"identical ({GROUP} frames)")
     return launches, fps
 
 
-def _check_small(torch, log2_ctu: int, route: str):
-    from fasthevc_tpu.config import EncoderConfig
-    from fasthevc_tpu.spec.decoder import SpecDecoder
-    from fasthevc_tpu.utils import synthesize_yuv
+def _check_small(torch, cfg, frames: int, route: str, keys: set):
+    """A 416x240 clip on the card and through the twins on the CPU:
+    identical streams that decode hash-clean."""
+    from fasthevc_tpu_torch.spec.decoder import SpecDecoder
+    from fasthevc_tpu_torch.utils import synthesize_yuv
 
-    clip = synthesize_yuv(416, 240, 2, seed=3)
-    cfg = EncoderConfig(width=416, height=240, qp=QP, frames=2,
-                        log2_ctu=log2_ctu)
+    clip = synthesize_yuv(416, 240, frames, seed=3)
     stream, _, _, enc = _encode(torch, cfg, clip)
-    if route == "device" and "device_s" not in enc.timing:
-        raise AssertionError("416x240 CTU 32 did not take the device route")
+    if not keys <= set(enc.timing):
+        raise AssertionError(f"416x240 did not take the {route} route")
     cpu_stream, _, _, _ = _encode(torch, cfg, clip, device="cpu")
     if stream != cpu_stream:
         raise AssertionError(f"416x240 {route} route: card stream differs "
                              f"from the CPU twins' stream")
     pics = SpecDecoder().decode(stream)
-    if len(pics) != 2 or not all(p.hash_ok for p in pics):
+    if len(pics) != frames or not all(p.hash_ok for p in pics):
         raise AssertionError(f"416x240 {route} route stream does not decode "
                              f"hash-clean")
-    print(f"416x240 {route} route (CTU {1 << log2_ctu}): {len(stream)} "
-          f"bytes, equal to the CPU twins' stream, {len(pics)} pictures "
-          f"hash_ok")
+    print(f"416x240 {route} route: {len(stream)} bytes, equal to the CPU "
+          f"twins' stream, {len(pics)} pictures hash_ok")
 
 
 def phase_pipelined_route(torch, device_fps: float):
-    from fasthevc_tpu.config import EncoderConfig
-    from fasthevc_tpu.config.config import auto_tile_grid
-    from fasthevc_tpu.utils import synthesize_yuv
     from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.config import EncoderConfig
+    from fasthevc_tpu_torch.config.config import auto_tile_grid
+    from fasthevc_tpu_torch.utils import synthesize_yuv
 
-    _check_small(torch, 6, "pipelined")
+    _check_small(torch, EncoderConfig(width=416, height=240, qp=QP, frames=2,
+                                      log2_ctu=6), 2, "pipelined (CTU 64)",
+                 {"search_s", "commit_s"})
     clip = synthesize_yuv(WIDTH, HEIGHT, 2 * GROUP, seed=1)
     tc, tr = auto_tile_grid(WIDTH, HEIGHT)
     cfg = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=GROUP,
@@ -363,53 +614,198 @@ def phase_pipelined_route(torch, device_fps: float):
           f"commit {tm['commit_s']:.3f} thread-s); device route at CTU 32: "
           f"{device_fps:.4f} fps")
     print(f"launches in the timed pipelined encode: {launches}")
-    for name in SEARCH_KERNELS:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 f"pipelined encode")
+    _require(launches, SEARCH_KERNELS, "pipelined encode")
+
+
+def _ldp_clip():
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+    return synthesize_yuv(WIDTH, HEIGHT, 1 + LDP_TIMED_P, seed=5)
+
+
+def _ldp_cfg(frames: int):
+    """low_delay_p at 1080p QP32 with phase 3's hash type (the checksum
+    from the card)."""
+    from fasthevc_tpu_torch.config import low_delay_p
+    return low_delay_p(width=WIDTH, height=HEIGHT, qp=QP, frames=frames,
+                       hash_type=2)
+
+
+def phase_ldp_route(torch):
+    """Phases 7 and 8; returns the launches of the timed encode."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
+
+    clip = _ldp_clip()
+    n = len(clip)
+    enc = TorchEncoder(_ldp_cfg(n), "cuda")
+    enc.encode(clip[:3])                   # warm-up: I + 2 P
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stream, recons = enc.encode(clip)
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    tm = enc.timing
+    ps = []
+    for f, r in zip(clip, recons):
+        ry, _, _ = yuv_from_planes((r.y, r.cb, r.cr), WIDTH, HEIGHT)
+        ps.append(psnr(f[0], ry))
+    batches = enc.spans
+    print(f"low-delay P device route, 1080p QP32 SR {SR}, 1 I + "
+          f"{LDP_TIMED_P} P frames: {n / dt:.4f} fps, "
+          f"{len(stream) * 8 / n / 1000:.2f} kbit/frame, Y-PSNR "
+          f"{np.mean(ps):.3f} dB (I {ps[0]:.3f}, P mean "
+          f"{np.mean(ps[1:]):.3f}); wall {dt:.3f} s; batches on the card "
+          f"{tm['device_s']:.4f} s (I {batches[0]:.4f} s, P mean "
+          f"{np.mean(batches[1:]):.4f} s), host blocked on them "
+          f"{tm['wait_s']:.4f} s; host CABAC {tm['entropy_s']:.3f} "
+          f"thread-s")
+    print(f"launches in the timed low-delay P encode: {launches}")
+    _require(launches, LDP_ROUTE, "low-delay P encode")
+    # phase 8: the first frames through the kernels and the twins
+    cfg = _ldp_cfg(LDP_TWIN_FRAMES)
+    kernel_stream, _, _, _ = _encode(torch, cfg, clip[:LDP_TWIN_FRAMES])
+    before = dict(_build.LAUNCHES)
+    plain_stream, _, pdt, _ = _encode(torch, cfg, clip[:LDP_TWIN_FRAMES],
+                                      plain=True)
+    if dict(_build.LAUNCHES) != before:
+        raise AssertionError("the low-delay P twin route launched a kernel")
+    if plain_stream != kernel_stream:
+        raise AssertionError("low-delay P kernel-route stream differs from "
+                             "the twin route's")
+    print(f"low-delay P kernel route == twin route: {len(kernel_stream)} "
+          f"bytes identical ({LDP_TWIN_FRAMES} frames; twins "
+          f"{pdt:.1f} s)")
+    return launches
+
+
+def profile_ldp(torch) -> None:
+    """One profiled 1080p LDP encode (after a warm-up and one unprofiled
+    repeat): device busy share, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+
+    clip = _ldp_clip()
+    enc = TorchEncoder(_ldp_cfg(len(clip)), "cuda")
+    enc.encode(clip[:3])
+    for label in ("unprofiled", "profiled"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if label == "profiled":
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        enc.encode(clip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if label == "profiled":
+            prof.__exit__(None, None, None)
+        print(f"{label} encode: {len(clip) / wall:.4f} fps, wall "
+              f"{wall:.4f} s, device_s {enc.timing['device_s']:.4f}, "
+              f"entropy {enc.timing['entropy_s']:.3f} thread-s, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+              f" MiB")
+    events = [e for e in prof.events()
+              if str(e.device_type).endswith("CUDA")
+              and e.time_range.elapsed_us() > 0]
+    if not events:
+        print("profiled: the profiler recorded no device time")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    idle = 100 * (1 - busy / 1e3 / (wall * 1e3))
+    print(f"profiled: device busy {busy / 1e3:.3f} ms of a "
+          f"{wall * 1e3:.3f} ms wall, idle {idle:.2f}%")
+    by_name: dict = {}
+    for e in events:
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
+    total = sum(t for t, _ in by_name.values())
+    for name, (t, k) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {t / 1e3:10.3f} ms {100 * t / total:5.1f}% {k:6d}x "
+              f"{name[:90]}")
 
 
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    # the device route is the default; this variable would force the
-    # pipelined one
+    # the device routes are the default; this variable would force the
+    # pipelined all-intra route (and refuse P orders)
     os.environ.pop("FASTHEVC_FORCE_CLASSIC", None)
     card = _card_line()
-    from fasthevc_tpu.config import EncoderConfig
-    from fasthevc_tpu.config.config import auto_tile_grid
-    from fasthevc_tpu.spec.encoder import config_to_sp
     from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.config import EncoderConfig
+    from fasthevc_tpu_torch.config.config import auto_tile_grid
+    from fasthevc_tpu_torch.spec.encoder import config_to_sp
 
     t_start = time.perf_counter()
     _build.lib()
     print(f"kernel build: {time.perf_counter() - t_start:.2f} s "
           f"({len(_build.sources())} sources)")
+    if "--profile" in sys.argv[1:]:
+        profile_ldp(torch)
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     dev = torch.device("cuda")
-    errs = {name: 0.0 for name in DEVICE_KERNELS}
+    errs = {name: 0.0 for name in META}
     timed: dict = {}
+    work: dict = {}
     y, c = _kernel_inputs(torch, dev)
-    phase_search_kernels(torch, y, c, errs, timed)
+    phase_search_kernels(torch, y, c, errs, timed, work)
     tc, tr = auto_tile_grid(WIDTH, HEIGHT)
     sp = config_to_sp(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
                                     tile_cols=tc, tile_rows=tr))
-    phase_pixel_kernels(torch, y, c, sp, timed)
+    phase_pixel_kernels(torch, y, c, sp, timed, work)
     del y, c
-    for name, (ms, plain_ms) in timed.items():
-        print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
-    print("(1080p group-of-8 shapes; K1-K4 at n=8; commit_intra on "
-          f"{TWIN_FRAMES} frames, RDOQ on)")
+    torch.cuda.empty_cache()
+    phase_inter_kernels(torch, timed, work)
+    bounds = {name: _bound(*work[name]) for name in META}
+    for name in META:
+        ms, plain_ms = timed[name]
+        b_ms, b_by = bounds[name]
+        print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    print("(phase 2a: 1080p group-of-8 shapes, K1-K4 at n=8, commit_intra "
+          f"on {TWIN_FRAMES} frames with RDOQ; phase 2b: one 1080p P frame, "
+          "SR 64, two references, ME and MC on the 8-blocks, commit_mixed "
+          "with RDOQ)")
     torch.cuda.empty_cache()
     launches, fps = phase_device_route(torch)
     torch.cuda.empty_cache()
-    _check_small(torch, 5, "device")
+    _check_small(torch, EncoderConfig(width=416, height=240, qp=QP,
+                                      frames=2), 2, "device (CTU 32)",
+                 {"device_s", "entropy_s"})
     phase_pipelined_route(torch, fps)
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in phase_ldp_route(torch).items()
+                     if k in P_KERNELS})
+    from fasthevc_tpu_torch.config import low_delay_p
+    _check_small(torch, low_delay_p(width=416, height=240, qp=QP, frames=4),
+                 4, "low-delay P", {"device_s", "entropy_s"})
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fasthevc_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],
-                "ms": timed[name][0], "plain_ms": timed[name][1]}
+                "ms": timed[name][0], "plain_ms": timed[name][1],
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": None}
                for name, (src, rep) in META.items()]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

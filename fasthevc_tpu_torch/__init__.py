@@ -2,17 +2,24 @@
 
 The JAX package `fasthevc_tpu` is the reference; this package mirrors its
 layout (`ops/`, `codec/`) so each function has a counterpart of the same
-name.  The dense per-pixel search stages are hand-written CUDA kernels for
-Hopper (`csrc/*.cu`, built by `_build.py` at first use); each has a plain
-PyTorch twin beside its wrapper, which the wrapper runs only for tensors
-that lie on the CPU.
+name.  The dense per-pixel stages are hand-written CUDA kernels for Hopper
+(`csrc/*.cu`, built by `_build.py` at first use); each has a plain PyTorch
+twin beside its wrapper, which the wrapper runs only for tensors that lie
+on the CPU.
 
-The host layers that never touch JAX are shared, not ported:
-`fasthevc_tpu.spec`, `fasthevc_tpu.cabac_cpp`, `fasthevc_tpu.config` and
-`fasthevc_tpu.utils`.  This package imports no JAX.
+The host layers that never touched JAX are this package's own verbatim
+copies, so that it imports nothing of `fasthevc_tpu` (and no JAX):
+  * `spec/` from `fasthevc_tpu/spec/` (the NumPy oracle, `SpecDecoder`,
+    the syntax writers, `MotionCtx`, the MC filter taps);
+  * `config/` from `fasthevc_tpu/config/`, `utils/` from
+    `fasthevc_tpu/utils/`, `codec/gop.py` from `fasthevc_tpu/codec/gop.py`;
+  * `cabac_cpp/` from `fasthevc_tpu/cabac_cpp/` (the C++ entropy engine,
+    loaded through ctypes), whose only change is where g++ writes its
+    library: `build/fasthevc_tpu_torch/`, keyed by a hash of the sources.
+A fix to one of these layers is made in both packages.
 
-Slice ported so far: the all-intra encode with the intra search on the
-GPU and the commit, in-loop filters and CABAC in the shared C++ engine
+Slices ported so far: the all-intra encode on both of TpuEncoder's routes
+and the low-delay P encode on the device route
 (`codec.encoder.TorchEncoder`).
 """
 

@@ -43,25 +43,38 @@ _SIGNATURES = {
     "fhv_intra_pred": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # src, preds, out, B, M, n, stream
     "fhv_satd": [_P, _P, _P, _I, _I, _I, _P],
-    # res, mat, levels, recon, B, n, lg, qp, bit_depth, stream
-    "fhv_tq_roundtrip": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # res, mat, levels, recon, B, n, lg, qp, bit_depth, dz, stream
+    "fhv_tq_roundtrip": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # res, rq, levels, dist, rate, B, n, lg, w0..w5, stream
     "fhv_sse_rate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                      _F, _P],
-    # src y/cb/cr, depth, mode, rec y/cb/cr, lv y/cb/cr, dct, scans,
-    # mode_tab, tiles, ntx, nty, ftab, itab, meta, lam, F, ph, pw, coded_w,
-    # coded_h, qp_y, qp_c, sdh, rdoq, bit_depth, stream
-    "fhv_commit_intra": [_P] * 15 + [_I, _I, _P, _P, _P, _F] + [_I] * 10
-    + [_P],
-    # in y/cb/cr, out y/cb/cr, depth, beta_tab, tc_tab, F, H, W, log2_ctu,
-    # qp, qp_cb, qp_cr, bit_depth, dir, stream
-    "fhv_deblock": [_P] * 9 + [_I] * 9 + [_P],
+    # src y/cb/cr, depth, mode, dir, ipred y/cb/cr, rec y/cb/cr, lv
+    # y/cb/cr, dct, scans, mode_tab, tiles, ntx, nty, ftab, itab, meta,
+    # lams, qps, F, ph, pw, coded_w, coded_h, sdh, rdoq, bit_depth, stream
+    "fhv_commit": [_P] * 19 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+    # in y/cb/cr, out y/cb/cr, depth, dir, mv, ref, nz8, beta_tab,
+    # tc_tab, qps, F, H, W, log2_ctu, bit_depth, pass, stream
+    "fhv_deblock": [_P] * 14 + [_I] * 6 + [_P],
+    # lv_y, nz8, F, H, W, stream
+    "fhv_deblock_cbf": [_P, _P, _I, _I, _I, _P],
     # src y/cb/cr, rec y/cb/cr, params, F, H, W, log2_ctu, bit_depth, stream
     "fhv_sao_stats": [_P] * 7 + [_I] * 5 + [_P],
     # rec y/cb/cr, out y/cb/cr, params, F, H, W, log2_ctu, bit_depth, stream
     "fhv_sao_apply": [_P] * 7 + [_I] * 5 + [_P],
     # planes, out, F, H, W, stream
     "fhv_checksum": [_P, _P, _I, _I, _I, _P],
+    # in, out, N, H, W, stream
+    "fhv_downsample4": [_P, _P, _I, _I, _I, _P],
+    # src, refs, center, out, R, H, W, n, rng, base_n, scale, clip, stream
+    "fhv_sad_search": [_P] * 4 + [_I] * 8 + [_P],
+    # src, refs, mv_int, rate_tab, tab_len, ls, out_c, out_mv, out_p, R, H,
+    # W, n, stream
+    "fhv_subpel": [_P, _P, _P, _P, _I, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+    # refs, base, mvq, sel, raw, valid, R, H, W, n, tier, tier_w, stream
+    "fhv_mc_sel": [_P] * 6 + [_I] * 6 + [_P],
+    # ref0, ref1, dir, mv, rmap, out, F, R0, R1, H, W, chroma, bit_depth,
+    # stream
+    "fhv_inter_pred": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -147,6 +160,15 @@ def check(rc: int, name: str) -> None:
 def stream_handle(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def upload(t, device):
+    """A small host tensor on `device` without a host synchronisation: the
+    copy runs from pinned memory behind the work already queued on the
+    current stream (a plain .to() from pageable memory waits for it)."""
+    if t.device == device or device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:

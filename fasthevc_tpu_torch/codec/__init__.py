@@ -1,2 +1,2 @@
-"""Host orchestration of the port: intra search glue and the encoder top.
-Counterparts of `fasthevc_tpu.codec.search` and `fasthevc_tpu.codec.encoder`."""
+"""Host orchestration of the port: search glue, the device pipelines, the
+GOP helpers and the encoder top.  Counterparts of `fasthevc_tpu.codec`."""

@@ -1,10 +1,14 @@
-"""All-intra device pipeline: search, exact commit and in-loop filters of a
-frame group on the card; the host emits CABAC only.
+"""Device pipeline: search, exact commit and in-loop filters of a frame
+group on the card; the host emits CABAC only.
 
-Counterpart of fasthevc_tpu/codec/device_pipeline.py `encode_group_device`:
-the batched intra search (K1-K4), the wavefront commit with the parallel
-RDOQ trellis (K5), deblocking (K6), SAO (K7) and the Annex D checksum
-(K8), enqueued on the current stream for the whole group.  The JAX
+Counterpart of fasthevc_tpu/codec/device_pipeline.py.  `encode_group_device`
+(intra frames): the batched intra search (K1-K4), the wavefront commit with
+the parallel RDOQ trellis (K5), deblocking (K6), SAO (K7) and the Annex D
+checksum (K8), enqueued on the current stream for the whole group.
+`encode_inter_group_device` (P frames): the P search (K1-K4 for its intra
+candidates, K9 integer ME, K10 sub-pel, K11 merge-candidate MC), exact MC
+of the decided motion (K11), the mixed wavefront commit (K5), deblocking
+with boundary strengths (K6), SAO and the checksum.  The JAX
 package's int8 level packing with its overflow flag and its search
 micro-batches exist for the TPU's host link and memory; the port returns
 the int16 levels and runs the search over the whole group.
@@ -15,10 +19,11 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..ops.commit import wavefront_commit_intra
+from ..ops.commit import wavefront_commit_intra, wavefront_commit_mixed
 from ..ops.deblock import deblock
+from ..ops.me import inter_pred_planes
 from ..ops.sao import sao
-from .search import search_intra_maps_batch
+from .search import search_intra_maps_batch, search_p_maps
 
 
 def device_path_ok(cfg, sp) -> bool:
@@ -72,6 +77,48 @@ def _checksum_cuda(planes: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
+def _lam(lambda_sqrt: float) -> float:
+    """The trellis' lambda, rounded as the reference rounds it (f32)."""
+    ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
+    return float(ls * ls)
+
+
+def _filter_and_pack(sy, scb, scr, dm, packed, committed, qp_deblock,
+                     qp_cb, qp_cr, log2_ctu: int, deblock_on: bool,
+                     sao_on: bool, checksum: bool, plain: bool,
+                     inter_maps=None) -> dict:
+    """Deblock, SAO and checksum of committed frames; the output dict of
+    encode_group_device.  inter_maps: (dir, mv, ref) granule maps of P/B
+    frames, whose boundary strengths the deblocking works out."""
+    ry, rcb, rcr, lv_y, lv_cb, lv_cr = committed
+    f = sy.shape[0]
+    coded_h, coded_w = sy.shape[1:]
+    if deblock_on:
+        bs_kw = {}
+        if inter_maps is not None:
+            bs_kw = dict(dir_map=inter_maps[0], mv_map=inter_maps[1],
+                         ref_map=inter_maps[2], lv_y=lv_y)
+        ry, rcb, rcr = deblock(ry, rcb, rcr, dm, qp_deblock, qp_cb, qp_cr,
+                               log2_ctu, plain=plain, **bs_kw)
+    if sao_on:
+        ry, rcb, rcr, sao_params = sao(sy, scb, scr, ry, rcb, rcr, log2_ctu,
+                                       plain=plain)
+    else:
+        ctb = 1 << log2_ctu
+        sao_params = torch.zeros((f, -(-coded_h // ctb), -(-coded_w // ctb),
+                                  3, 7), dtype=torch.int32, device=sy.device)
+    out = dict(packed=packed, lv_y=lv_y.contiguous(),
+               lv_cb=lv_cb.contiguous(), lv_cr=lv_cr.contiguous(),
+               rec_y=ry.to(torch.uint8).contiguous(),
+               rec_cb=rcb.to(torch.uint8).contiguous(),
+               rec_cr=rcr.to(torch.uint8).contiguous(), sao=sao_params)
+    if checksum:
+        out["cksum"] = torch.stack(
+            [device_checksum(out[k], plain=plain)
+             for k in ("rec_y", "rec_cb", "rec_cr")], dim=1)
+    return out
+
+
 def encode_group_device(y, cb, cr, lambda_sqrt: float, qp_y: int, qp_cb: int,
                         qp_cr: int, qp_for_deblock: int, log2_ctu: int,
                         log2_min_cu: int, coded_w: int, coded_h: int,
@@ -79,7 +126,7 @@ def encode_group_device(y, cb, cr, lambda_sqrt: float, qp_y: int, qp_cb: int,
                         tile_bounds_x: tuple = (), tile_bounds_y: tuple = (),
                         rd_cands: int = 3, rdoq: bool = False,
                         checksum: bool = True, plain: bool = False) -> dict:
-    """Search + exact commit + filters for F frames.
+    """Search + exact commit + filters for F intra frames.
 
     y: [F, PH, PW] uint8 (CTU-padded), cb/cr: [F, PH/2, PW/2].  Returns a
     dict of tensors on y's device: packed [F, PH/8, PW/8, 9] int16 maps,
@@ -97,30 +144,64 @@ def encode_group_device(y, cb, cr, lambda_sqrt: float, qp_y: int, qp_cb: int,
     sy = y[:, :coded_h, :coded_w].to(torch.int32)
     scb = cb[:, :ch, :cw].to(torch.int32)
     scr = cr[:, :ch, :cw].to(torch.int32)
-    # the trellis' lambda, rounded as the reference rounds it
-    ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
-    lam = float(ls * ls)
-    ry, rcb, rcr, lv_y, lv_cb, lv_cr = wavefront_commit_intra(
+    committed = wavefront_commit_intra(
         sy, scb, scr, dm, mm, qp_y, qp_cb, qp_cr, coded_w, coded_h, sdh,
-        tile_bounds_x, tile_bounds_y, rdoq=rdoq, lam=lam, plain=plain)
-    if deblock_on:
-        ry, rcb, rcr = deblock(ry, rcb, rcr, dm, qp_for_deblock, qp_cb, qp_cr,
-                               log2_ctu, plain=plain)
-    if sao_on:
-        ry, rcb, rcr, sao_params = sao(sy, scb, scr, ry, rcb, rcr, log2_ctu,
-                                       plain=plain)
-    else:
-        ctb = 1 << log2_ctu
-        sao_params = torch.zeros((y.shape[0], -(-coded_h // ctb),
-                                  -(-coded_w // ctb), 3, 7),
-                                 dtype=torch.int32, device=y.device)
-    out = dict(packed=packed, lv_y=lv_y.contiguous(),
-               lv_cb=lv_cb.contiguous(), lv_cr=lv_cr.contiguous(),
-               rec_y=ry.to(torch.uint8).contiguous(),
-               rec_cb=rcb.to(torch.uint8).contiguous(),
-               rec_cr=rcr.to(torch.uint8).contiguous(), sao=sao_params)
-    if checksum:
-        out["cksum"] = torch.stack(
-            [device_checksum(out[k], plain=plain)
-             for k in ("rec_y", "rec_cb", "rec_cr")], dim=1)
-    return out
+        tile_bounds_x, tile_bounds_y, rdoq=rdoq, lam=_lam(lambda_sqrt),
+        plain=plain)
+    return _filter_and_pack(sy, scb, scr, dm, packed, committed,
+                            qp_for_deblock, qp_cb, qp_cr, log2_ctu,
+                            deblock_on, sao_on, checksum, plain)
+
+
+def encode_inter_group_device(y, cb, cr, r0_y, r0_cb, r0_cr, lambda_sqrt,
+                              qp_y, qp_cb, qp_cr, qp_for_deblock,
+                              log2_ctu: int, log2_min_cu: int, coded_w: int,
+                              coded_h: int, sdh: bool, deblock_on: bool,
+                              sao_on: bool, search_range: int,
+                              tile_bounds_x: tuple = (),
+                              tile_bounds_y: tuple = (), rd_cands: int = 3,
+                              nref0=None, rdoq: bool = False,
+                              checksum: bool = True,
+                              plain: bool = False) -> dict:
+    """Search + MC + mixed exact commit + filters for F P frames
+    (device_pipeline.py:170 with is_b=False).
+
+    y: [F, PH, PW] uint8 CTU-padded sources, cb/cr [F, PH/2, PW/2];
+    r0_*: [F, 2, coded_h, coded_w] (chroma halved) uint8 reference stacks
+    from the on-device DPB (the second duplicates the first when the
+    frame has one reference, and nref0 says so).  lambda_sqrt, qp_y,
+    qp_cb, qp_cr, qp_for_deblock and nref0 are per-frame sequences, so a
+    batch may mix temporal layers.  Returns the dict of
+    encode_group_device."""
+    f, ph, pw = y.shape
+    gh, gw = coded_h >> 3, coded_w >> 3
+    nref0 = [2] * f if nref0 is None else [int(v) for v in nref0]
+    lams = [float(v) for v in lambda_sqrt]
+    # the search runs on the padded source against the references
+    # edge-padded to it (device_pipeline.py:209-214)
+    r0_pad = torch.nn.functional.pad(
+        r0_y.to(torch.int32), (0, pw - coded_w, 0, ph - coded_h),
+        mode="replicate")
+    packed = search_p_maps(y, r0_pad, lams, log2_ctu, log2_min_cu, coded_w,
+                           coded_h, search_range, nref=nref0,
+                           rd_cands=rd_cands, plain=plain)
+    dm = packed[:, :gh, :gw, 0].to(torch.int32)
+    mm = packed[:, :gh, :gw, 1].to(torch.int32)
+    im = packed[:, :gh, :gw, 2].to(torch.int32)
+    mv = packed[:, :gh, :gw, 3:7].to(torch.int32)
+    rmap = packed[:, :gh, :gw, 7:9].to(torch.int32)
+    ch, cw = coded_h // 2, coded_w // 2
+    sy = y[:, :coded_h, :coded_w].to(torch.int32)
+    scb = cb[:, :ch, :cw].to(torch.int32)
+    scr = cr[:, :ch, :cw].to(torch.int32)
+    ipy, ipcb, ipcr = inter_pred_planes(
+        tuple(r.to(torch.int32) for r in (r0_y, r0_cb, r0_cr)), None, im,
+        mv, ref_map=rmap, plain=plain)
+    committed = wavefront_commit_mixed(
+        sy, scb, scr, dm, mm, im, ipy, ipcb, ipcr, qp_y, qp_cb, qp_cr,
+        coded_w, coded_h, sdh, tile_bounds_x, tile_bounds_y, rdoq=rdoq,
+        lam=[_lam(v) for v in lams], plain=plain)
+    return _filter_and_pack(sy, scb, scr, dm, packed, committed,
+                            qp_for_deblock, qp_cb, qp_cr, log2_ctu,
+                            deblock_on, sao_on, checksum, plain,
+                            inter_maps=(im, mv, rmap))

@@ -1,26 +1,34 @@
-"""Encoder top of the port: the all-intra routes of TpuEncoder.
+"""Encoder top of the port: the all-intra routes of TpuEncoder and its
+low-delay P device route.
 
-Counterpart of fasthevc_tpu/codec/encoder.py TpuEncoder on its two
-all-intra routes, chosen as TpuEncoder chooses them:
-  * the device route (`_encode_all_intra_device`, the default for CTU 32,
-    8-bit): search, exact commit, deblock, SAO and checksum of each group
-    of FRAME_GROUP frames run on the torch device
+Counterpart of fasthevc_tpu/codec/encoder.py TpuEncoder, routed as
+TpuEncoder routes:
+  * the all-intra device route (`_encode_all_intra_device`, the default for
+    CTU 32, 8-bit): search, exact commit, deblock, SAO and checksum of each
+    group of FRAME_GROUP frames run on the torch device
     (`device_pipeline.encode_group_device`), two groups in flight; the
     host emits CABAC from the levels (`cabac_cpp.entropy_slice_native`)
     on a thread pool;
-  * the pipelined route (`_encode_all_intra_pipelined`, CTU 64 or
-    FASTHEVC_FORCE_CLASSIC set): the search runs on the device and the
+  * the pipelined all-intra route (`_encode_all_intra_pipelined`, CTU 64
+    or FASTHEVC_FORCE_CLASSIC set): the search runs on the device and the
     C++ slice engine (`cabac_cpp.encode_slice_native`) commits each frame,
-    deblocks, applies SAO and emits CABAC on a thread pool.
+    deblocks, applies SAO and emits CABAC on a thread pool;
+  * the GOP device route (`_encode_gop_device`, orders of I and P slices
+    under the device route's conditions): dependency batches of P frames
+    through `device_pipeline.encode_inter_group_device` with the
+    references in a DPB on the device, I frames through
+    `encode_group_device`, CABAC with TMVP on the host.
 Given the same config and frames, the stream is the one TpuEncoder writes
 on the same route.
 
-Every other route raises NotImplementedError naming the ROADMAP.md item
-that ports it; nothing falls back to the JAX package.
+Every other route (B slices, the classic per-frame P/B loop, rate
+control, ...) raises NotImplementedError naming the ROADMAP.md item that
+ports it; nothing falls back to the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -28,14 +36,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fasthevc_tpu import cabac_cpp
-from fasthevc_tpu.codec.gop import SLICE_I, coding_order
-from fasthevc_tpu.config import EncoderConfig
-from fasthevc_tpu.spec import bitstream as bs
-from fasthevc_tpu.spec.cabac import ContextSet
-from fasthevc_tpu.spec.ctu import Planes, tu_qps
-from fasthevc_tpu.spec.encoder import config_to_sp
-from fasthevc_tpu.spec.syntax import (
+from .. import cabac_cpp
+from .gop import SLICE_B, SLICE_I, coding_order, ref_lists
+from ..config import EncoderConfig
+from ..spec import bitstream as bs
+from ..spec.cabac import ContextSet
+from ..spec.ctu import Planes, tu_qps
+from ..spec.encoder import config_to_sp
+from ..spec.inter import MotionCtx
+from ..spec.syntax import (
     SliceHeader,
     write_picture_hash_sei,
     write_pps,
@@ -43,13 +52,21 @@ from fasthevc_tpu.spec.syntax import (
     write_sps,
     write_vps,
 )
-from fasthevc_tpu.utils.video import HASH_CHECKSUM, pad_plane, picture_hash
+from ..utils.video import HASH_CHECKSUM, pad_plane, picture_hash
 
-from .device_pipeline import device_path_ok, encode_group_device
+from .device_pipeline import (device_path_ok, encode_group_device,
+                              encode_inter_group_device)
 from .search import search_intra_maps_batch
 
-# Frames per search dispatch (fasthevc_tpu/codec/encoder.py FRAME_GROUP).
+# Frames per search dispatch (fasthevc_tpu/codec/encoder.py FRAME_GROUP),
+# and the most P pictures of one batch on the GOP route.
 FRAME_GROUP = 8
+
+# One picture of a coding order on the GOP route: its reference lists (as
+# CVS-local POCs), the signalled RPS deltas, its QP and its CVS (the POC of
+# its IDR).
+_Picture = collections.namedtuple(
+    "_Picture", "poc cvs_poc st l0 l1 deltas qp is_idr idr")
 
 
 def _unported(what: str, item: str):
@@ -59,30 +76,35 @@ def _unported(what: str, item: str):
 
 
 class TorchEncoder:
-    """All-intra encoder on a torch device.
+    """Encoder on a torch device (all-intra and low-delay P orders).
 
-    device: where the device work runs ("cuda" launches the hand-written
-    kernels; "cpu" runs their plain twins).  plain=True runs the twins on
-    any device, to hold the kernels against them.  `timing` holds the
-    phase times of the last encode: device_s, wait_s, entropy_s and
-    wall_s on the device route; search_s, wait_s, commit_s and wall_s on
-    the pipelined route.
+    cfg: the port's EncoderConfig.  device: where the device work runs
+    ("cuda" launches the hand-written kernels; "cpu" runs their plain
+    twins).  plain=True runs the twins on any device, to hold the kernels
+    against them.  `timing` holds the phase times of the last encode:
+    device_s, wait_s, entropy_s and wall_s on the device routes; search_s,
+    wait_s, commit_s and wall_s on the pipelined route; `spans` each
+    batch's time on the device.
     """
 
     def __init__(self, cfg: EncoderConfig, device="cuda",
                  plain: bool = False) -> None:
+        if not isinstance(cfg, EncoderConfig):
+            raise TypeError("TorchEncoder takes fasthevc_tpu_torch.config."
+                            f"EncoderConfig, not {type(cfg).__module__}."
+                            f"{type(cfg).__name__}")
         cfg.validate()
         self.cfg = cfg
         self.device = torch.device(device)
         self.plain = plain
         if not cabac_cpp.available():
             raise RuntimeError("TorchEncoder needs the C++ slice engine "
-                               "(fasthevc_tpu.cabac_cpp); no g++ found")
+                               "(fasthevc_tpu_torch.cabac_cpp); no g++ found")
         self.sp = config_to_sp(cfg)
         self.sp.deblocking_disabled = not cfg.deblocking
         self.sp.sao_enabled = cfg.sao
         self.sp.transform_skip_enabled = bool(cfg.transform_skip)
-        self.lambda_sqrt = float(np.sqrt(0.57 * 2.0 ** ((cfg.qp - 12) / 3.0)))
+        self.lambda_sqrt = self._lambda_sqrt(cfg.qp)
         # the tools TpuEncoder itself refuses, then the unported routes
         if getattr(cfg, "slices", 1) > 1:
             raise NotImplementedError("multi-slice pictures run on the spec "
@@ -107,6 +129,12 @@ class TorchEncoder:
         if cfg.hrd:
             raise _unported("HRD SEI on the per-frame route", "11")
         self.timing: dict = {}  # phase times of the last encode()
+        self.spans: list = []   # each batch's span on the device
+
+    @staticmethod
+    def _lambda_sqrt(qp: int) -> float:
+        """sqrt of the RD lambda 0.57 * 2^((qp - 12) / 3), in f64."""
+        return float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
 
     def encode(self, frames, start_poc: int = 0, write_headers: bool = True,
                on_frame=None):
@@ -121,17 +149,25 @@ class TorchEncoder:
             if on_frame is not None:
                 on_frame(-1, False, bytes(headers))
         order = coding_order(self.cfg, len(frames), start_poc)
-        if not all(st == SLICE_I for _, st, _, _ in order):
-            raise _unported("P/B coding orders", "8-9")
-        # the reference's routing (fasthevc_tpu/codec/encoder.py:240-256):
-        # FASTHEVC_FORCE_CLASSIC selects the pipelined route; both routes
-        # run on the card
-        if (not os.environ.get("FASTHEVC_FORCE_CLASSIC")
-                and device_path_ok(self.cfg, sp)):
-            return self._encode_all_intra_device(frames, start_poc, out,
-                                                 on_frame)
-        return self._encode_all_intra_pipelined(frames, start_poc, out,
-                                                on_frame)
+        # the reference's routing (fasthevc_tpu/codec/encoder.py:240-268):
+        # FASTHEVC_FORCE_CLASSIC selects the pipelined all-intra route or
+        # the classic per-frame P/B loop; every route runs on the card
+        device_ok = (not os.environ.get("FASTHEVC_FORCE_CLASSIC")
+                     and device_path_ok(self.cfg, sp))
+        if all(st == SLICE_I for _, st, _, _ in order):
+            if device_ok:
+                return self._encode_all_intra_device(frames, start_poc, out,
+                                                     on_frame)
+            return self._encode_all_intra_pipelined(frames, start_poc, out,
+                                                    on_frame)
+        if any(st == SLICE_B for _, st, _, _ in order):
+            raise _unported("B slices (the random-access orders)", "9")
+        if not device_ok:
+            raise _unported("the classic per-frame P route (CTU 64, high "
+                            "bit depth, weighted prediction or "
+                            "FASTHEVC_FORCE_CLASSIC)", "11")
+        return self._encode_gop_device(frames, start_poc, out, order,
+                                       on_frame)
 
     def _upload(self, planes: list) -> torch.Tensor:
         t = torch.from_numpy(np.stack(planes))
@@ -139,8 +175,8 @@ class TorchEncoder:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _upload_group(self, frames, i0: int, i1: int) -> tuple:
-        """Frames i0..i1 of [(y, cb, cr)] edge-padded to the CTU grid and
+    def _upload_group(self, frames, idxs) -> tuple:
+        """Frames idxs of [(y, cb, cr)] edge-padded to the CTU grid and
         uploaded: ([F, PH, PW], [F, PH/2, PW/2], [F, PH/2, PW/2])."""
         sp = self.sp
         ctu = 1 << sp.log2_ctu
@@ -149,44 +185,44 @@ class TorchEncoder:
         dtype = np.uint8 if sp.bit_depth == 8 else np.int32
         return tuple(
             self._upload([pad_plane(np.asarray(frames[i][p], np.int32), h, w)
-                          .astype(dtype) for i in range(i0, i1)])
+                          .astype(dtype) for i in idxs])
             for p, h, w in ((0, ph, pw), (1, ph // 2, pw // 2),
                             (2, ph // 2, pw // 2)))
 
-    def _run_groups(self, frames, run_group, frame_job, span_key: str,
-                    job_key: str) -> list:
-        """Run the frame groups on the device, two in flight, and the
-        frames of each finished group through `frame_job` on a thread pool
+    def _run_batches(self, frames, batches, run_batch, frame_job,
+                     span_key: str, job_key: str, on_fetch=None) -> list:
+        """Run batches of frames on the device, two in flight, and the
+        frames of each finished batch through `frame_job` on a thread pool
         (its native calls release the GIL, so frames overlap each other and
         the device).
 
-        run_group(y, cb, cr) enqueues one group's device work on its
-        uploaded planes and returns a dict of output tensors, which come
-        back into pinned host memory behind a CUDA event; frame_job(host,
-        i, j) turns frame j of a group's outputs (numpy), frame i of the
-        clip, into (nal_bytes, planes).  Returns the frames' results in
-        order, and sets self.timing: span_key, the groups' spans on the
-        device (host time on the CPU); wait_s, the host's time blocked on
-        them; job_key, the frame jobs' times summed over the pool's
-        threads; wall_s."""
-        n = len(frames)
-        group = min(self.cfg.frame_group or FRAME_GROUP, n)
-        starts = list(range(0, n, group))
+        batches: lists of frame indices, in dispatch order.  run_batch(bi,
+        y, cb, cr) enqueues batch bi's device work on its uploaded planes
+        and returns a dict of output tensors, which come back into pinned
+        host memory behind a CUDA event.  on_fetch(bi, host), if given, runs
+        in this thread on each batch's outputs (numpy), in batch order, and
+        returns one extra argument per frame for frame_job(host, i, j,
+        extra), which turns frame j of the batch, frame i of the clip, into
+        (nal_bytes, planes).  Returns the frames' results in dispatch
+        order, and sets self.timing: span_key, the batches' spans on the
+        device (host time on the CPU), summed; wait_s, the host's time
+        blocked on them; job_key, the frame jobs' times summed over the
+        pool's threads; wall_s; and self.spans, each batch's span."""
         cuda = self.device.type == "cuda"
         timing = {span_key: 0.0, "wait_s": 0.0, job_key: 0.0}
+        spans: list = []
         pending: dict = {}
 
-        def dispatch(ci):
-            planes = self._upload_group(frames, starts[ci],
-                                        min(starts[ci] + group, n))
+        def dispatch(bi):
+            planes = self._upload_group(frames, batches[bi])
             t_host = time.perf_counter()
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-            res = run_group(*planes)
+            res = run_batch(bi, *planes)
             if not cuda:
-                timing[span_key] += time.perf_counter() - t_host
-                pending[ci] = (res, None, None)
+                spans.append(time.perf_counter() - t_host)
+                pending[bi] = (res, None, None)
                 return
             host = {}
             for k, v in res.items():
@@ -195,38 +231,47 @@ class TorchEncoder:
                 host[k].copy_(v, non_blocking=True)
             end = torch.cuda.Event(enable_timing=True)
             end.record()
-            pending[ci] = (host, start, end)
+            pending[bi] = (host, start, end)
 
-        def job(host, i, j):
+        def job(host, i, j, extra):
             t = time.perf_counter()
-            return frame_job(host, i, j), time.perf_counter() - t
+            return frame_job(host, i, j, extra), time.perf_counter() - t
 
         t0 = time.perf_counter()
         workers = max(2, min(4, os.cpu_count() or 2))
         with ThreadPoolExecutor(max_workers=workers) as ex:
             futs = []
-            for ci in range(min(2, len(starts))):
-                dispatch(ci)
-            for ci, s in enumerate(starts):
+            for bi in range(min(2, len(batches))):
+                dispatch(bi)
+            for bi, idxs in enumerate(batches):
                 tw = time.perf_counter()
-                host, start, end = pending.pop(ci)
+                host, start, end = pending.pop(bi)
                 if end is not None:
                     end.synchronize()
-                    timing[span_key] += start.elapsed_time(end) / 1e3
+                    spans.append(start.elapsed_time(end) / 1e3)
                 host = {k: v.numpy() for k, v in host.items()}
                 timing["wait_s"] += time.perf_counter() - tw
-                if ci + 2 < len(starts):
-                    dispatch(ci + 2)
-                futs += [ex.submit(job, host, s + j, j)
-                         for j in range(min(group, n - s))]
+                if bi + 2 < len(batches):
+                    dispatch(bi + 2)
+                extra = (on_fetch(bi, host) if on_fetch is not None
+                         else [None] * len(idxs))
+                futs += [ex.submit(job, host, i, j, extra[j])
+                         for j, i in enumerate(idxs)]
             results = []
             for fut in futs:
                 result, dt = fut.result()
                 results.append(result)
                 timing[job_key] += dt
+        timing[span_key] = sum(spans)
         timing["wall_s"] = time.perf_counter() - t0
         self.timing = timing
+        self.spans = spans
         return results
+
+    def _groups(self, n: int) -> list:
+        """The all-intra routes' batches: runs of FRAME_GROUP frames."""
+        group = min(self.cfg.frame_group or FRAME_GROUP, n)
+        return [list(range(s, min(s + group, n))) for s in range(0, n, group)]
 
     @staticmethod
     def _emit(results, out, start_poc, on_frame):
@@ -255,7 +300,7 @@ class TorchEncoder:
         cksum_hash = cfg.hash_type == HASH_CHECKSUM
         gh, gw = sp.coded_height >> 3, sp.coded_width >> 3
 
-        def run_group(ys, cbs, crs):
+        def run_group(_, ys, cbs, crs):
             return encode_group_device(
                 ys, cbs, crs, self.lambda_sqrt, qp_y, qp_cb, qp_cr, qp,
                 sp.log2_ctu, sp.log2_min_cu, sp.coded_width,
@@ -264,7 +309,7 @@ class TorchEncoder:
                 rd_cands=cfg.num_intra_rd_candidates, rdoq=bool(cfg.rdoq),
                 checksum=cksum_hash, plain=self.plain)
 
-        def emit_frame(res, i, j):
+        def emit_frame(res, i, j, _):
             depth = np.ascontiguousarray(res["packed"][j, :gh, :gw, 0]
                                          .astype(np.int8))
             mode = np.ascontiguousarray(res["packed"][j, :gh, :gw, 1]
@@ -295,8 +340,9 @@ class TorchEncoder:
                                 write_picture_hash_sei(md5s, cfg.hash_type))
             return nal, planes
 
-        results = self._run_groups(frames, run_group, emit_frame,
-                                   "device_s", "entropy_s")
+        results = self._run_batches(frames, self._groups(len(frames)),
+                                    run_group, emit_frame, "device_s",
+                                    "entropy_s")
         return self._emit(results, out, start_poc, on_frame)
 
     def _encode_all_intra_pipelined(self, frames, start_poc, out, on_frame):
@@ -315,20 +361,20 @@ class TorchEncoder:
                                   sp.coded_height // 2, sp.coded_width // 2)
             srcs.append(src)
 
-        def run_group(ys, cbs, crs):
+        def run_group(_, ys, cbs, crs):
             return {"packed": search_intra_maps_batch(
                 ys, self.lambda_sqrt, sp.log2_ctu, sp.log2_min_cu,
                 sp.coded_width, sp.coded_height, cb_batch=cbs, cr_batch=crs,
                 rd_cands=self.cfg.num_intra_rd_candidates,
                 plain=self.plain)}
 
-        def commit(res, i, j):
+        def commit(res, i, j, _):
             # every all-intra frame is an IDR: CVS-local POC is 0
             return self._encode_frame_native(srcs[i], res["packed"][j])
 
-        results = self._run_groups([(s.y, s.cb, s.cr) for s in srcs],
-                                   run_group, commit, "search_s",
-                                   "commit_s")
+        results = self._run_batches([(s.y, s.cb, s.cr) for s in srcs],
+                                    self._groups(len(srcs)), run_group,
+                                    commit, "search_s", "commit_s")
         return self._emit(results, out, start_poc, on_frame)
 
     def _encode_frame_native(self, src, packed):
@@ -371,3 +417,238 @@ class TorchEncoder:
         nal += bs.write_nal(bs.NAL_SUFFIX_SEI,
                             write_picture_hash_sei(md5s, cfg.hash_type))
         return nal, planes
+
+    def _encode_gop_device(self, frames, start_poc, out, order, on_frame):
+        """Device route of coding orders with I and P slices: the
+        counterpart of fasthevc_tpu/codec/encoder.py:518-965 for P slices,
+        without rate control.  A pre-pass resolves every picture's
+        reference lists and packs batches of up to FRAME_GROUP P pictures
+        whose references all lie in earlier batches (in low-delay P each
+        picture references its predecessor, so batches hold one); I
+        pictures go alone through encode_group_device, P batches through
+        encode_inter_group_device, two batches in flight.  References live
+        in a DPB of uint8 recon planes on the device, each evicted after
+        the last batch that reads it; the host keeps each picture's motion
+        for TMVP and emits CABAC on a thread pool.  timing: device_s,
+        wait_s, entropy_s, wall_s."""
+        sp = self.sp
+        cfg = self.cfg
+        ctu = 1 << sp.log2_ctu
+        tbx = tuple(int(b) * ctu for b in sp.tile_col_bounds()[1:-1])
+        tby = tuple(int(b) * ctu for b in sp.tile_row_bounds()[1:-1])
+        deblock_on = not sp.deblocking_disabled
+        sao_on = bool(sp.sao_enabled)
+        gh, gw = sp.coded_height >> 3, sp.coded_width >> 3
+        cksum_hash = cfg.hash_type == HASH_CHECKSUM
+
+        # ---- pre-pass: reference lists (encoder.py:561-586)
+        entries = []
+        sim_dpb: set = set()
+        idr = start_poc
+        for poc, slice_type, ref_deltas, qp_off in order:
+            is_idr = slice_type == SLICE_I
+            if is_idr:
+                idr = poc
+                sim_dpb = set()
+            cvs_poc = poc - idr
+            st, _, _, deltas = ref_lists({p: None for p in sim_dpb}, cvs_poc,
+                                         slice_type, ref_deltas, is_idr)
+            l0 = ([cvs_poc - d for d in deltas[0]]
+                  + [cvs_poc + d for d in deltas[1]])
+            l1 = ([cvs_poc + d for d in deltas[1]]
+                  + [cvs_poc - d for d in deltas[0]])
+            nr = max(1, min(2, cfg.num_ref_per_list))
+            entries.append(_Picture(poc, cvs_poc, st, l0[:nr], l1[:nr],
+                                    deltas, min(max(cfg.qp + qp_off, 0), 51),
+                                    is_idr, idr))
+            sim_dpb.add(cvs_poc)
+
+        # ---- the dependency batcher (encoder.py:600-646): a batch starts
+        # at the earliest pending picture and takes later P pictures of the
+        # same CVS whose whole signalled RPS is already dispatched
+        batches = []
+        pending = list(entries)
+        done: set = set()
+        while pending:
+            e0 = pending[0]
+            taken = [0]
+            if e0.st != SLICE_I:
+                for k in range(1, len(pending)):
+                    if len(taken) >= FRAME_GROUP:
+                        break
+                    e = pending[k]
+                    if e.st == SLICE_I:
+                        break
+                    refs = ([(e.idr, e.cvs_poc - d) for d in e.deltas[0]]
+                            + [(e.idr, e.cvs_poc + d) for d in e.deltas[1]])
+                    if (e.st == e0.st and e.idr == e0.idr
+                            and all(r in done for r in refs)):
+                        taken.append(k)
+            batch = [pending[k] for k in taken]
+            pending = [e for k, e in enumerate(pending) if k not in taken]
+            done.update((e.idr, e.cvs_poc) for e in batch)
+            batches.append(batch)
+
+        # ---- exact DPB liveness: evict after the last batch that reads
+        last_use: dict = {}
+        for bi, batch in enumerate(batches):
+            for e in batch:
+                last_use[(e.idr, e.cvs_poc)] = bi
+                if e.st != SLICE_I:
+                    for p in e.l0 + e.l1:
+                        last_use[(e.idr, p)] = bi
+        evict: dict = {}
+        for key, bi in last_use.items():
+            evict.setdefault(bi, []).append(key)
+
+        qp_cache: dict = {}
+
+        def qps_of(qp):
+            if qp not in qp_cache:
+                qp_cache[qp] = tu_qps(sp, qp)
+            return qp_cache[qp]
+
+        dev_dpb: dict = {}     # (idr, cvs_poc) -> (y, cb, cr) uint8
+        motion_dpb: dict = {}  # (idr, cvs_poc) -> (dir, mv, ref POC)
+
+        def run_batch(bi, ys, cbs, crs):
+            batch = batches[bi]
+            common = dict(log2_ctu=sp.log2_ctu, log2_min_cu=sp.log2_min_cu,
+                          coded_w=sp.coded_width, coded_h=sp.coded_height,
+                          sdh=bool(sp.sign_data_hiding),
+                          deblock_on=deblock_on, sao_on=sao_on,
+                          tile_bounds_x=tbx, tile_bounds_y=tby,
+                          rd_cands=cfg.num_intra_rd_candidates,
+                          rdoq=bool(cfg.rdoq), checksum=cksum_hash,
+                          plain=self.plain)
+            if batch[0].st == SLICE_I:
+                qp = batch[0].qp
+                qy, qcb, qcr = qps_of(qp)
+                res = encode_group_device(ys, cbs, crs,
+                                          self._lambda_sqrt(qp), qy, qcb,
+                                          qcr, qp, **common)
+            else:
+                def stack(pi):
+                    return torch.stack([torch.stack(
+                        [dev_dpb[(e.idr, e.l0[0])][pi],
+                         dev_dpb[(e.idr, e.l0[-1])][pi]]) for e in batch])
+
+                tq = [qps_of(e.qp) for e in batch]
+                res = encode_inter_group_device(
+                    ys, cbs, crs, stack(0), stack(1), stack(2),
+                    [self._lambda_sqrt(e.qp) for e in batch],
+                    [t[0] for t in tq], [t[1] for t in tq],
+                    [t[2] for t in tq], [e.qp for e in batch],
+                    search_range=cfg.search_range,
+                    nref0=[len(e.l0) for e in batch], **common)
+            for j, e in enumerate(batch):
+                dev_dpb[(e.idr, e.cvs_poc)] = (res["rec_y"][j],
+                                               res["rec_cb"][j],
+                                               res["rec_cr"][j])
+            for key in evict.get(bi, ()):
+                dev_dpb.pop(key, None)
+            return res
+
+        def motion_ctx(e):
+            """The picture's MotionCtx, with TMVP from the collocated
+            picture's recorded motion (encoder.py:678-698)."""
+            if e.st == SLICE_I:
+                return None
+            m = MotionCtx(cur_poc=e.cvs_poc, l0_pocs=tuple(e.l0),
+                          l1_pocs=tuple(e.l1), tmvp=False, col_from_l0=True,
+                          log2_ctu=sp.log2_ctu)
+            col = motion_dpb.get((e.idr, e.l0[0]))
+            if sp.temporal_mvp_enabled and col is not None:
+                m.tmvp = True
+                m.col_poc = e.l0[0]
+                m.col_dir, m.col_mv, m.col_refpoc = col
+            return m
+
+        def on_fetch(bi, host):
+            """Record each picture's motion (canonical collocated form,
+            ref indices resolved to POCs) before its dependants emit, then
+            their MotionCtx; evict motion on the DPB's schedule."""
+            pk = host["packed"]
+            ctxs = []
+            for j, e in enumerate(batches[bi]):
+                r8 = pk[j, :gh, :gw, 7:9].astype(np.int32)
+                rp = np.zeros((gh, gw, 2), np.int32)
+                for li, lst in ((0, e.l0), (1, e.l1)):
+                    if lst:
+                        lut = np.asarray(lst, np.int32)
+                        rp[..., li] = lut[np.clip(r8[..., li], 0,
+                                                  len(lst) - 1)]
+                motion_dpb[(e.idr, e.cvs_poc)] = (
+                    np.ascontiguousarray(pk[j, :gh, :gw, 2]
+                                         .astype(np.int8)),
+                    np.ascontiguousarray(pk[j, :gh, :gw, 3:7]
+                                         .astype(np.int16)), rp)
+                ctxs.append((e, motion_ctx(e)))
+            for key in evict.get(bi, ()):
+                motion_dpb.pop(key, None)
+            return ctxs
+
+        def emit_frame(res, i, j, extra):
+            e, mctx = extra
+            qp_y, qp_cb, qp_cr = qps_of(e.qp)
+            pk = res["packed"][j, :gh, :gw]
+            kw = {}
+            if e.st != SLICE_I:
+                kw = dict(slice_type=e.st,
+                          dir_map=np.ascontiguousarray(pk[..., 2]
+                                                       .astype(np.int8)),
+                          mv_map=np.ascontiguousarray(pk[..., 3:7]
+                                                      .astype(np.int16)),
+                          ref_map=np.ascontiguousarray(pk[..., 7:9]
+                                                       .astype(np.int8)))
+            init_type = 0 if e.is_idr else 1
+            subs = cabac_cpp.entropy_slice_native(
+                sp, qp_y, qp_cb, qp_cr,
+                np.ascontiguousarray(pk[..., 0].astype(np.int8)),
+                np.ascontiguousarray(pk[..., 1].astype(np.int8)),
+                res["lv_y"][j], res["lv_cb"][j], res["lv_cr"][j],
+                ContextSet(init_type, e.qp),
+                sao_params=res["sao"][j] if sao_on else None,
+                sdh=sp.sign_data_hiding, ts=sp.transform_skip_enabled,
+                rqt=sp.max_transform_hierarchy_depth_inter > 0, mctx=mctx,
+                **kw)
+            nal_type = bs.NAL_IDR_W_RADL if e.is_idr else bs.NAL_TRAIL_R
+            sh = SliceHeader(
+                slice_type=e.st, slice_qp=e.qp, is_idr=e.is_idr,
+                poc_lsb=e.cvs_poc & ((1 << sp.log2_max_poc_lsb) - 1),
+                ref_pocs_before=() if e.is_idr else e.deltas[0],
+                ref_pocs_after=() if e.is_idr else e.deltas[1],
+                num_ref_idx_l0=max(1, len(e.l0)),
+                num_ref_idx_l1=max(1, len(e.l1)),
+                temporal_mvp=bool(mctx and mctx.tmvp),
+                collocated_from_l0=True, sao_luma=sao_on,
+                sao_chroma=sao_on,
+                entry_points=tuple(len(s) for s in subs[:-1]))
+            w = write_slice_header(sh, sp, nal_type)
+            for s_bytes in subs:
+                w.append_bytes(s_bytes)
+            planes = Planes.__new__(Planes)
+            planes.y = res["rec_y"][j].astype(np.int32)
+            planes.cb = res["rec_cb"][j].astype(np.int32)
+            planes.cr = res["rec_cr"][j].astype(np.int32)
+            if cksum_hash:
+                md5s = [int(v).to_bytes(4, "big") for v in res["cksum"][j]]
+            else:
+                md5s = picture_hash((planes.y, planes.cb, planes.cr),
+                                    cfg.hash_type)
+            nal = bs.write_nal(nal_type, w.get_bytes())
+            nal += bs.write_nal(bs.NAL_SUFFIX_SEI,
+                                write_picture_hash_sei(md5s, cfg.hash_type))
+            return nal, planes
+
+        results = self._run_batches(
+            frames, [[e.poc - start_poc for e in b] for b in batches],
+            run_batch, emit_frame, "device_s", "entropy_s", on_fetch)
+        recons: dict = {}
+        for e, (nal_bytes, planes) in zip(
+                [e for b in batches for e in b], results):
+            out += nal_bytes
+            recons[e.poc] = planes
+            if on_frame is not None:
+                on_frame(e.poc, e.is_idr, bytes(nal_bytes))
+        return bytes(out), [recons[start_poc + i] for i in range(len(frames))]

@@ -1,11 +1,15 @@
-"""Batched all-intra RDO search over frame groups: the intra half of
+"""Batched RDO search: the intra and P halves of
 fasthevc_tpu/codec/search.py.
 
-For every aligned block of every CU size of every frame: SATD over the 35
-intra modes (K1 + K2), MPM-aware mode bits, a true-RD pass over the top-k
-shortlist through the exact T/Q/IQ/IT (K3) with SSE and the level-rate
-proxy (K4), the chroma DM cost (K1, K3, K4), then the bottom-up quadtree
-DP and the packed int16 [gh, gw, 9] decision maps of the C++ slice engine.
+Intra, for every aligned block of every CU size of every frame: SATD over
+the 35 intra modes (K1 + K2), MPM-aware mode bits, a true-RD pass over the
+top-k shortlist through the exact T/Q/IQ/IT (K3) with SSE and the
+level-rate proxy (K4), the chroma DM cost (K1, K3, K4), then the bottom-up
+quadtree DP and the packed int16 [gh, gw, 9] decision maps of the C++
+slice engine.  P frames add, per block, the best of up to two references
+from integer ME (K9) and sub-pel refinement (K10), two merge candidates
+priced through exact MC (K11) and SATD, and the inter RD leaf at the inter
+dead-zone offset; the DP then runs over the per-block minimum.
 
 The f32 costs are built with the same operations, in the same order, as
 the JAX search, so both take the same decisions.  `plain=True` runs the
@@ -16,11 +20,12 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import cost, intra, transform
+from ..ops import cost, intra, me, transform
 
 # Bit proxies of the CU syntax (fasthevc_tpu/codec/search.py).
 CU_OVERHEAD_BITS = 3.0
 SPLIT_FLAG_BITS = 1.0
+INTER_OVERHEAD_BITS = 2.0
 
 
 def _ops(plain: bool) -> tuple:
@@ -179,23 +184,131 @@ def search_intra_frame(y_plane: torch.Tensor, lambda_sqrt: float,
     return {key: v[0] for key, v in dec.items()}
 
 
+def _neighbor_fields(field: torch.Tensor, gy: int,
+                     gx: int) -> tuple:
+    """The left and top same-size-grid neighbours of a [B, C] block field
+    (zero at the frame edge): the search's stand-ins for the merge
+    candidates A1/B1 (search.py:54 `_neighbor_mvs`)."""
+    c = field.shape[-1]
+    m = field.reshape(gy, gx, c)
+    left = torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
+    top = torch.cat([torch.zeros_like(m[:1]), m[:-1]], dim=0)
+    return left.reshape(-1, c), top.reshape(-1, c)
+
+
+def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
+                   log2_ctu: int = 5, log2_min_cu: int = 3,
+                   search_range: int = 8, rd_cands: int = 3,
+                   nref: int | None = None, plain: bool = False) -> dict:
+    """P-frame search (search.py:244): intra and inter candidates for every
+    block over up to two active L0 references, then the quadtree DP over
+    the per-block minimum.
+
+    y [H, W] int32; refs [R, H, W] (R = 1 or 2) edge-padded to y's size;
+    nref: the active references (default R).  Returns the intra outputs'
+    mode{n} and split{n} plus inter{n} (inter chosen), mv{n} ([B_n, 2]
+    quarter-pel) and ref{n} ([B_n] ref index), each in block raster order.
+    """
+    _, satd, tq_roundtrip, sse_rate = _ops(plain)
+    h, w = y.shape
+    sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
+    ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
+    lam = ls * ls
+    qp_i = search_qp(lambda_sqrt)
+    if refs.dim() == 2:
+        refs = refs[None]
+    # a second reference that nref masks out (cost inf, never selected,
+    # no neighbour carries its index) changes nothing: leave it out
+    refs = refs[:max(1, min(refs.shape[0] if nref is None else nref, 2))]
+    r = refs.shape[0]
+    intra_dec = search_intra_frame(y, lambda_sqrt, log2_ctu, log2_min_cu,
+                                   rd_cands=rd_cands, plain=plain)
+    st = me.me_state(y, refs, search_range, max_size=1 << log2_ctu,
+                     plain=plain)
+    sp = me.subpel_from_state(st, lambda_sqrt, plain=plain)
+    out = {}
+    dp = None
+    for i, n in enumerate(sizes):
+        c, mvq, pred = sp[n]
+        if r > 1:
+            sel = c[1] < c[0]
+            me_cost = torch.minimum(c[0], c[1])
+            mv = torch.where(sel[:, None], mvq[1], mvq[0])
+            pred = torch.where(sel[:, None, None], pred[1], pred[0])
+        else:
+            sel = torch.zeros_like(c[0], dtype=torch.bool)
+            me_cost, mv, pred = c[0], mvq[0], pred[0]
+        ridx = sel.to(torch.int32)
+        src_b = _blocks(y[None], n)
+        # merge-style candidates: the left and top neighbours' (MV, ref)
+        # at 2 bits, chosen in the SATD domain; only the winner pays the
+        # transform round trip
+        rate_bits = me.mv_rate_bits(mv)
+        sel_cost = me_cost
+        field = torch.cat([mv, ridx[:, None]], dim=1)
+        for cand in _neighbor_fields(field, h // n, w // n):
+            cmv, cref = cand[:, :2].contiguous(), cand[:, 2]
+            raw_c, valid = me.mc_raw_from_state_sel(st, 0, r - 1, cref > 0,
+                                                    n, cmv, plain=plain)
+            predc = ((raw_c + 32) >> 6).clamp(0, 255)
+            costc = torch.where(
+                valid, satd(src_b, predc[:, None])[:, 0].to(torch.float32)
+                + ls * 2.0, float("inf"))
+            better = costc < sel_cost
+            sel_cost = torch.where(better, costc, sel_cost)
+            mv = torch.where(better[:, None], cmv, mv)
+            ridx = torch.where(better, cref, ridx)
+            pred = torch.where(better[:, None, None], predc, pred)
+            rate_bits = torch.where(better, 2.0, rate_bits)
+        # the true-RD leaf cost of the winner's residual (inter offset);
+        # XLA contracts dist + lam * (...) into one fused multiply-add
+        pn = min(n, 32)
+        res = (src_b - pred)[:, :pn, :pn].contiguous()
+        levels, rq = tq_roundtrip(res, qp_i, pn.bit_length() - 1,
+                                  is_intra=False)
+        dist, rate = sse_rate(res, rq, levels)
+        icost = cost.fma_f32(lam, (rate + rate_bits) + INTER_OVERHEAD_BITS,
+                             dist) * (4.0 if pn != n else 1.0)
+        raw_intra = intra_dec[f"rawcost{n}"]
+        use_inter = icost < raw_intra
+        leaf = torch.minimum(icost, raw_intra) + lam * CU_OVERHEAD_BITS
+        out[f"mode{n}"] = intra_dec[f"mode{n}"]
+        out[f"mv{n}"] = mv.to(torch.int32)
+        out[f"ref{n}"] = ridx.to(torch.int32)
+        out[f"inter{n}"] = use_inter
+        if i == 0:
+            dp = leaf
+            continue
+        gy, gx = h // n, w // n
+        ch = dp.reshape(gy, 2, gx, 2)
+        sum_child = (ch[:, 0, :, 0] + ch[:, 0, :, 1] + ch[:, 1, :, 0]
+                     + ch[:, 1, :, 1]).reshape(-1)
+        split = sum_child + lam * SPLIT_FLAG_BITS < leaf
+        dp = torch.where(split, sum_child + lam * SPLIT_FLAG_BITS, leaf)
+        out[f"split{n}"] = split
+    return out
+
+
 def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
                coded_w: int, coded_h: int, log2_ctu: int,
                log2_min_cu: int) -> torch.Tensor:
-    """Fold the per-size intra decisions into packed int16 [F, ph/8, pw/8,
-    9] maps = (depth, mode, dir, mv0x, mv0y, mv1x, mv1y, ref0, ref1), the
-    intra part of fasthevc_tpu/codec/search.py _pack_maps_device.  Blocks
-    that overflow the coded picture split whatever the DP chose."""
+    """Fold the per-size decisions into packed int16 [F, ph/8, pw/8, 9]
+    maps = (depth, mode, dir, mv0x, mv0y, mv1x, mv1y, ref0, ref1), as
+    fasthevc_tpu/codec/search.py _pack_maps_device does for intra and P
+    searches (a P search's entries carry inter{n}, mv{n} and ref{n}; inter
+    CUs get direction 1 and mode -1).  Blocks that overflow the coded
+    picture split whatever the DP chose."""
     gw, gh = padded_w >> 3, padded_h >> 3
     sizes = [1 << lg for lg in range(log2_ctu, log2_min_cu - 1, -1)]
     dev = dec[f"mode{sizes[0]}"].device
+    i16 = torch.int16
 
     def up(a, n):
         r = n >> 3
         return a.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
 
-    def grid(key, n):
-        return dec[key].reshape(f, padded_h // n, padded_w // n)
+    def grid(key, n, *tail):
+        return dec[key].reshape(f, padded_h // n, padded_w // n, *tail)
 
     def forced(n):
         bx = torch.arange(padded_w // n, device=dev) * n
@@ -203,16 +316,35 @@ def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
         fm = (by[:, None] + n > coded_h) | (bx[None, :] + n > coded_w)
         return up(fm[None], n)
 
-    depth = torch.zeros((f, gh, gw), dtype=torch.int16, device=dev)
-    mode = up(grid(f"mode{sizes[0]}", sizes[0]).to(torch.int16), sizes[0])
+    def level_maps(n):
+        """(mode, dir, mv [.., 4], ref [.., 2]) of the n-level decisions."""
+        mode = up(grid(f"mode{n}", n).to(i16), n)
+        if f"inter{n}" not in dec:
+            return mode, None, None, None
+        inter = up(grid(f"inter{n}", n), n)
+        dir_n = inter.to(i16)
+        mvs = up(grid(f"mv{n}", n, 2).to(i16), n)
+        zero = torch.zeros_like(dir_n)
+        mv = torch.stack([mvs[..., 0], mvs[..., 1], zero, zero], dim=-1)
+        ref = torch.stack([up(grid(f"ref{n}", n).to(i16), n), zero], dim=-1)
+        return torch.where(inter, -1, mode).to(i16), dir_n, mv, ref
+
+    depth = torch.zeros((f, gh, gw), dtype=i16, device=dev)
+    mode, dir_m, mv, ref = level_maps(sizes[0])
     for d, n in enumerate(sizes[:-1]):
-        child = sizes[d + 1]
         split = up(grid(f"split{n}", n), n)
         active = (depth == d) & (split | forced(n))
-        cmode = up(grid(f"mode{child}", child).to(torch.int16), child)
-        depth = torch.where(active, d + 1, depth).to(torch.int16)
+        cmode, cdir, cmv, cref = level_maps(sizes[d + 1])
+        depth = torch.where(active, d + 1, depth).to(i16)
         mode = torch.where(active, cmode, mode)
-    rest = torch.zeros((f, gh, gw, 7), dtype=torch.int16, device=dev)
+        if dir_m is not None:
+            dir_m = torch.where(active, cdir, dir_m)
+            mv = torch.where(active[..., None], cmv, mv)
+            ref = torch.where(active[..., None], cref, ref)
+    if dir_m is None:
+        rest = torch.zeros((f, gh, gw, 7), dtype=i16, device=dev)
+    else:
+        rest = torch.cat([dir_m[..., None], mv, ref], dim=-1)
     return torch.cat([depth[..., None], mode[..., None], rest], dim=-1)
 
 
@@ -229,4 +361,24 @@ def search_intra_maps_batch(y_batch: torch.Tensor, lambda_sqrt: float,
     dec = search_intra_frames(y, lambda_sqrt, log2_ctu, log2_min_cu, cb, cr,
                               rd_cands, plain)
     f, h, w = y.shape
+    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)
+
+
+def search_p_maps(y_batch: torch.Tensor, refs: torch.Tensor, lambda_sqrt,
+                  log2_ctu: int, log2_min_cu: int, coded_w: int,
+                  coded_h: int, search_range: int, nref=None,
+                  rd_cands: int = 3, plain: bool = False) -> torch.Tensor:
+    """P search of F frames (search.py:682, one frame at a time): y_batch
+    [F, H, W] padded luma, refs [F, R, H, W] its references edge-padded to
+    the same size, lambda_sqrt and nref scalars or per-frame sequences.
+    Returns packed [F, H/8, W/8, 9] int16 maps."""
+    f, h, w = y_batch.shape
+    lams = (list(lambda_sqrt) if isinstance(lambda_sqrt, (list, tuple))
+            else [lambda_sqrt] * f)
+    nrefs = list(nref) if isinstance(nref, (list, tuple)) else [nref] * f
+    decs = [search_p_frame(y_batch[i].to(torch.int32),
+                           refs[i].to(torch.int32), lams[i], log2_ctu,
+                           log2_min_cu, search_range, rd_cands, nrefs[i],
+                           plain) for i in range(f)]
+    dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)

@@ -1,11 +1,19 @@
-// K5: the wavefront intra commit — exact reconstruction of F frames.
+// K5: the wavefront commit — exact reconstruction of F frames, intra or
+// mixed intra/inter.
 //
-// Replaces fasthevc_tpu/ops/commit.py wavefront_commit_intra (:545) and
-// _wavefront_commit_impl (:593), with what they run per CU: _tq_recon
-// (:416), _sdh_adjust_scan (:353), rdoq_scan (ops/rdoq.py:230),
-// predict_selected_mm (ops/intra.py:300) and the exact fwd_transform,
-// quantize_mixed, dequantize and inv_transform (ops/transform.py:44,99,
-// 120,64).
+// Replaces fasthevc_tpu/ops/commit.py wavefront_commit_intra (:545),
+// wavefront_commit_mixed (:570) and _wavefront_commit_impl (:593), with
+// what they run per CU: _tq_recon (:416), _sdh_adjust_scan (:353),
+// rdoq_scan (ops/rdoq.py:230), predict_selected_mm (ops/intra.py:300) and
+// the exact fwd_transform, quantize_mixed, dequantize and inv_transform
+// (ops/transform.py:44,99,120,64).
+//
+// The mixed form (P/B pictures) takes a direction map and the MC prediction
+// planes (K11): a CU whose granule direction is > 0 takes its prediction
+// from those planes, the inter dead-zone offset 85/512 and the diagonal
+// scan; intra CUs read their references from the recon planes as always,
+// inter neighbours included.  QPs, the trellis tables and lambda are per
+// frame, so a batch may mix temporal layers.
 //
 // One launch per anti-diagonal wave (CTUs with cx + 2*cy == wave, whose
 // left, top-left, top and top-right neighbours all finished in earlier
@@ -60,10 +68,12 @@ enum { M_FIRST, M_DC, M_LAST_INIT, M_OLD_LAST, M_NEW_LAST, M_NMISC };
 
 struct Args {
   const int* src[3];
+  const int* ipred[3];  // MC prediction planes (mixed form) or NULL
   int* rec[3];
   short* lv[3];
   const int* depth;
   const int* mode;
+  const int* dir;       // [F][ph/8][pw/8] (mixed form) or NULL
   const int* dct;       // n = 4, 8, 16, 32 at offsets 0, 16, 80, 336
   const int* scans;     // [4 (lg 2..5)][3][1024] raster index per scan pos
   const int* mode_tab;  // [5][35]: angle, inverse, filter flag n=8,16,32
@@ -71,16 +81,17 @@ struct Args {
   int ntx, nty;
   const float* ftab;    // trellis tables (f32 blob)
   const int* itab;      // trellis tables (int blob)
-  const int* meta;      // [2][6][RD_NFIELDS]
-  float lam;
+  const int* meta;      // [F][2][6][RD_NFIELDS]
+  const float* lams;    // [F] the trellis' lambda
+  const int* qps;       // [F][2]: luma QP, chroma QP
   int ph, pw, coded_w, coded_h, nctux, wave, cy0;
-  int qp_y, qp_c, sdh, rdoq, bit_depth;
+  int sdh, rdoq, bit_depth;
 };
 
 struct Smem {
   int dct[1360];
   int mtab[5 * 35];
-  int dm[16], mm[16];
+  int dm[16], mm[16], im[16];
   int raw[kMaxRef];
   int avail[kMaxRef];
   int top[2 * kCtu + 1], left[2 * kCtu + 1];
@@ -167,12 +178,12 @@ __device__ void argmin_reduce(Smem& S) {
 // The parallel trellis (rdoq.py:230) of the coefficients S.coef (raster);
 // writes signed levels into S.lev (raster).  scan: raster index per scan
 // position of the block's scan.
-__device__ void rdoq_block(Smem& S, const Args& a, int c_idx, int lg,
+__device__ void rdoq_block(Smem& S, const Args& a, int f, int c_idx, int lg,
                            int sel, const int* scan) {
   const int tid = threadIdx.x;
   const int nn = 1 << (2 * lg);
   const int g = nn >> 4;
-  const int* row = a.meta + (c_idx * 6 + lg) * RD_NFIELDS;
+  const int* row = a.meta + ((f * 2 + c_idx) * 6 + lg) * RD_NFIELDS;
   const int s = row[RD_NSCANS] > 1 ? sel : 0;
   const float* sig = a.ftab + row[RD_SIG];   // [S][2][2][nn][2]
   const float* last = a.ftab + row[RD_LAST] + s * nn;
@@ -184,7 +195,7 @@ __device__ void rdoq_block(Smem& S, const Args& a, int c_idx, int lg,
   const int qbits = row[RD_QBITS];
   const int q_scale = row[RD_QSCALE];
   const int n_sets = c_idx == 0 ? 4 : 2;
-  const float lam = a.lam;
+  const float lam = a.lams[f];
   // the reference's quantiser step: XLA's exp2(qbits), not always exact
   const float step = a.ftab[row[RD_STEP]];
 
@@ -447,22 +458,21 @@ __device__ void sdh_adjust(Smem& S, const int* scan, int nn, int qp, int lg,
   }
 }
 
-// Commit one n x n block of plane p (0 luma, 1 Cb, 2 Cr) at local (lx, ly)
-// of CTU (cx, cy), frame f.
-__device__ void commit_block(Smem& S, const Args& a, int p, int f, int cx,
-                             int cy, int lx, int ly, int n, int lg,
-                             int mode) {
+// Steps 1-4 of an intra block: references, substitution, filtering, the
+// selected prediction into S.pred and the residual into S.bufa.
+__device__ void intra_residual(Smem& S, const Args& a, int p, int f, int cx,
+                               int cy, int lx, int ly, int n, int lg,
+                               int mode) {
   const int tid = threadIdx.x;
   const int sub = p ? 1 : 0;
   const int H = a.ph >> sub, W = a.pw >> sub;
   const int x0 = (cx * kCtu >> sub) + lx, y0 = (cy * kCtu >> sub) + ly;
   const size_t base = (size_t)f * H * W;
-  int* rec = a.rec[p] + base;
+  const int* rec = a.rec[p] + base;
+  const int* src = a.src[p] + base;
   const int L = 4 * n + 1;
   const int max_val = (1 << a.bit_depth) - 1;
   const int nn = n * n;
-  const int c_idx = p ? 1 : 0;
-  const int qp = p ? a.qp_c : a.qp_y;
   // luma position of the block (availability is decided in luma units)
   const int cxl = cx * kCtu + (lx << sub), cyl = cy * kCtu + (ly << sub);
   const int ca = cxl >> 3, cb = cyl >> 3;
@@ -531,7 +541,6 @@ __device__ void commit_block(Smem& S, const Args& a, int p, int f, int cx,
   if (tid == 0) S.misc[M_DC] = intra_dc(S.top, S.left, n, lg);
   __syncthreads();
   // 4. prediction and residual
-  const int* src = a.src[p] + base;
   {
     const int dc = S.misc[M_DC];
     const int edge = p == 0 && n < 32;
@@ -547,6 +556,36 @@ __device__ void commit_block(Smem& S, const Args& a, int p, int f, int cx,
     }
   }
   __syncthreads();
+}
+
+// Commit one n x n block of plane p (0 luma, 1 Cb, 2 Cr) at local (lx, ly)
+// of CTU (cx, cy), frame f; an inter block takes its prediction from the
+// MC planes.
+__device__ void commit_block(Smem& S, const Args& a, int p, int f, int cx,
+                             int cy, int lx, int ly, int n, int lg, int mode,
+                             bool inter) {
+  const int tid = threadIdx.x;
+  const int sub = p ? 1 : 0;
+  const int H = a.ph >> sub, W = a.pw >> sub;
+  const int x0 = (cx * kCtu >> sub) + lx, y0 = (cy * kCtu >> sub) + ly;
+  const size_t base = (size_t)f * H * W;
+  int* rec = a.rec[p] + base;
+  const int max_val = (1 << a.bit_depth) - 1;
+  const int nn = n * n;
+  const int c_idx = p ? 1 : 0;
+  const int qp = a.qps[2 * f + (p ? 1 : 0)];
+  const int* src = a.src[p] + base;
+  if (inter) {
+    const int* ip = a.ipred[p] + base;
+    for (int i = tid; i < nn; i += blockDim.x) {
+      const int at = (y0 + (i >> lg)) * W + x0 + (i & (n - 1));
+      S.pred[i] = ip[at];
+      S.bufa[i] = src[at] - ip[at];
+    }
+    __syncthreads();
+  } else {
+    intra_residual(S, a, p, f, cx, cy, lx, ly, n, lg, mode);
+  }
   // 5. forward transform
   const int* T = S.dct + dct_offset(lg);
   for (int i = tid; i < nn; i += blockDim.x)
@@ -557,16 +596,16 @@ __device__ void commit_block(Smem& S, const Args& a, int p, int f, int cx,
     S.coef[i] = tq_fwd2(S.bufb, T, n, i >> lg, i & (n - 1), lg + 6);
   __syncthreads();
   // 6. quantisation, then sign-data hiding in scan order
-  const int sel = scan_select(lg, c_idx, mode);
+  const int sel = inter ? 0 : scan_select(lg, c_idx, mode);
   const int* scan = a.scans + ((lg - 2) * 3 + sel) * kMaxNN;
   if (a.rdoq) {
-    rdoq_block(S, a, c_idx, lg, sel, scan);
+    rdoq_block(S, a, f, c_idx, lg, sel, scan);
   } else {
     const int qbits = 14 + qp / 6 + (15 - a.bit_depth - lg);
     const long long qscale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
     for (int i = tid; i < nn; i += blockDim.x)
-      S.lev[i] = tq_quant(S.coef[i], qscale[qp % 6], 171LL << (qbits - 9),
-                          qbits);
+      S.lev[i] = tq_quant(S.coef[i], qscale[qp % 6],
+                          (inter ? 85LL : 171LL) << (qbits - 9), qbits);
     __syncthreads();
   }
   if (a.sdh) {
@@ -612,6 +651,7 @@ __global__ void __launch_bounds__(kThreads)
                       cx * 4 + (tid & 3);
     S.dm[tid] = a.depth[at];
     S.mm[tid] = a.mode[at];
+    S.im[tid] = a.dir != nullptr ? a.dir[at] : 0;
   }
   __syncthreads();
   // z-order steps; the commit order of ops/commit.py _GROUPS
@@ -621,34 +661,38 @@ __global__ void __launch_bounds__(kThreads)
                         cy * kCtu + gy * 8 < a.coded_h;
     if (!inside) continue;
     const int d = S.dm[gy * 4 + gx], mode = S.mm[gy * 4 + gx];
+    const bool inter = S.im[gy * 4 + gx] > 0;
     if (d >= 2) {
-      commit_block(S, a, 0, f, cx, cy, gx * 8, gy * 8, 8, 3, mode);
-      commit_block(S, a, 1, f, cx, cy, gx * 4, gy * 4, 4, 2, mode);
-      commit_block(S, a, 2, f, cx, cy, gx * 4, gy * 4, 4, 2, mode);
+      commit_block(S, a, 0, f, cx, cy, gx * 8, gy * 8, 8, 3, mode, inter);
+      commit_block(S, a, 1, f, cx, cy, gx * 4, gy * 4, 4, 2, mode, inter);
+      commit_block(S, a, 2, f, cx, cy, gx * 4, gy * 4, 4, 2, mode, inter);
     }
     if ((g & 3) == 0 && d == 1) {
-      commit_block(S, a, 0, f, cx, cy, gx * 8, gy * 8, 16, 4, mode);
-      commit_block(S, a, 1, f, cx, cy, gx * 4, gy * 4, 8, 3, mode);
-      commit_block(S, a, 2, f, cx, cy, gx * 4, gy * 4, 8, 3, mode);
+      commit_block(S, a, 0, f, cx, cy, gx * 8, gy * 8, 16, 4, mode, inter);
+      commit_block(S, a, 1, f, cx, cy, gx * 4, gy * 4, 8, 3, mode, inter);
+      commit_block(S, a, 2, f, cx, cy, gx * 4, gy * 4, 8, 3, mode, inter);
     }
     if (g == 0 && d == 0) {
-      commit_block(S, a, 0, f, cx, cy, 0, 0, 32, 5, mode);
-      commit_block(S, a, 1, f, cx, cy, 0, 0, 16, 4, mode);
-      commit_block(S, a, 2, f, cx, cy, 0, 0, 16, 4, mode);
+      commit_block(S, a, 0, f, cx, cy, 0, 0, 32, 5, mode, inter);
+      commit_block(S, a, 1, f, cx, cy, 0, 0, 16, 4, mode, inter);
+      commit_block(S, a, 2, f, cx, cy, 0, 0, 16, 4, mode, inter);
     }
   }
 }
 
 }  // namespace
 
-extern "C" int fhv_commit_intra(
+// dir and ipred_* are NULL for intra pictures; meta [F][2][6][RD_NFIELDS],
+// lams [F] and qps [F][2] are per frame.
+extern "C" int fhv_commit(
     const int* src_y, const int* src_cb, const int* src_cr, const int* depth,
-    const int* mode, int* rec_y, int* rec_cb, int* rec_cr, short* lv_y,
-    short* lv_cb, short* lv_cr, const int* dct, const int* scans,
-    const int* mode_tab, const int* tiles, int ntx, int nty,
-    const float* ftab, const int* itab, const int* meta, float lam, int F,
-    int ph, int pw, int coded_w, int coded_h, int qp_y, int qp_c, int sdh,
-    int rdoq, int bit_depth, cudaStream_t stream) {
+    const int* mode, const int* dir, const int* ipred_y,
+    const int* ipred_cb, const int* ipred_cr, int* rec_y, int* rec_cb,
+    int* rec_cr, short* lv_y, short* lv_cb, short* lv_cr, const int* dct,
+    const int* scans, const int* mode_tab, const int* tiles, int ntx,
+    int nty, const float* ftab, const int* itab, const int* meta,
+    const float* lams, const int* qps, int F, int ph, int pw, int coded_w,
+    int coded_h, int sdh, int rdoq, int bit_depth, cudaStream_t stream) {
   if (F <= 0) return 0;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
@@ -658,6 +702,10 @@ extern "C" int fhv_commit_intra(
   a.src[0] = src_y;
   a.src[1] = src_cb;
   a.src[2] = src_cr;
+  a.ipred[0] = ipred_y;
+  a.ipred[1] = ipred_cb;
+  a.ipred[2] = ipred_cr;
+  a.dir = dir;
   a.rec[0] = rec_y;
   a.rec[1] = rec_cb;
   a.rec[2] = rec_cr;
@@ -675,13 +723,12 @@ extern "C" int fhv_commit_intra(
   a.ftab = ftab;
   a.itab = itab;
   a.meta = meta;
-  a.lam = lam;
+  a.lams = lams;
+  a.qps = qps;
   a.ph = ph;
   a.pw = pw;
   a.coded_w = coded_w;
   a.coded_h = coded_h;
-  a.qp_y = qp_y;
-  a.qp_c = qp_c;
   a.sdh = sdh;
   a.rdoq = rdoq && ftab != nullptr;
   a.bit_depth = bit_depth;

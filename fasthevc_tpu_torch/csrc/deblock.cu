@@ -1,18 +1,25 @@
-// K6: in-loop deblocking of intra pictures (spec 8.7.2), one direction.
+// K6: in-loop deblocking (spec 8.7.2), one direction.
 //
-// Replaces fasthevc_tpu/ops/deblock.py deblock_device (:236) for the
-// all-intra case, with edge_masks_device (:25), _filter_vert_luma (:49)
-// and _filter_vert_chroma (:133).  Called twice per frame batch: all
-// vertical edges, then all horizontal edges (the spec's order; the
-// reference does the horizontal pass through a transpose).  One thread
-// per 4-sample edge segment, luma and both chroma planes in one launch:
-// the segment's CU/TU edge flag comes from the depth map (every CU/TU edge
-// of an intra picture has BS 2; chroma edges lie on the 16-luma grid), the
-// decisions and filters are the spec's integer formulas, and the thread
-// writes the samples it changes into `out`, which the caller initialises
-// with a copy of `in` — so each pass reads exactly what the reference's
-// pass reads.  Same-direction edges are 8 luma samples apart, so no two
-// segments touch the same samples.
+// Replaces fasthevc_tpu/ops/deblock.py deblock_device (:236), with
+// edge_masks_device (:25), _filter_vert_luma (:49), _filter_vert_chroma
+// (:133) and, for P/B pictures, tu_cbf_map (:154) and inter_bs_maps
+// (:177).  Called twice per frame batch: all vertical edges, then all
+// horizontal edges (the spec's order; the reference does the horizontal
+// pass through a transpose).  One thread per 4-sample edge segment, luma
+// and both chroma planes in one launch: the segment's CU/TU edge flag
+// comes from the depth map (chroma edges lie on the 16-luma grid), its
+// boundary strength is 2 on intra pictures and, on P/B pictures, worked
+// out from the granule maps of its two sides: 2 if either is intra, else 1
+// if either CU has a nonzero luma level, the sides' per-list reference
+// vectors differ (-1 for an unused list) or an MV component differs by a
+// whole sample (MVs of unused lists zeroed), else 0.  A chroma edge is
+// filtered only where the luma strength is 2.  The decisions and filters
+// are the spec's integer formulas, and the thread writes the samples it
+// changes into `out`, which the caller initialises with a copy of `in` —
+// so each pass reads exactly what the reference's pass reads.
+// Same-direction edges are 8 luma samples apart, so no two segments touch
+// the same samples.  fhv_deblock_cbf, launched once before the two passes
+// of a P/B batch, marks the 8x8 granules with a nonzero luma level.
 //
 // Bound on the H100: device-memory traffic, about 8 samples read per 6
 // written per segment over a ~66 MB int32 luma plane per 8 1080p frames.
@@ -34,6 +41,52 @@ __device__ __forceinline__ bool tu_edge(int g, int size) {
 
 __device__ __forceinline__ int clip3(int lo, int hi, int v) {
   return min(max(v, lo), hi);
+}
+
+// The P/B picture's granule maps (any may be NULL on an intra picture).
+struct Maps {
+  const int* dir;   // [F][gh][gw]
+  const int* mv;    // [F][gh][gw][4]
+  const int* ref;   // [F][gh][gw][2] or NULL (index 0)
+  const int* nz8;   // [F][gh][gw] nonzero luma level in the granule
+};
+
+// Luma cbf of granule (gy, gx): any nonzero level in its CU; a CU that
+// overflows the granule grid reads 0, as the reference's pooling does.
+__device__ int cu_cbf(const int* nz8, const int* dm, int gh, int gw, int gy,
+                      int gx, int log2_ctu) {
+  const int r = ((1 << log2_ctu) >> dm[gy * gw + gx]) >> 3;
+  const int y0 = gy / r * r, x0 = gx / r * r;
+  if (y0 + r > gh || x0 + r > gw) return 0;
+  int any = 0;
+  for (int y = y0; y < y0 + r; ++y)
+    for (int x = x0; x < x0 + r; ++x) any |= nz8[y * gw + x];
+  return any != 0;
+}
+
+// Boundary strength between granules p and q (spec 8.7.2.4, as the
+// reference's inter_bs_maps); m's pointers are offset to the frame.
+__device__ int seg_bs(const Maps& m, const int* dm, int gh, int gw, int py,
+                      int px, int qy, int qx, int log2_ctu) {
+  if (m.dir == nullptr) return 2;
+  const int gp = py * gw + px, gq = qy * gw + qx;
+  const int dp = m.dir[gp], dq = m.dir[gq];
+  if (dp == 0 || dq == 0) return 2;
+  if (cu_cbf(m.nz8, dm, gh, gw, py, px, log2_ctu) ||
+      cu_cbf(m.nz8, dm, gh, gw, qy, qx, log2_ctu))
+    return 1;
+  for (int l = 0; l < 2; ++l) {
+    const int use_p = (dp >> l) & 1, use_q = (dq >> l) & 1;
+    const int rp = use_p ? (m.ref ? m.ref[gp * 2 + l] : 0) : -1;
+    const int rq = use_q ? (m.ref ? m.ref[gq * 2 + l] : 0) : -1;
+    if (rp != rq) return 1;
+    for (int c = 0; c < 2; ++c) {
+      const int vp = use_p ? m.mv[gp * 4 + 2 * l + c] : 0;
+      const int vq = use_q ? m.mv[gq * 4 + 2 * l + c] : 0;
+      if (abs(vp - vq) >= 4) return 1;
+    }
+  }
+  return 0;
 }
 
 // One 4-line luma segment: q0 of line i sits at base + i*ls, its k-th
@@ -116,17 +169,33 @@ __device__ void chroma_segment(const int* in, int* out, size_t base, int ls,
   }
 }
 
+__global__ void cbf_kernel(const short* __restrict__ lv,
+                           int* __restrict__ nz8, long long total, int H,
+                           int W) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int gh = H >> 3, gw = W >> 3;
+  const long long f = idx / ((long long)gh * gw);
+  const int rem = (int)(idx - f * gh * gw);
+  const int gy = rem / gw, gx = rem - gy * gw;
+  const short* p = lv + (size_t)f * H * W + (size_t)(8 * gy) * W + 8 * gx;
+  int any = 0;
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x) any |= p[y * W + x];
+  nz8[idx] = any != 0;
+}
+
 __global__ void deblock_kernel(const int* __restrict__ in_y,
                                const int* __restrict__ in_cb,
                                const int* __restrict__ in_cr,
                                int* __restrict__ out_y,
                                int* __restrict__ out_cb,
                                int* __restrict__ out_cr,
-                               const int* __restrict__ depth,
+                               const int* __restrict__ depth, Maps maps,
                                const int* __restrict__ beta_tab,
-                               const int* __restrict__ tc_tab, int F, int H,
-                               int W, int log2_ctu, int qp, int qp_cb,
-                               int qp_cr, int bit_depth, int dir) {
+                               const int* __restrict__ tc_tab,
+                               const int* __restrict__ qps, int F, int H,
+                               int W, int log2_ctu, int bit_depth, int dir) {
   const int gh = H >> 3, gw = W >> 3;
   const int hc = H >> 1, wc = W >> 1;
   // segments per frame: luma (4-line segments x edge positions), chroma
@@ -140,6 +209,15 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
   long long j = idx - (long long)f * per_frame;
   const int max_val = (1 << bit_depth) - 1;
   const int* dm = depth + (size_t)f * gh * gw;
+  const size_t fg = (size_t)f * gh * gw;
+  Maps m = maps;
+  if (m.dir != nullptr) {
+    m.dir += fg;
+    m.mv += fg * 4;
+    if (m.ref != nullptr) m.ref += fg * 2;
+    m.nz8 += fg;
+  }
+  const int qp = qps[3 * f], qp_cb = qps[3 * f + 1], qp_cr = qps[3 * f + 2];
   if (j < n_luma) {
     // segment r of 4 lines along the edge, edge c (8-sample units)
     const int n_edges = dir == 0 ? gw : gh;
@@ -148,8 +226,13 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
     const int gy = dir == 0 ? r >> 1 : c, gx = dir == 0 ? c : r >> 1;
     const int size = (1 << log2_ctu) >> dm[gy * gw + gx];
     if (!tu_edge(c, size)) return;
+    const int bs = dir == 0 ? seg_bs(m, dm, gh, gw, gy, gx - 1, gy, gx,
+                                     log2_ctu)
+                            : seg_bs(m, dm, gh, gw, gy - 1, gx, gy, gx,
+                                     log2_ctu);
+    if (bs == 0) return;
     const int beta = beta_tab[min(max(qp, 0), 51)];
-    const int tc = tc_tab[min(max(qp + 2, 0), 53)];
+    const int tc = tc_tab[min(max(qp + 2 * (bs - 1), 0), 53)];
     const size_t fb = (size_t)f * H * W;
     if (dir == 0)
       luma_segment(in_y + fb, out_y + fb, (size_t)(4 * r) * W + 8 * c, W, 1,
@@ -170,6 +253,10 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
   const int gy = dir == 0 ? r : c, gx = dir == 0 ? c : r;
   const int size = (1 << log2_ctu) >> dm[gy * gw + gx];
   if (!tu_edge(c, size)) return;
+  if (m.dir != nullptr &&
+      (dir == 0 ? seg_bs(m, dm, gh, gw, gy, gx - 1, gy, gx, log2_ctu)
+                : seg_bs(m, dm, gh, gw, gy - 1, gx, gy, gx, log2_ctu)) != 2)
+    return;
   const int qpc = plane == 1 ? qp_cb : qp_cr;
   const int tc = tc_tab[min(max(qpc + 2, 0), 53)];
   const size_t fb = (size_t)f * hc * wc;
@@ -185,19 +272,33 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
 
 }  // namespace
 
+// lv [F, H, W] int16 luma levels -> nz8 [F, H/8, W/8].
+extern "C" int fhv_deblock_cbf(const short* lv, int* nz8, int F, int H,
+                               int W, cudaStream_t stream) {
+  const long long total = (long long)F * (H >> 3) * (W >> 3);
+  if (total <= 0) return 0;
+  cbf_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+               stream>>>(lv, nz8, total, H, W);
+  return (int)cudaGetLastError();
+}
+
+// dir_map/mv/ref/nz8: the P/B maps, all NULL on intra pictures (ref may be
+// NULL alone); qps [F][3]: deblocking QP, Cb QP, Cr QP.
 extern "C" int fhv_deblock(const int* in_y, const int* in_cb,
                            const int* in_cr, int* out_y, int* out_cb,
-                           int* out_cr, const int* depth, const int* beta_tab,
-                           const int* tc_tab, int F, int H, int W,
-                           int log2_ctu, int qp, int qp_cb, int qp_cr,
+                           int* out_cr, const int* depth, const int* dir_map,
+                           const int* mv, const int* ref, const int* nz8,
+                           const int* beta_tab, const int* tc_tab,
+                           const int* qps, int F, int H, int W, int log2_ctu,
                            int bit_depth, int dir, cudaStream_t stream) {
   if (F <= 0) return 0;
   const long long gh = H >> 3, gw = W >> 3;
   const long long n_luma = dir == 0 ? (H >> 2) * gw : (W >> 2) * gh;
   const long long total = (n_luma + 2 * gh * gw) * F;
   const long long grid = (total + kThreads - 1) / kThreads;
+  Maps maps{dir_map, mv, ref, nz8};
   deblock_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
-      in_y, in_cb, in_cr, out_y, out_cb, out_cr, depth, beta_tab, tc_tab, F,
-      H, W, log2_ctu, qp, qp_cb, qp_cr, bit_depth, dir);
+      in_y, in_cb, in_cr, out_y, out_cb, out_cr, depth, maps, beta_tab,
+      tc_tab, qps, F, H, W, log2_ctu, bit_depth, dir);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // Intra prediction of one sample (spec 8.4.4.2), shared by K1
 // (intra_pred.cu, the search's all-mode prediction) and K5
-// (commit_intra.cu, the commit's selected mode).
+// (commit.cu, the commit's selected mode).
 //
 // References are corner-first: t = [p[-1][-1], p[0][-1] .. p[2n-1][-1]],
 // l = [p[-1][-1], p[-1][0] .. p[-1][2n-1]], both of length 2n + 1.

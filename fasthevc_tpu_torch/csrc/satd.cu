@@ -12,9 +12,12 @@
 // sub-block) keeps its hb x hb residual in registers and runs the
 // butterflies there, so the [B, 35, n, n] residual that the JAX package
 // materialises is never written; sub-block values of one (block,
-// prediction) meet in an integer atomicAdd (exact, order-free).
+// prediction) meet in an integer atomicAdd (exact, order-free).  The
+// sub-block transform is shared with K10 through satd_common.cuh.
 
 #include <cuda_runtime.h>
+
+#include "satd_common.cuh"
 
 namespace {
 
@@ -40,33 +43,7 @@ __global__ void satd_kernel(const int* __restrict__ src,
   for (int r = 0; r < HB; ++r)
 #pragma unroll
     for (int c = 0; c < HB; ++c) d[r * HB + c] = sp[r * n + c] - pp[r * n + c];
-  // rows, then columns: in-place Walsh-Hadamard butterflies
-#pragma unroll
-  for (int r = 0; r < HB; ++r)
-#pragma unroll
-    for (int h = 1; h < HB; h <<= 1)
-#pragma unroll
-      for (int c = 0; c < HB; ++c)
-        if ((c & h) == 0) {
-          const int a = d[r * HB + c], e = d[r * HB + c + h];
-          d[r * HB + c] = a + e;
-          d[r * HB + c + h] = a - e;
-        }
-#pragma unroll
-  for (int c = 0; c < HB; ++c)
-#pragma unroll
-    for (int h = 1; h < HB; h <<= 1)
-#pragma unroll
-      for (int r = 0; r < HB; ++r)
-        if ((r & h) == 0) {
-          const int a = d[r * HB + c], e = d[(r + h) * HB + c];
-          d[r * HB + c] = a + e;
-          d[(r + h) * HB + c] = a - e;
-        }
-  int sum = 0;
-#pragma unroll
-  for (int i = 0; i < HB * HB; ++i) sum += abs(d[i]);
-  const int v = sum / HB;
+  const int v = satd_subblock<HB>(d);
   if (nbs == 1)
     out[bm] = v;
   else

@@ -1,5 +1,5 @@
 // The exact integer T -> Q -> IQ -> IT stages, one output sample each,
-// shared by K3 (tq_roundtrip.cu, the search) and K5 (commit_intra.cu, the
+// shared by K3 (tq_roundtrip.cu, the search) and K5 (commit.cu, the
 // commit).  Matrices and tiles are n x n int32, row-major, T[k][j] the
 // core transform (DCT, or DST for 4x4 luma).
 #pragma once

@@ -4,7 +4,7 @@
 // search's f32 stand-in for the integer pipeline (a TPU workaround: that
 // chip has no native s32 matmul).  This kernel computes the exact form of
 // tq_roundtrip (:139): the two-stage forward DCT with the spec shifts, the
-// HM dead-zone quantiser (intra offset 171/512) and flat-list
+// HM dead-zone quantiser (offset dz/512: 171 intra, 85 inter) and flat-list
 // dequantiser with 64-bit products, and the normative inverse DCT with its
 // clips.  Returns the levels and the reconstructed residual.
 //
@@ -28,7 +28,7 @@ __global__ void tq_kernel(const int* __restrict__ res,
                           const int* __restrict__ mat,
                           int* __restrict__ levels, int* __restrict__ recon,
                           int B, int n, int lg, int qp, int bit_depth,
-                          int bpc) {
+                          int dz, int bpc) {
   extern __shared__ int sm[];
   const int nn = n * n;
   int* T = sm;              // [n][n], T[k][j]
@@ -43,7 +43,7 @@ __global__ void tq_kernel(const int* __restrict__ res,
   const long long qscale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
   const long long iscale[6] = {40, 45, 51, 57, 64, 72};
   const long long scale = qscale[qp % 6];
-  const long long f = 171LL << (qbits - 9);
+  const long long f = (long long)dz << (qbits - 9);
   const long long dq = iscale[qp % 6] * 16;
   const int bd_shift = bit_depth + lg - 5;
   const int inv_shift2 = 20 - bit_depth;
@@ -87,13 +87,13 @@ __global__ void tq_kernel(const int* __restrict__ res,
 
 extern "C" int fhv_tq_roundtrip(const int* res, const int* mat, int* levels,
                                 int* recon, int B, int n, int lg, int qp,
-                                int bit_depth, cudaStream_t stream) {
+                                int bit_depth, int dz, cudaStream_t stream) {
   if (B <= 0) return 0;
   const int nn = n * n;
   const int bpc = nn >= kThreads ? 1 : kThreads / nn;
   const int grid = (B + bpc - 1) / bpc;
   const size_t smem = sizeof(int) * (nn + 2 * bpc * nn);
   tq_kernel<<<grid, kThreads, smem, stream>>>(res, mat, levels, recon, B, n,
-                                              lg, qp, bit_depth, bpc);
+                                              lg, qp, bit_depth, dz, bpc);
   return (int)cudaGetLastError();
 }

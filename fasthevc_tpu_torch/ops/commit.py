@@ -1,6 +1,7 @@
-"""Wavefront intra commit: exact reconstruction of whole frames.
+"""Wavefront commit: exact reconstruction of whole frames, intra or mixed.
 
-Counterpart of fasthevc_tpu/ops/commit.py `wavefront_commit_intra`.  CTUs
+Counterpart of fasthevc_tpu/ops/commit.py `wavefront_commit_intra` and
+`wavefront_commit_mixed`.  CTUs
 run in anti-diagonal waves (wave = cx + 2*cy), so every intra reference a
 CTU reads from its left, top-left, top and top-right neighbours is final
 when its wave starts.  Inside a CTU the CUs commit in the z-order of
@@ -9,17 +10,23 @@ and the spec's substitution, the selected intra prediction, the exact
 transform, dead-zone quantisation or the parallel RDOQ trellis, sign-data
 hiding, dequantisation, the inverse transform and the clip.
 
-`wavefront_commit_intra` goes through kernel K5 (csrc/commit_intra.cu,
-one launch per wave, one CTA per CTU and frame) for CUDA tensors;
-`wavefront_commit_plain` is its PyTorch twin, which runs the waves in the
-same order, batched over each wave's CTUs and frames, and reads its
-references from the recon planes it writes.  The JAX package's one-hot
-boundary buffers, permutation matmuls and scan-out reassembly
-(commit.py:16-39) are TPU workarounds and are not carried over.
+In the mixed form (P/B pictures), a CU whose direction is > 0 takes its
+prediction from the MC planes (ops/me.py `inter_pred_planes`), the inter
+dead-zone offset and the diagonal scan; intra CUs read reconstructed inter
+neighbours as any others, and the trellis tables are those of init_type 1.
 
-Scope: intra slices, CTU 32, TU == CU.  Chroma blocks of both planes
-quantise at qp_cb, as the reference's commit does (qp_cr is taken for
-the signature's sake).
+Both go through kernel K5 (csrc/commit.cu, one launch per wave, one CTA
+per CTU and frame) for CUDA tensors; `wavefront_commit_plain` is its
+PyTorch twin, which runs the waves in the same order, batched over each
+wave's CTUs and frames, and reads its references from the recon planes it
+writes.  The JAX package's one-hot boundary buffers, permutation matmuls
+and scan-out reassembly (commit.py:16-39) are TPU workarounds and are not
+carried over.
+
+QPs and lambda may be given per frame (sequences of length F), so a batch
+may mix temporal layers.  Scope: CTU 32, TU == CU.  Chroma blocks of both
+planes quantise at qp_cb, as the reference's commit does (qp_cr is taken
+for the signature's sake).
 """
 
 from __future__ import annotations
@@ -27,12 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fasthevc_tpu.spec.residual import get_scan
-from fasthevc_tpu.spec.tables import (DCT_MATRICES, INTRA_INV_ANGLE,
-                                      INTRA_PRED_ANGLE, QUANT_SCALES)
+from ..spec.residual import get_scan
+from ..spec.tables import (DCT_MATRICES, INTRA_INV_ANGLE,
+                           INTRA_PRED_ANGLE, QUANT_SCALES)
 
 from .. import _build
-from . import intra, rdoq as rdoq_ops
+from . import intra, per_frame, rdoq as rdoq_ops
 from .transform import (dequantize, fwd_transform, inv_transform,
                         quantize_mixed)
 
@@ -261,14 +268,19 @@ def _sdh_adjust_scan(lv: torch.Tensor, cf: torch.Tensor, qp: int, lg: int,
     return torch.where(sel, bump[..., None], lvg).reshape(a_n, nn)
 
 
-def _tq_recon(pred, src, lg, qp, c_idx, modes, bit_depth, sdh, rd=None):
-    """Exact T/Q/SDH/IQ/IT + clip of intra blocks [B, n, n]; returns
-    (recon, levels).  rd: the (c_idx, lg) RDOQ tables, or None for the
-    dead-zone quantiser.  Twin of commit.py:416 for intra blocks."""
+def _tq_recon(pred, src, lg, qp, c_idx, modes, bit_depth, sdh, rd=None,
+              intra_mask=None):
+    """Exact T/Q/SDH/IQ/IT + clip of blocks [B, n, n]; returns (recon,
+    levels).  rd: the (c_idx, lg) RDOQ tables, or None for the dead-zone
+    quantiser; intra_mask [B] (None: all intra) selects the intra offset
+    and the mode-dependent scan, the others take the inter offset and the
+    diagonal scan.  Twin of commit.py:416."""
     res = src - pred
     coeffs = fwd_transform(res, lg, bit_depth)
     a_n, n = coeffs.shape[0], coeffs.shape[-1]
-    sel = _scan_sel(lg, c_idx, modes)
+    if intra_mask is None:
+        intra_mask = torch.ones(a_n, dtype=torch.bool, device=coeffs.device)
+    sel = torch.where(intra_mask, _scan_sel(lg, c_idx, modes), 0)
     if rd is not None:
         cf_s = scan_permute(coeffs.reshape(a_n, n * n), lg, sel)
         lv_s = rdoq_ops.rdoq_scan_plain(cf_s, sel, rd, lg, c_idx)
@@ -276,8 +288,7 @@ def _tq_recon(pred, src, lg, qp, c_idx, modes, bit_depth, sdh, rd=None):
             lv_s = _sdh_adjust_scan(lv_s, cf_s, qp, lg, bit_depth)
         levels = scan_permute(lv_s, lg, sel, inverse=True).reshape(a_n, n, n)
     else:
-        mask = torch.ones(a_n, dtype=torch.bool, device=coeffs.device)
-        levels = quantize_mixed(coeffs, qp, lg, bit_depth, mask)
+        levels = quantize_mixed(coeffs, qp, lg, bit_depth, intra_mask)
         if sdh:
             lv_s = scan_permute(levels.reshape(a_n, n * n), lg, sel)
             cf_s = scan_permute(coeffs.reshape(a_n, n * n), lg, sel)
@@ -322,10 +333,23 @@ def _ref_index(f, y0, x0, n, h, w):
 def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
                            coded_w, coded_h, sdh=True, tile_bounds_x=(),
                            tile_bounds_y=(), rdoq=False, lam=0.0,
-                           bit_depth=8):
-    """K5's twin; arguments as wavefront_commit_intra (qp_cr dropped)."""
-    dev = src_y.device
+                           bit_depth=8, dir_map=None, pred=None):
+    """K5's twin; arguments as wavefront_commit_mixed (qp_cr dropped), or
+    as wavefront_commit_intra when dir_map is None."""
     nf = src_y.shape[0]
+    qys, qcs, lams = (per_frame(v, nf) for v in (qp_y, qp_cb, lam))
+    if len(set(zip(qys, qcs, lams))) > 1:
+        # one batched pass per frame: the quantiser takes one QP
+        outs = [wavefront_commit_plain(
+            src_y[i:i + 1], src_cb[i:i + 1], src_cr[i:i + 1],
+            depth[i:i + 1], mode[i:i + 1], qys[i], qcs[i], coded_w, coded_h,
+            sdh, tile_bounds_x, tile_bounds_y, rdoq, lams[i], bit_depth,
+            None if dir_map is None else dir_map[i:i + 1],
+            None if pred is None else tuple(p[i:i + 1] for p in pred))
+            for i in range(nf)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    qp_y, qp_cb, lam = qys[0], qcs[0], lams[0]
+    dev = src_y.device
     nctux, nctuy = -(-coded_w // CTU), -(-coded_h // CTU)
     pw, ph = nctux * CTU, nctuy * CTU
     planes = {
@@ -340,8 +364,15 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
         p["lv"] = torch.zeros_like(p["src"])
     dm = _pad(depth.to(torch.int64), ph // 8, pw // 8, value=2)
     mm = _pad(mode.to(torch.int64), ph // 8, pw // 8)
-    rd_tabs = (rdoq_ops.build_rdoq_tables(qp_y, qp_y, qp_cb, lam, 0,
-                                          bit_depth, dev) if rdoq else None)
+    mixed = dir_map is not None
+    if mixed:
+        im = _pad(dir_map.to(torch.int64), ph // 8, pw // 8)
+        for name, p in zip(("l", "cb", "cr"), pred):
+            planes[name]["ipred"] = _pad(p.to(torch.int64), planes[name]["h"],
+                                         planes[name]["w"])
+    rd_tabs = (rdoq_ops.build_rdoq_tables(qp_y, qp_y, qp_cb, lam,
+                                          1 if mixed else 0, bit_depth, dev)
+               if rdoq else None)
     half = 1 << (bit_depth - 1)
     fr = torch.arange(nf, device=dev)
     for cx, cy, takes in _precompute_takes(nctux, nctuy, coded_w, coded_h,
@@ -355,6 +386,7 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
             gx, gy = (lx // 8, ly // 8) if kind == "l" else (lx // 4, ly // 4)
             d = dm[f, bcy * 4 + gy, bcx * 4 + gx]
             modes = mm[f, bcy * 4 + gy, bcx * 4 + gx]
+            inter = (im[f, bcy * 4 + gy, bcx * 4 + gx] > 0) if mixed else None
             inside = ((bcx * CTU + gx * 8 < coded_w)
                       & (bcy * CTU + gy * 8 < coded_h))
             act = inside & ((d >= 2) if dcond == 2 else (d == dcond))
@@ -372,15 +404,22 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
                 refs = torch.take_along_dim(raw, take, dim=1)
                 top = refs[:, 2 * n:]
                 left = torch.flip(refs[:, :2 * n + 1], [1])
-                pred = intra.predict_plain(top, left, lg, modes[:, None],
-                                           kind == "l", bit_depth)[:, 0]
+                # inter CUs carry mode -1; their intra prediction is unused
+                blk = intra.predict_plain(top, left, lg,
+                                          modes.clamp_min(0)[:, None],
+                                          kind == "l", bit_depth)[:, 0]
+                blk = blk.to(torch.int64)
                 idx = _block_index(f, y0, x0, n, p["h"], p["w"])
+                if mixed:
+                    blk = torch.where(inter[:, None, None],
+                                      p["ipred"].view(-1)[idx], blk)
                 src = p["src"].view(-1)[idx]
                 c_idx = 0 if kind == "l" else 1
                 qp = qp_y if kind == "l" else qp_cb
                 rd = rd_tabs[(c_idx, lg)] if rdoq else None
-                recon, levels = _tq_recon(pred.to(torch.int64), src, lg, qp,
-                                          c_idx, modes, bit_depth, sdh, rd)
+                recon, levels = _tq_recon(
+                    blk, src, lg, qp, c_idx, modes, bit_depth, sdh, rd,
+                    None if inter is None else ~inter)
                 am = act[:, None, None]
                 rec_flat[idx] = torch.where(am, recon, rec_flat[idx])
                 lv_flat = p["lv"].view(-1)
@@ -401,19 +440,42 @@ def wavefront_commit_intra(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
     """Exact intra reconstruction of F frames.
 
     src_*: [F, coded_h, coded_w] (chroma halved) source planes; depth,
-    mode: [F, coded_h/8, coded_w/8] decision maps; qp_*: ints;
-    tile_bounds_*: inner tile boundaries in luma samples; lam: the f32
-    lambda of the RDOQ trellis.  Returns (rec_y, rec_cb, rec_cr, lv_y,
-    lv_cb, lv_cr): recon int32 and levels int16, in coded dims.
-    CUDA tensors go through K5 unless `plain`."""
+    mode: [F, coded_h/8, coded_w/8] decision maps; qp_*: ints or per-frame
+    sequences; tile_bounds_*: inner tile boundaries in luma samples; lam:
+    the f32 lambda of the RDOQ trellis (or per frame).  Returns (rec_y,
+    rec_cb, rec_cr, lv_y, lv_cb, lv_cr): recon int32 and levels int16, in
+    coded dims.  CUDA tensors go through K5 unless `plain`."""
     if plain or not src_y.is_cuda:
         return wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode,
                                       qp_y, qp_cb, coded_w, coded_h, sdh,
                                       tile_bounds_x, tile_bounds_y, rdoq,
                                       lam, bit_depth)
-    return _commit_cuda(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
-                        coded_w, coded_h, sdh, tuple(tile_bounds_x),
-                        tuple(tile_bounds_y), rdoq, lam, bit_depth)
+    return _commit_cuda(src_y, src_cb, src_cr, depth, mode, None, None,
+                        qp_y, qp_cb, coded_w, coded_h, sdh,
+                        tuple(tile_bounds_x), tuple(tile_bounds_y), rdoq, lam,
+                        bit_depth)
+
+
+def wavefront_commit_mixed(src_y, src_cb, src_cr, depth, mode, dir_map,
+                           pred_y, pred_cb, pred_cr, qp_y, qp_cb, qp_cr,
+                           coded_w, coded_h, sdh=True, tile_bounds_x=(),
+                           tile_bounds_y=(), rdoq=False, lam=0.0,
+                           plain=False, bit_depth=8):
+    """Mixed intra/inter exact reconstruction of F P/B frames: as
+    wavefront_commit_intra, plus dir_map [F, coded_h/8, coded_w/8] (0
+    intra, 1/2/3 L0/L1/BI) and the MC prediction planes pred_* (coded
+    dims, ops/me.py inter_pred_planes).  CUDA tensors go through K5 unless
+    `plain`."""
+    pred = (pred_y, pred_cb, pred_cr)
+    if plain or not src_y.is_cuda:
+        return wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode,
+                                      qp_y, qp_cb, coded_w, coded_h, sdh,
+                                      tile_bounds_x, tile_bounds_y, rdoq,
+                                      lam, bit_depth, dir_map, pred)
+    return _commit_cuda(src_y, src_cb, src_cr, depth, mode, dir_map, pred,
+                        qp_y, qp_cb, coded_w, coded_h, sdh,
+                        tuple(tile_bounds_x), tuple(tile_bounds_y), rdoq, lam,
+                        bit_depth)
 
 
 # ---------------------------------------------------------------------------
@@ -455,42 +517,45 @@ def _kernel_static(device) -> tuple:
     return _KERNEL_TABLES[key]
 
 
-def _rdoq_kernel_tables(rd_tabs: dict, device) -> tuple:
-    """Flatten build_rdoq_tables' output into K5's (ftab f32, itab int32,
-    meta int32 [2, 6, len(RD_FIELDS)]) on `device`."""
+def _rdoq_kernel_tables(rd_tabs: list, device) -> tuple:
+    """Flatten build_rdoq_tables' output of each frame into K5's (ftab
+    f32, itab int32, meta int32 [F, 2, 6, len(RD_FIELDS)]) on `device`."""
     fparts, iparts = [], []
-    meta = np.zeros((2, 6, len(RD_FIELDS)), np.int32)
+    meta = np.zeros((len(rd_tabs), 2, 6, len(RD_FIELDS)), np.int32)
     fo = io = 0
-    for c_idx, lgs in ((0, rdoq_ops.LUMA_LGS), (1, rdoq_ops.CHROMA_LGS)):
-        for lg in lgs:
-            t = rd_tabs[(c_idx, lg)]
-            row = meta[c_idx, lg]
-            for name in ("sig", "last", "g1", "g2", "csb"):
-                arr = t[name].detach().cpu().to(torch.float32).reshape(-1)
-                row[RD_FIELDS.index(name)] = fo
-                fparts.append(arr)
-                fo += arr.numel()
-            row[RD_FIELDS.index("err_scale")] = fo
-            fparts.append(t["err_scale"].detach().cpu().reshape(1))
-            row[RD_FIELDS.index("step")] = fo + 1
-            fparts.append(torch.tensor([t["step"]], dtype=torch.float32))
-            fo += 2
-            nbr = t["nbr"].detach().cpu().to(torch.int32).reshape(-1)
-            row[RD_FIELDS.index("nbr")] = io
-            iparts.append(nbr)
-            io += nbr.numel()
-            row[RD_FIELDS.index("qbits")] = t["qbits"]
-            row[RD_FIELDS.index("q_scale")] = t["q_scale"]
-            row[RD_FIELDS.index("n_scans")] = t["sig"].shape[0]
-    ftab = torch.cat(fparts).to(device)
-    itab = torch.cat(iparts).to(device)
-    return ftab, itab, torch.from_numpy(meta).to(device)
+    for fi, tabs in enumerate(rd_tabs):
+        for c_idx, lgs in ((0, rdoq_ops.LUMA_LGS), (1, rdoq_ops.CHROMA_LGS)):
+            for lg in lgs:
+                t = tabs[(c_idx, lg)]
+                row = meta[fi, c_idx, lg]
+                for name in ("sig", "last", "g1", "g2", "csb"):
+                    arr = t[name].detach().cpu().to(torch.float32).reshape(-1)
+                    row[RD_FIELDS.index(name)] = fo
+                    fparts.append(arr)
+                    fo += arr.numel()
+                row[RD_FIELDS.index("err_scale")] = fo
+                fparts.append(t["err_scale"].detach().cpu().reshape(1))
+                row[RD_FIELDS.index("step")] = fo + 1
+                fparts.append(torch.tensor([t["step"]], dtype=torch.float32))
+                fo += 2
+                nbr = t["nbr"].detach().cpu().to(torch.int32).reshape(-1)
+                row[RD_FIELDS.index("nbr")] = io
+                iparts.append(nbr)
+                io += nbr.numel()
+                row[RD_FIELDS.index("qbits")] = t["qbits"]
+                row[RD_FIELDS.index("q_scale")] = t["q_scale"]
+                row[RD_FIELDS.index("n_scans")] = t["sig"].shape[0]
+    return tuple(_build.upload(t, device) for t in
+                 (torch.cat(fparts), torch.cat(iparts),
+                  torch.from_numpy(meta)))
 
 
-def _commit_cuda(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb, coded_w,
-                 coded_h, sdh, tbx, tby, rdoq, lam, bit_depth):
+def _commit_cuda(src_y, src_cb, src_cr, depth, mode, dir_map, pred, qp_y,
+                 qp_cb, coded_w, coded_h, sdh, tbx, tby, rdoq, lam,
+                 bit_depth):
     dev = src_y.device
     nf = src_y.shape[0]
+    qys, qcs, lams = (per_frame(v, nf) for v in (qp_y, qp_cb, lam))
     nctux, nctuy = -(-coded_w // CTU), -(-coded_h // CTU)
     pw, ph = nctux * CTU, nctuy * CTU
     i32 = torch.int32
@@ -499,33 +564,51 @@ def _commit_cuda(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb, coded_w,
     scr = _pad(src_cr.to(i32), ph // 2, pw // 2).contiguous()
     dm = _pad(depth.to(i32), ph // 8, pw // 8, value=2).contiguous()
     mm = _pad(mode.to(i32), ph // 8, pw // 8).contiguous()
+    tensors = [sy, scb, scr, dm, mm]
+    mixed = dir_map is not None
+    im = ipy = ipcb = ipcr = None
+    if mixed:
+        im = _pad(dir_map.to(i32), ph // 8, pw // 8).contiguous()
+        ipy, ipcb, ipcr = (_pad(p.to(i32), h, w).contiguous() for p, h, w in
+                           zip(pred, (ph, ph // 2, ph // 2),
+                               (pw, pw // 2, pw // 2)))
+        tensors += [im, ipy, ipcb, ipcr]
     rec_y = torch.zeros_like(sy)
     rec_cb = torch.zeros_like(scb)
     rec_cr = torch.zeros_like(scr)
     lv_y = torch.zeros(sy.shape, dtype=torch.int16, device=dev)
     lv_cb = torch.zeros(scb.shape, dtype=torch.int16, device=dev)
     lv_cr = torch.zeros(scr.shape, dtype=torch.int16, device=dev)
-    _build.require_cuda("commit_intra", sy, scb, scr, dm, mm, rec_y, rec_cb,
-                        rec_cr, dtype=i32)
+    name = "commit_mixed" if mixed else "commit_intra"
+    _build.require_cuda(name, *tensors, rec_y, rec_cb, rec_cr, dtype=i32)
     dct, scans, mode_tab = _kernel_static(dev)
-    tiles = torch.tensor(list(tbx) + list(tby) + [0], dtype=i32, device=dev)
+    tiles = _build.upload(torch.tensor(list(tbx) + list(tby) + [0],
+                                       dtype=i32), dev)
+    qps = _build.upload(torch.tensor([[y, c] for y, c in zip(qys, qcs)],
+                                     dtype=i32), dev)
+    lam_t = _build.upload(torch.tensor(lams, dtype=torch.float32), dev)
     rd = (None, None, None)
     if rdoq:
         rd = _rdoq_kernel_tables(
-            rdoq_ops.build_rdoq_tables(qp_y, qp_y, qp_cb, lam, 0, bit_depth),
-            dev)
+            [rdoq_ops.build_rdoq_tables(y, y, c, lm, 1 if mixed else 0,
+                                        bit_depth)
+             for y, c, lm in zip(qys, qcs, lams)], dev)
     n_waves = nctux + 2 * (nctuy - 1)
-    rc = _build.lib().fhv_commit_intra(
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = _build.lib().fhv_commit(
         sy.data_ptr(), scb.data_ptr(), scr.data_ptr(), dm.data_ptr(),
-        mm.data_ptr(), rec_y.data_ptr(), rec_cb.data_ptr(),
-        rec_cr.data_ptr(), lv_y.data_ptr(), lv_cb.data_ptr(),
-        lv_cr.data_ptr(), dct.data_ptr(), scans.data_ptr(),
-        mode_tab.data_ptr(), tiles.data_ptr(), len(tbx), len(tby),
-        *(None if t is None else t.data_ptr() for t in rd), float(lam), nf,
-        ph, pw, coded_w, coded_h, int(qp_y), int(qp_cb), int(bool(sdh)),
-        int(bool(rdoq)), bit_depth, _build.stream_handle(sy))
-    _build.LAUNCHES["commit_intra"] += n_waves
-    _build.check(rc, "commit_intra")
+        mm.data_ptr(), ptr(im), ptr(ipy), ptr(ipcb), ptr(ipcr),
+        rec_y.data_ptr(), rec_cb.data_ptr(), rec_cr.data_ptr(),
+        lv_y.data_ptr(), lv_cb.data_ptr(), lv_cr.data_ptr(), dct.data_ptr(),
+        scans.data_ptr(), mode_tab.data_ptr(), tiles.data_ptr(), len(tbx),
+        len(tby), *(ptr(t) for t in rd), lam_t.data_ptr(), qps.data_ptr(),
+        nf, ph, pw, coded_w, coded_h, int(bool(sdh)), int(bool(rdoq)),
+        bit_depth, _build.stream_handle(sy))
+    _build.LAUNCHES[name] += n_waves
+    _build.check(rc, name)
     ch, cw = coded_h // 2, coded_w // 2
     return (rec_y[:, :coded_h, :coded_w], rec_cb[:, :ch, :cw],
             rec_cr[:, :ch, :cw], lv_y[:, :coded_h, :coded_w],

@@ -42,6 +42,31 @@ def _hadamard(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x
 
 
+def fma_f32(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to f32, as the fused multiply-add that XLA's
+    CPU backend contracts `c + a * b` into (and `__fmaf_rn` on the card).
+    The f64 product of two f32 values is exact; TwoSum recovers the f64
+    sum's rounding error, and a sum that lands exactly halfway between two
+    f32 values is nudged toward the exact one before the final rounding.
+    At least one of b and c is a tensor."""
+    def f64(v):
+        # a 0-dim tensor or a number enters as a scalar: no host-to-device
+        # copy when the others lie on the card
+        if isinstance(v, torch.Tensor) and v.dim() > 0:
+            return v.to(torch.float64)
+        return float(v)
+
+    p = f64(a) * f64(b)
+    c64 = f64(c)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    halfway = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where(halfway & (err != 0), torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def satd_plain(src: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     """K2's twin: src [B, N, N], preds [B, M, N, N] -> [B, M] int32 SATD of
     src - pred over 8x8 sub-blocks (4x4 when N == 4), each abs-sum divided

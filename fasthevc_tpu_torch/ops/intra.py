@@ -19,8 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fasthevc_tpu.spec.intra import should_filter
-from fasthevc_tpu.spec.tables import INTRA_INV_ANGLE, INTRA_PRED_ANGLE
+from ..spec.intra import should_filter
+from ..spec.tables import INTRA_INV_ANGLE, INTRA_PRED_ANGLE
 
 from .. import _build
 

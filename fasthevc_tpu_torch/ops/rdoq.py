@@ -2,7 +2,7 @@
 
 Counterpart of fasthevc_tpu/ops/rdoq.py (the closed-form re-derivation of
 HM's sequential trellis; its module docstring describes the algorithm).
-On the card the trellis runs inside kernel K5 (csrc/commit_intra.cu);
+On the card the trellis runs inside kernel K5 (csrc/commit.cu);
 `rdoq_scan_plain` is its PyTorch twin, and `build_rdoq_tables` builds the
 rate tables both read, once per dispatch.
 
@@ -28,10 +28,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from fasthevc_tpu.spec.residual import (SCAN_VER, _last_prefix_suffix,
-                                        get_scan, last_ctx_params,
-                                        sig_ctx_inc)
-from fasthevc_tpu.spec.tables import CTX_INIT, FRAC_BITS, QUANT_SCALES
+from ..spec.residual import (SCAN_VER, _last_prefix_suffix, get_scan,
+                             last_ctx_params, sig_ctx_inc)
+from ..spec.tables import CTX_INIT, FRAC_BITS, QUANT_SCALES
 
 F32 = torch.float32
 LUMA_LGS = (3, 4, 5)

@@ -5,7 +5,7 @@ Counterpart of fasthevc_tpu/ops/transform.py.  `fwd_transform`,
 `inv_transform`, `quantize`, `quantize_mixed`, `dequantize` and the thin
 `tq_roundtrip_plain` over them are the plain PyTorch forms of the JAX
 functions of the same names; on the card the commit runs them inside
-kernel K5 (csrc/commit_intra.cu).  `tq_roundtrip` goes through kernel K3
+kernel K5 (csrc/commit.cu).  `tq_roundtrip` goes through kernel K3
 (csrc/tq_roundtrip.cu) for CUDA tensors: the exact integer form of the JAX
 search's f32 stand-in `tq_roundtrip_fast`.  K3 and K5 share one device
 implementation of these stages (csrc/tq_common.cuh).
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fasthevc_tpu.spec.tables import (
+from ..spec.tables import (
     DCT_MATRICES,
     DST4,
     INV_QUANT_SCALES,
@@ -104,22 +104,23 @@ def dequantize(levels: torch.Tensor, qp: int, log2_size: int,
 
 
 def tq_roundtrip_plain(res: torch.Tensor, qp: int, log2_size: int,
-                       bit_depth: int = 8):
+                       bit_depth: int = 8, is_intra: bool = True):
     """K3's twin: res [B, N, N] -> (levels, recon residual), int32."""
     levels = quantize(fwd_transform(res, log2_size, bit_depth), qp,
-                      log2_size, bit_depth)
+                      log2_size, bit_depth, is_intra)
     r = inv_transform(dequantize(levels, qp, log2_size, bit_depth),
                       log2_size, bit_depth)
     return levels.to(torch.int32), r.to(torch.int32)
 
 
 def tq_roundtrip(res: torch.Tensor, qp: int, log2_size: int,
-                 bit_depth: int = 8):
-    """Forward DCT, HM dead-zone quantisation (intra offset), flat-list
-    dequantisation and inverse DCT of res [B, N, N] at scalar `qp`:
-    returns (levels, recon residual), both [B, N, N] int32."""
+                 bit_depth: int = 8, is_intra: bool = True):
+    """Forward DCT, HM dead-zone quantisation (offset 171/512 intra,
+    85/512 inter), flat-list dequantisation and inverse DCT of res [B, N,
+    N] at scalar `qp`: returns (levels, recon residual), both [B, N, N]
+    int32."""
     if not res.is_cuda:
-        return tq_roundtrip_plain(res, qp, log2_size, bit_depth)
+        return tq_roundtrip_plain(res, qp, log2_size, bit_depth, is_intra)
     n = 1 << log2_size
     res = res.to(torch.int32).contiguous()
     _build.require_cuda("tq_roundtrip", res, dtype=torch.int32)
@@ -131,7 +132,8 @@ def tq_roundtrip(res: torch.Tensor, qp: int, log2_size: int,
     mat = _mat(log2_size, False, res.device, torch.int32)
     rc = _build.lib().fhv_tq_roundtrip(
         res.data_ptr(), mat.data_ptr(), levels.data_ptr(), recon.data_ptr(),
-        b, n, log2_size, int(qp), bit_depth, _build.stream_handle(res))
+        b, n, log2_size, int(qp), bit_depth, 171 if is_intra else 85,
+        _build.stream_handle(res))
     _build.LAUNCHES["tq_roundtrip"] += 1
     _build.check(rc, "tq_roundtrip")
     return levels, recon

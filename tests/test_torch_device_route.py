@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 
 from fasthevc_tpu.codec.encoder import TpuEncoder
-from fasthevc_tpu.config import EncoderConfig
+from fasthevc_tpu.config import EncoderConfig as JaxConfig
 from fasthevc_tpu.spec.decoder import SpecDecoder
-from fasthevc_tpu.utils import synthesize_yuv
 from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+from fasthevc_tpu_torch.config import EncoderConfig
+from fasthevc_tpu_torch.utils import synthesize_yuv
 
 DEVICE_KEYS = {"device_s", "wait_s", "entropy_s", "wall_s"}
 PIPELINED_KEYS = {"search_s", "wait_s", "commit_s", "wall_s"}
@@ -37,9 +38,9 @@ def _enable_device_paths(monkeypatch):
 ])
 def test_stream_matches_tpu_device_route(w, h, qp, seed, frames, extra):
     clip = synthesize_yuv(w, h, frames, seed=seed)
-    cfg = EncoderConfig(width=w, height=h, qp=qp, frames=frames, **extra)
-    want, want_recons = TpuEncoder(cfg).encode(clip)
-    enc = TorchEncoder(cfg, "cpu")
+    kw = dict(width=w, height=h, qp=qp, frames=frames, **extra)
+    want, want_recons = TpuEncoder(JaxConfig(**kw)).encode(clip)
+    enc = TorchEncoder(EncoderConfig(**kw), "cpu")
     got, recons = enc.encode(clip)
     assert set(enc.timing) == DEVICE_KEYS
     assert got == want

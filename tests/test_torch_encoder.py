@@ -14,10 +14,11 @@ import sys
 import pytest
 
 from fasthevc_tpu.codec.encoder import TpuEncoder
-from fasthevc_tpu.config import EncoderConfig, low_delay_p
+from fasthevc_tpu.config import EncoderConfig as JaxConfig
 from fasthevc_tpu.spec.decoder import SpecDecoder
-from fasthevc_tpu.utils import synthesize_yuv
 from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+from fasthevc_tpu_torch.config import EncoderConfig, low_delay_p
+from fasthevc_tpu_torch.utils import synthesize_yuv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,9 +32,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ])
 def test_stream_matches_tpu_encoder(w, h, qp, seed, frames, extra):
     clip = synthesize_yuv(w, h, frames, seed=seed)
-    cfg = EncoderConfig(width=w, height=h, qp=qp, frames=frames, **extra)
-    want, want_recons = TpuEncoder(cfg).encode(clip)
-    got, recons = TorchEncoder(cfg, "cpu").encode(clip)
+    kw = dict(width=w, height=h, qp=qp, frames=frames, **extra)
+    want, want_recons = TpuEncoder(JaxConfig(**kw)).encode(clip)
+    got, recons = TorchEncoder(EncoderConfig(**kw), "cpu").encode(clip)
     assert got == want
     assert len(recons) == frames
     for r, wr in zip(recons, want_recons):
@@ -46,9 +47,9 @@ def test_single_frame_matches_tpu_encoder():
     """One frame: TpuEncoder takes its per-frame route, the port its
     group route with a group of one; the decisions are the same."""
     clip = synthesize_yuv(88, 72, 1, seed=22)
-    cfg = EncoderConfig(width=88, height=72, qp=30, frames=1)
-    want, _ = TpuEncoder(cfg).encode(clip)
-    got, _ = TorchEncoder(cfg, "cpu").encode(clip)
+    kw = dict(width=88, height=72, qp=30, frames=1)
+    want, _ = TpuEncoder(JaxConfig(**kw)).encode(clip)
+    got, _ = TorchEncoder(EncoderConfig(**kw), "cpu").encode(clip)
     assert got == want
 
 
@@ -95,7 +96,11 @@ def test_unported_tools_raise(kw):
 
 
 def test_inter_orders_raise():
+    """P orders run on the device route only: under FASTHEVC_FORCE_CLASSIC
+    (tests/conftest.py) they would take TpuEncoder's classic per-frame
+    loop, which is not ported."""
+    assert os.environ.get("FASTHEVC_FORCE_CLASSIC")
     cfg = low_delay_p(width=64, height=64, frames=3)
     clip = synthesize_yuv(64, 64, 3, seed=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         TorchEncoder(cfg, "cpu").encode(clip)

@@ -1,0 +1,168 @@
+"""The P-picture pixel path of the port against the JAX package on the CPU:
+exact MC planes (K11's twin), the inter boundary strengths and the
+deblocking that reads them (K6's twin), and the mixed wavefront commit
+(K5's twin), on seeded 96x64 pictures whose decisions come from the port's
+P search.  Every output is integer and must be equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fasthevc_tpu.ops import me as jme
+from fasthevc_tpu.ops.commit import wavefront_commit_mixed as jax_mixed
+from fasthevc_tpu.ops.deblock import deblock_device, inter_bs_maps, tu_cbf_map
+from fasthevc_tpu_torch.codec.search import search_p_maps
+from fasthevc_tpu_torch.ops import commit, deblock, me
+from fasthevc_tpu_torch.utils import synthesize_yuv
+from fasthevc_tpu_torch.utils.video import pad_plane
+
+W, H = 96, 64
+GH, GW = H // 8, W // 8
+
+
+def _clip(seed):
+    return synthesize_yuv(W, H, 3, seed=seed)
+
+
+def _planes(frame):
+    return [np.asarray(p, np.int32) for p in frame]
+
+
+def _p_decisions(clip, qp=32, nref=2):
+    """The port's P search of frame 2 against frames 1 and 0: (depth, mode,
+    dir, mv [.., 4], ref [.., 2]) int32 numpy granule maps."""
+    ph, pw = -(-H // 32) * 32, -(-W // 32) * 32
+
+    def luma(k):
+        return torch.from_numpy(pad_plane(np.asarray(clip[k][0], np.int32),
+                                          ph, pw))
+
+    ls = float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
+    pk = search_p_maps(luma(2)[None], torch.stack([luma(1), luma(0)])[None],
+                       [ls], 5, 3, W, H, 64, nref=[nref])[0].numpy()
+    pk = pk[:GH, :GW].astype(np.int32)
+    return pk[..., 0], pk[..., 1], pk[..., 2], pk[..., 3:7], pk[..., 7:9]
+
+
+def _random_motion(seed):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 4, (GH, GW)).astype(np.int32)
+    mv = rng.integers(-70, 71, (GH, GW, 4)).astype(np.int32)
+    rm = rng.integers(0, 2, (GH, GW, 2)).astype(np.int32)
+    return d, mv, rm
+
+
+@pytest.mark.parametrize("kind", ["uni_l0", "bi", "uni_l0_ref_map",
+                                  "bi_ref_map"])
+def test_inter_pred_planes_match_jax(kind):
+    clip = _clip(50)
+    d, mv, rm = _random_motion(51)
+    ref_map = rm if kind.endswith("ref_map") else None
+    bi = kind.startswith("bi")
+    if not bi:
+        d = (d > 0).astype(np.int32)
+    if ref_map is None:
+        ref0 = _planes(clip[1])
+        ref1 = _planes(clip[0]) if bi else None
+    else:
+        ref0 = [np.stack([a, b]) for a, b in zip(_planes(clip[1]),
+                                                  _planes(clip[0]))]
+        ref1 = [np.stack([b, a]) for a, b in zip(_planes(clip[1]),
+                                                  _planes(clip[0]))] \
+            if bi else None
+    want = jme.inter_pred_planes(
+        tuple(jnp.asarray(p) for p in ref0),
+        None if ref1 is None else tuple(jnp.asarray(p) for p in ref1),
+        jnp.asarray(d), jnp.asarray(mv),
+        ref_map=None if ref_map is None else jnp.asarray(ref_map))
+    got = me.inter_pred_planes(
+        tuple(torch.from_numpy(p) for p in ref0),
+        None if ref1 is None else tuple(torch.from_numpy(p) for p in ref1),
+        torch.from_numpy(d), torch.from_numpy(mv),
+        ref_map=None if ref_map is None else torch.from_numpy(ref_map))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_cbf_and_boundary_strengths_match_jax():
+    rng = np.random.default_rng(60)
+    depth, _, d, mv, rm = _p_decisions(_clip(61))
+    d_rand, mv_rand, rm_rand = _random_motion(62)
+    # levels in the top-left CTU only, so both cbf values occur
+    lv = np.zeros((H, W), np.int16)
+    lv[:32, :32] = ((rng.random((32, 32)) < 0.02)
+                    * rng.integers(-3, 4, (32, 32)))
+    cbf = np.array(tu_cbf_map(jnp.asarray(lv), jnp.asarray(depth), 5))
+    tcbf = deblock.tu_cbf_map(torch.from_numpy(lv)[None],
+                              torch.from_numpy(depth)[None], 5)[0]
+    np.testing.assert_array_equal(cbf, tcbf.numpy())
+    assert cbf.any() and not cbf.all()
+    seen = set()
+    for dd, mm, rr in ((d, mv, rm), (d_rand, mv_rand, rm_rand),
+                       (d_rand, mv_rand, None)):
+        want = inter_bs_maps(jnp.asarray(depth), jnp.asarray(dd),
+                             jnp.asarray(mm), jnp.asarray(cbf),
+                             None if rr is None else jnp.asarray(rr))
+        got = deblock.inter_bs_maps(
+            torch.from_numpy(depth)[None], torch.from_numpy(dd)[None],
+            torch.from_numpy(mm)[None], torch.from_numpy(cbf)[None],
+            None if rr is None else torch.from_numpy(rr)[None])
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(a), b[0].numpy())
+            seen |= set(np.unique(np.asarray(a)).tolist())
+    assert {0, 1, 2} <= seen
+
+
+@pytest.mark.parametrize("qp", [27, 37])
+def test_deblock_with_strengths_matches_jax(qp):
+    clip = _clip(63 + qp)
+    depth, _, d, mv, rm = _p_decisions(clip, qp=qp)
+    rng = np.random.default_rng(qp)
+    rec = [np.clip(p + rng.integers(-6, 7, p.shape), 0, 255).astype(np.int32)
+           for p in _planes(clip[2])]
+    lv = ((rng.random((H, W)) < 0.01) * 2).astype(np.int16)
+    cbf = tu_cbf_map(jnp.asarray(lv), jnp.asarray(depth), 5)
+    bsv, bsh = inter_bs_maps(jnp.asarray(depth), jnp.asarray(d),
+                             jnp.asarray(mv), cbf, jnp.asarray(rm))
+    want = deblock_device(*(jnp.asarray(p) for p in rec), jnp.asarray(depth),
+                          qp, qp + 1, qp + 2, 5, bs_vert=bsv, bs_horz=bsh)
+    got = deblock.deblock(*(torch.from_numpy(p)[None] for p in rec),
+                          torch.from_numpy(depth)[None], [qp], [qp + 1],
+                          [qp + 2], 5, dir_map=torch.from_numpy(d)[None],
+                          mv_map=torch.from_numpy(mv)[None],
+                          ref_map=torch.from_numpy(rm)[None],
+                          lv_y=torch.from_numpy(lv)[None])
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b[0].numpy())
+
+
+@pytest.mark.parametrize("rdoq", [False, True])
+def test_mixed_commit_matches_jax(rdoq):
+    """Inter CUs take the MC planes, the inter dead-zone offset and the
+    diagonal scan; intra CUs read reconstructed inter neighbours; the
+    trellis tables are built with init_type 1."""
+    clip = _clip(70)
+    qp = 30
+    depth, mode, d, mv, rm = _p_decisions(clip, qp=qp)
+    assert (d > 0).any() and (d == 0).any()
+    ref0 = [np.stack([a, b]) for a, b in zip(_planes(clip[1]),
+                                              _planes(clip[0]))]
+    pred = me.inter_pred_planes(tuple(torch.from_numpy(p) for p in ref0),
+                                None, torch.from_numpy(d),
+                                torch.from_numpy(mv),
+                                ref_map=torch.from_numpy(rm))
+    src = _planes(clip[2])
+    lam = float(np.float32(np.float32(0.57 * 2.0 ** ((qp - 12) / 3.0))))
+    want = jax_mixed(*(jnp.asarray(p) for p in src), jnp.asarray(depth),
+                     jnp.asarray(mode), jnp.asarray(d),
+                     *(jnp.asarray(p.numpy()) for p in pred), qp, qp, qp,
+                     W, H, 8, True, rdoq=rdoq, lam=jnp.float32(lam))
+    got = commit.wavefront_commit_mixed(
+        *(torch.from_numpy(p)[None] for p in src),
+        torch.from_numpy(depth)[None], torch.from_numpy(mode)[None],
+        torch.from_numpy(d)[None], *(p[None] for p in pred), [qp], [qp],
+        [qp], W, H, True, rdoq=rdoq, lam=[lam])
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b[0].numpy())

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8 of fasthevc_tpu_torch against their plain twins.
+"""The CUDA kernels K1-K11 of fasthevc_tpu_torch against their plain twins.
 
 Tests marked `cuda` need an NVIDIA card: the `cuda_device` fixture skips
 them elsewhere (the decision is made inside the fixture, never at import
@@ -16,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from fasthevc_tpu.utils import synthesize_yuv
-from fasthevc_tpu.utils.video import pad_plane
 from fasthevc_tpu_torch import _build
 from fasthevc_tpu_torch.codec import device_pipeline
-from fasthevc_tpu_torch.codec.search import search_intra_maps_batch
-from fasthevc_tpu_torch.ops import commit, cost, deblock, intra, sao, transform
+from fasthevc_tpu_torch.codec.search import (search_intra_maps_batch,
+                                             search_p_maps)
+from fasthevc_tpu_torch.ops import (commit, cost, deblock, intra, me, sao,
+                                    transform)
+from fasthevc_tpu_torch.utils import synthesize_yuv
+from fasthevc_tpu_torch.utils.video import pad_plane
 
 SIZES = [(2, True), (2, False), (3, True), (3, False), (4, True),
          (4, False), (5, True), (5, False)]
@@ -103,8 +105,12 @@ def test_library_is_keyed_by_the_sources():
     assert path == _build.library_path()
     assert {os.path.basename(s) for s in _build.sources()} >= {
         "intra_pred.cu", "satd.cu", "tq_roundtrip.cu", "sse_rate.cu",
-        "commit_intra.cu", "deblock.cu", "sao.cu", "checksum.cu",
-        "intra_common.cuh", "tq_common.cuh"}
+        "commit.cu", "deblock.cu", "sao.cu", "checksum.cu", "me_int.cu",
+        "subpel.cu", "mc.cu", "intra_common.cuh", "tq_common.cuh",
+        "satd_common.cuh"}
+    assert set(_build._SIGNATURES) >= {
+        "fhv_downsample4", "fhv_sad_search", "fhv_subpel", "fhv_mc_sel",
+        "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf"}
 
 
 @pytest.mark.cuda
@@ -210,3 +216,124 @@ def test_checksum_kernel_matches_twin(cuda_device):
                               .astype(np.uint8)).to(cuda_device)
     assert torch.equal(device_pipeline.device_checksum(planes),
                        device_pipeline.device_checksum(planes, plain=True))
+
+
+def _p_inputs(w, h, seed, device):
+    """A P frame of a seeded synthesized clip and its two predecessors as
+    references, luma int32 on `device`: (y [H, W], refs [2, H, W])."""
+    clip = synthesize_yuv(w, h, 3, seed=seed)
+    fr = [torch.from_numpy(np.asarray(c[0], np.int32)) for c in clip]
+    return fr[2].to(device), torch.stack([fr[1], fr[0]]).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr,nref", [(8, 1), (8, 2), (64, 1), (64, 2)])
+def test_me_kernels_match_twins(cuda_device, sr, nref):
+    y, refs = _p_inputs(128, 96, 60 + sr, cuda_device)
+    refs = refs[:nref].contiguous()
+    before = dict(_build.LAUNCHES)
+    got = me.me_state(y, refs, sr)
+    want = me.me_state(y, refs, sr, plain=True)
+    for n in got.base:
+        assert torch.equal(got.base[n], want.base[n])
+    for n in got.mv_int:
+        assert torch.equal(got.mv_int[n], want.mv_int[n])
+    ls = float(np.sqrt(0.57 * 2.0 ** ((32 - 12) / 3.0)))
+    sk = me.subpel_from_state(got, ls)
+    sp = me.subpel_from_state(want, ls, plain=True)
+    for n in sk:
+        for a, b in zip(sk[n], sp[n]):
+            assert torch.equal(a, b)        # f32 costs bit for bit
+    names = ["me_refine", "subpel"] + (["me_downsample4", "me_full_search"]
+                                       if sr > 8 else ["me_full_search"])
+    for name in names:
+        assert _build.LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.cuda
+def test_mc_kernels_match_twins(cuda_device):
+    y, refs = _p_inputs(128, 96, 70, cuda_device)
+    st = me.me_state(y, refs, 64, plain=True)
+    rng = np.random.default_rng(71)
+    for n in (8, 16, 32):
+        b = (128 // n) * (96 // n)
+        mvq = torch.from_numpy(rng.integers(-300, 301, (b, 2))
+                               .astype(np.int32)).to(cuda_device)
+        sel = torch.from_numpy(rng.integers(0, 2, b).astype(bool)).to(
+            cuda_device)
+        got = me.mc_raw_from_state_sel(st, 0, 1, sel, n, mvq)
+        want = me.mc_raw_from_state_sel(st, 0, 1, sel, n, mvq, plain=True)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+    clip = synthesize_yuv(128, 96, 2, seed=72)
+    ref = tuple(torch.stack([torch.stack([torch.from_numpy(
+        np.asarray(clip[k][p], np.int32)) for k in range(2)])] * 2).to(
+            cuda_device) for p in range(3))
+    d = torch.from_numpy(rng.integers(0, 4, (2, 12, 16)).astype(np.int32))
+    mv = torch.from_numpy(rng.integers(-90, 91, (2, 12, 16, 4))
+                          .astype(np.int32))
+    rm = torch.from_numpy(rng.integers(0, 2, (2, 12, 16, 2)).astype(np.int32))
+    d, mv, rm = d.to(cuda_device), mv.to(cuda_device), rm.to(cuda_device)
+    for ref1, dirs, rmap in ((None, (d > 0).to(torch.int32), None),
+                             (ref, d, rm)):
+        got = me.inter_pred_planes(ref, ref1, dirs, mv, ref_map=rmap)
+        want = me.inter_pred_planes(ref, ref1, dirs, mv, ref_map=rmap,
+                                    plain=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _p_group(w, h, seed, device, nref=2):
+    """A P frame, its two references and its decisions from the P search
+    (twins, on the CPU): the mixed commit's and the BS deblock's inputs."""
+    clip = synthesize_yuv(w, h, 3, seed=seed)
+    ph, pw = -(-h // 32) * 32, -(-w // 32) * 32
+
+    def plane(k, i, hh, ww):
+        return torch.from_numpy(pad_plane(np.asarray(clip[k][i], np.int32),
+                                          hh, ww))
+
+    y = plane(2, 0, ph, pw)
+    refs = torch.stack([plane(1, 0, ph, pw), plane(0, 0, ph, pw)])
+    ls = float(np.sqrt(0.57 * 2.0 ** ((32 - 12) / 3.0)))
+    pk = search_p_maps(y[None], refs[None], [ls], 5, 3, w, h, 64,
+                       nref=[nref])[0]
+    gh, gw = h // 8, w // 8
+    maps = [pk[:gh, :gw, k].to(torch.int32) for k in (0, 1, 2)]
+    mv = pk[:gh, :gw, 3:7].to(torch.int32)
+    rm = pk[:gh, :gw, 7:9].to(torch.int32)
+    src = [torch.from_numpy(np.asarray(clip[2][i], np.int32)) for i in
+           range(3)]
+    ref = [torch.stack([torch.from_numpy(np.asarray(clip[k][i], np.int32))
+                        for k in (1, 0)]) for i in range(3)]
+    out = [t[None].to(device) for t in src + maps + [mv, rm]]
+    return out + [tuple(r[None].to(device) for r in ref), ls]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rdoq", [False, True])
+def test_mixed_commit_and_bs_deblock_match_twins(cuda_device, rdoq):
+    w, h = 96, 64
+    sy, scb, scr, dm, mm, im, mv, rm, ref, ls = _p_group(w, h, 80,
+                                                         cuda_device)
+    assert bool((im > 0).any()) and bool((im == 0).any())
+    pred = me.inter_pred_planes(ref, None, im, mv, ref_map=rm)
+    lam = float(torch.tensor(ls, dtype=torch.float32) ** 2)
+    args = (sy, scb, scr, dm, mm, im, *pred, [32], [33], [33], w, h, True)
+    before = _build.LAUNCHES["commit_mixed"]
+    got = commit.wavefront_commit_mixed(*args, rdoq=rdoq, lam=[lam])
+    want = commit.wavefront_commit_mixed(*args, rdoq=rdoq, lam=[lam],
+                                         plain=True)
+    assert _build.LAUNCHES["commit_mixed"] > before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(deblock.granule_nz(got[3]),
+                       deblock.granule_nz(got[3], plain=True))
+    dargs = (*got[:3], dm, [32], [33], [33], 5)
+    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, lv_y=got[3])
+    before = _build.LAUNCHES["deblock_bs"], _build.LAUNCHES["deblock_cbf"]
+    dk = deblock.deblock(*dargs, **kw)
+    for a, b in zip(dk, deblock.deblock(*dargs, plain=True, **kw)):
+        assert torch.equal(a, b)
+    assert (_build.LAUNCHES["deblock_bs"],
+            _build.LAUNCHES["deblock_cbf"]) == (before[0] + 2, before[1] + 1)
