@@ -2,7 +2,8 @@
 """Drive the fasthevc_tpu_torch encoder once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # only the profiled 1080p LDP encode
+    python3 chip_smoke.py --profile    # only the profiled 1080p LDP and RA
+                                       # encodes
 
 Phases (any failure raises, and the script exits non-zero):
   0. the card: requires torch.cuda.is_available(); prints nvidia-smi's
@@ -23,6 +24,11 @@ Phases (any failure raises, and the script exits non-zero):
         refinement), K10 (sub-pel), K11 (merge-candidate MC and the
         commit's MC planes), K5's mixed form (RDOQ on) and K6 with
         boundary strengths, exactly;
+     c. the B kernels on POC 4 of phase 10's clip with two references per
+        list (0, 8 and 8, 16) at SR 64: K12 (the bi-prediction cost) for
+        the 8-, 16- and 32-blocks, each with its time, twin time and bound,
+        and K11's bi-predicting planes on that frame's B decisions, exactly
+        (K12's f32 costs bit for bit);
   3. encodes synthesized 1920x1080 QP32 frames with TorchEncoder on its
      all-intra device route (bench.py's tools: default tools,
      auto_tile_grid tiles, hash type 2): one warm-up group, then 16 timed
@@ -43,10 +49,26 @@ Phases (any failure raises, and the script exits non-zero):
      prints fps, kbit/frame, Y-PSNR and the split, and requires every
      kernel of the route (K1-K11 with K5's mixed form and K6's strengths)
      to have been launched by that encode;
-  8. the first 3 frames of that clip through the kernels and through the
+  8. the first 2 frames of that clip through the kernels and through the
      twins on the card: byte-identical streams;
   9. a 416x240 4-frame low-delay P clip on the card and with the twins on
-     the CPU: identical streams that decode hash-clean in SpecDecoder.
+     the CPU: identical streams that decode hash-clean in SpecDecoder;
+ 10. the random-access device route: random_access_gop16(1920, 1080,
+     qp=32, hash_type=2) on synthesized frames, a warm-up, then 17 frames
+     timed (the IDR and one GOP-16, in 6 dependency batches); prints fps,
+     kbit/frame, Y-PSNR (I and B), each batch's span on the card and the
+     host-wait / entropy split, and requires every kernel of the route
+     (K12 and K11's bi-predicting planes included) to have been launched
+     by that encode;
+ 11. a 416x240 17-frame random-access clip through the kernels and through
+     the twins on the card, and through the twins on the CPU: identical
+     streams that decode hash-clean in SpecDecoder.
+
+Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10)
+alone on the card; then every check that runs twins (K5's twins of phase
+2, phases 4, 5, 6's 416x240 check, 8, 9 and 11) as JOBS, each a process
+of its own (`chip_smoke.py --job NAME`), all at once: the twins are bound
+by the host's Python and launches, so they overlap.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -66,8 +88,10 @@ WIDTH, HEIGHT, GROUP, TIMED = 1920, 1080, 8, 16
 QP = 32
 SR = 64                  # low_delay_p's search range (config.py default)
 LDP_TIMED_P = 8          # P frames of the timed low-delay encode
-LDP_TWIN_FRAMES = 3      # its twin-route check (K5's twin: ~1 min a frame)
+LDP_TWIN_FRAMES = 2      # its twin-route check (K5's twin: 1-2 min a frame)
 RATE_RTOL = 1e-5
+LEVEL_NAMES = ("rec_y", "rec_cb", "rec_cr", "lv_y", "lv_cb", "lv_cr")
+JOBS_DEADLINE_S = 1140   # the twin jobs end by then, inside the 1200 s
 TWIN_FRAMES = 2          # K5's twin at 1080p: the first frames of the group
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W):
 # 3.35 TB/s of device memory; 67 TFLOP/s f32 outside the tensor cores is
@@ -82,6 +106,10 @@ P_KERNELS = ("me_downsample4", "me_full_search", "me_refine", "subpel",
              "mc_sel", "inter_pred", "commit_mixed", "deblock_bs",
              "deblock_cbf")
 LDP_ROUTE = INTRA_ROUTE + P_KERNELS
+RA_FRAMES = 17           # random access: the IDR and one GOP-16
+B_KERNELS = ("bi_cost", "inter_pred_bi")
+RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
+            + B_KERNELS)
 META = {
     "intra_pred": ("csrc/intra_pred.cu", "fasthevc_tpu/ops/intra.py:171"),
     "satd": ("csrc/satd.cu", "fasthevc_tpu/ops/cost.py:26"),
@@ -102,6 +130,8 @@ META = {
     "commit_mixed": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:570"),
     "deblock_bs": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:177"),
     "deblock_cbf": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
+    "bi_cost": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
+    "inter_pred_bi": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
 }
 
 
@@ -269,11 +299,11 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
     torch.cuda.synchronize()
 
 
-def phase_pixel_kernels(torch, y, c, sp, timed, work):
-    """K5-K8 against their twins on the decisions of one 1080p search."""
-    from fasthevc_tpu_torch.codec import device_pipeline as dp
+def _intra_commit(torch, y, c, sp):
+    """Phase 2a's K5 call on the decisions of one search of the group:
+    (run(frames, plain), planes and maps)."""
     from fasthevc_tpu_torch.codec.search import search_intra_maps_batch
-    from fasthevc_tpu_torch.ops import commit, deblock, sao
+    from fasthevc_tpu_torch.ops import commit
     from fasthevc_tpu_torch.spec.ctu import tu_qps
 
     cb, cr = c, 255 - c
@@ -281,30 +311,40 @@ def phase_pixel_kernels(torch, y, c, sp, timed, work):
     pk = search_intra_maps_batch(y, ls, 5, 3, WIDTH, HEIGHT, cb_batch=cb,
                                  cr_batch=cr)
     gh, gw = HEIGHT // 8, WIDTH // 8
-    dm = pk[:, :gh, :gw, 0].to(torch.int32)
-    mm = pk[:, :gh, :gw, 1].to(torch.int32)
-    sy = y[:, :HEIGHT].contiguous()
-    scb = cb[:, :HEIGHT // 2].contiguous()
-    scr = cr[:, :HEIGHT // 2].contiguous()
+    d = dict(dm=pk[:, :gh, :gw, 0].to(torch.int32),
+             mm=pk[:, :gh, :gw, 1].to(torch.int32),
+             sy=y[:, :HEIGHT].contiguous(),
+             scb=cb[:, :HEIGHT // 2].contiguous(),
+             scr=cr[:, :HEIGHT // 2].contiguous())
     qy, qcb, qcr = tu_qps(sp, QP)
+    d.update(qcb=qcb, qcr=qcr)
     lam = float(torch.tensor(ls, dtype=torch.float32) ** 2)
     tbx = tuple(int(b) * 32 for b in sp.tile_col_bounds()[1:-1])
     tby = tuple(int(b) * 32 for b in sp.tile_row_bounds()[1:-1])
 
     def run_commit(frames, plain):
         return commit.wavefront_commit_intra(
-            sy[:frames], scb[:frames], scr[:frames], dm[:frames],
-            mm[:frames], qy, qcb, qcr, WIDTH, HEIGHT, True, tbx, tby,
-            rdoq=True, lam=lam, plain=plain)
+            d["sy"][:frames], d["scb"][:frames], d["scr"][:frames],
+            d["dm"][:frames], d["mm"][:frames], qy, qcb, qcr, WIDTH, HEIGHT,
+            True, tbx, tby, rdoq=True, lam=lam, plain=plain)
 
+    return run_commit, d
+
+
+def phase_pixel_kernels(torch, y, c, sp, timed, work):
+    """K5-K8 on the decisions of one 1080p search; K6-K8 against their
+    twins here, K5 against its twin in the job k5-intra."""
+    from fasthevc_tpu_torch.codec import device_pipeline as dp
+    from fasthevc_tpu_torch.ops import deblock, sao
+
+    run_commit, d = _intra_commit(torch, y, c, sp)
+    dm, sy, scb, scr = d["dm"], d["sy"], d["scb"], d["scr"]
+    qcb, qcr = d["qcb"], d["qcr"]
+    gh, gw = HEIGHT // 8, WIDTH // 8
     rec = run_commit(GROUP, False)
-    twin, twin_ms = _timed_once(lambda: run_commit(TWIN_FRAMES, True))
-    for name, a, b in zip(("rec_y", "rec_cb", "rec_cr", "lv_y", "lv_cb",
-                           "lv_cr"), rec, twin):
-        _same(torch, f"K5 {name}", a[:TWIN_FRAMES], b)
     k5_group_ms = _median_ms(lambda: run_commit(GROUP, False), reps=3)
     timed["commit_intra"] = (
-        _median_ms(lambda: run_commit(TWIN_FRAMES, False), reps=3), twin_ms)
+        _median_ms(lambda: run_commit(TWIN_FRAMES, False), reps=3), None)
     # source in, recon out (int32), levels out (int16), 1.5 planes each
     px = TWIN_FRAMES * HEIGHT * WIDTH * 1.5
     work["commit_intra"] = (px * (4 + 4 + 2),
@@ -356,11 +396,12 @@ def _p_frames(torch, dev):
     return src, [torch.stack([a, b]) for a, b in zip(ref_a, ref_b)]
 
 
-def phase_inter_kernels(torch, timed, work):
-    """K9-K11, K5's mixed form and K6 with strengths against their twins
-    on one 1080p P frame (SR 64, two references)."""
+def _p_commit_inputs(torch):
+    """Phase 2b's P frame: its source planes and references, the padded
+    luma and reference planes, its P search decisions (kernels) and the
+    MC planes (K11)."""
     from fasthevc_tpu_torch.codec.search import search_p_maps
-    from fasthevc_tpu_torch.ops import commit, deblock, me
+    from fasthevc_tpu_torch.ops import me
 
     dev = torch.device("cuda")
     src, refs = _p_frames(torch, dev)
@@ -370,6 +411,40 @@ def phase_inter_kernels(torch, timed, work):
                                 mode="replicate")[0].to(torch.int32)
     r = torch.nn.functional.pad(refs[0].float(), pad,
                                 mode="replicate").to(torch.int32)
+    pk = search_p_maps(y[None], r[None], [_lambda_sqrt(QP)], 5, 3, WIDTH,
+                       HEIGHT, SR, nref=[2])
+    gh, gw = HEIGHT // 8, WIDTH // 8
+    d = dict(src=src, refs=refs, y=y, r=r,
+             dm=pk[:, :gh, :gw, 0].to(torch.int32),
+             mm=pk[:, :gh, :gw, 1].to(torch.int32),
+             im=pk[:, :gh, :gw, 2].to(torch.int32),
+             mv=pk[:, :gh, :gw, 3:7].to(torch.int32),
+             rm=pk[:, :gh, :gw, 7:9].to(torch.int32))
+    d["pred"] = me.inter_pred_planes(tuple(p[None] for p in refs), None,
+                                     d["im"], d["mv"], ref_map=d["rm"])
+    return d
+
+
+def _run_mixed(torch, d, plain):
+    """Phase 2b's K5 mixed call: one frame, RDOQ on."""
+    from fasthevc_tpu_torch.ops import commit
+    lam = float(torch.tensor(_lambda_sqrt(QP), dtype=torch.float32) ** 2)
+    return commit.wavefront_commit_mixed(
+        *(p[None] for p in d["src"]), d["dm"], d["mm"], d["im"], *d["pred"],
+        [QP], [QP], [QP], WIDTH, HEIGHT, True, rdoq=True, lam=[lam],
+        plain=plain)
+
+
+def phase_inter_kernels(torch, timed, work):
+    """K9-K11, K5's mixed form and K6 with strengths on one 1080p P frame
+    (SR 64, two references), against their twins (K5's in the job
+    k5-mixed)."""
+    from fasthevc_tpu_torch.ops import deblock, me
+
+    dev = torch.device("cuda")
+    d = _p_commit_inputs(torch)
+    refs, y, r = d["refs"], d["y"], d["r"]
+    ph = -(-HEIGHT // 32) * 32
     ls = _lambda_sqrt(QP)
     hw, rr = ph * WIDTH, r.shape[0]
 
@@ -429,12 +504,8 @@ def phase_inter_kernels(torch, timed, work):
                       b8 * _interp_ops(8, 8))
 
     # the P search of the frame gives the commit's decisions
-    pk = search_p_maps(y[None], r[None], [ls], 5, 3, WIDTH, HEIGHT, SR,
-                       nref=[2])
     gh, gw = HEIGHT // 8, WIDTH // 8
-    dm, mm, im = (pk[:, :gh, :gw, k].to(torch.int32) for k in (0, 1, 2))
-    mv = pk[:, :gh, :gw, 3:7].to(torch.int32)
-    rm = pk[:, :gh, :gw, 7:9].to(torch.int32)
+    dm, im, mv, rm = d["dm"], d["im"], d["mv"], d["rm"]
     inter = float((im > 0).float().mean().item())
     ref1 = float((rm[..., 0] == 1).float().mean().item())
     print(f"P search of the phase-2 frame: {inter:.3f} of the granules "
@@ -445,8 +516,7 @@ def phase_inter_kernels(torch, timed, work):
         return me.inter_pred_planes(ref_stacks, None, im, mv, ref_map=rm,
                                     plain=plain)
 
-    pred_k = pred()
-    for name, a, b in zip(("y", "cb", "cr"), pred_k, pred(True)):
+    for name, a, b in zip(("y", "cb", "cr"), d["pred"], pred(True)):
         _same(torch, f"K11 inter_pred {name}", a, b)
     timed["inter_pred"] = (_median_ms(pred), _median_ms(lambda: pred(True)))
     fpx = HEIGHT * WIDTH
@@ -455,23 +525,11 @@ def phase_inter_kernels(torch, timed, work):
         4 * (rr * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
         gh * gw * (_interp_ops(8, 8) + 2 * _interp_ops(4, 4)))
 
-    # K5's mixed form, one frame, RDOQ on
-    qy, qc = QP, QP
-    lam = float(torch.tensor(ls, dtype=torch.float32) ** 2)
-    srcs = [p[None] for p in src]
-
-    def run_mixed(plain):
-        return commit.wavefront_commit_mixed(
-            *srcs, dm, mm, im, *pred_k, [qy], [qc], [qc], WIDTH, HEIGHT,
-            True, rdoq=True, lam=[lam], plain=plain)
-
-    rec = run_mixed(False)
-    twin, twin_ms = _timed_once(lambda: run_mixed(True))
-    for name, a, b in zip(("rec_y", "rec_cb", "rec_cr", "lv_y", "lv_cb",
-                           "lv_cr"), rec, twin):
-        _same(torch, f"K5 mixed {name}", a, b)
-    timed["commit_mixed"] = (_median_ms(lambda: run_mixed(False), reps=3),
-                             twin_ms)
+    # K5's mixed form, one frame, RDOQ on (its twin in the job k5-mixed)
+    qc = QP
+    rec = _run_mixed(torch, d, False)
+    timed["commit_mixed"] = (
+        _median_ms(lambda: _run_mixed(torch, d, False), reps=3), None)
     work["commit_mixed"] = (fpx * 1.5 * (4 + 4 + 4 + 2),
                             _transform_ops(dm))
 
@@ -499,6 +557,99 @@ def phase_inter_kernels(torch, timed, work):
     torch.cuda.synchronize()
 
 
+def _ra_clip():
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+    return synthesize_yuv(WIDTH, HEIGHT, RA_FRAMES, seed=7)
+
+
+def _ra_cfg(frames: int):
+    """random_access_gop16 at 1080p QP32 with the checksum hash."""
+    from fasthevc_tpu_torch.config import random_access_gop16
+    return random_access_gop16(width=WIDTH, height=HEIGHT, qp=QP,
+                               frames=frames, hash_type=2)
+
+
+def phase_b_kernels(torch, timed, work):
+    """K12 and K11's bi-predicting planes against their twins on POC 4 of
+    the random-access clip, with references 0, 8 (list 0) and 8, 16 (list
+    1) as the GOP-16 gives them, at SR 64 and POC 4's QP (32 + 2)."""
+    from fasthevc_tpu_torch.codec.search import _pick_ref, search_b_maps
+    from fasthevc_tpu_torch.ops import me
+
+    dev = torch.device("cuda")
+    clip = _ra_clip()
+    ph = -(-HEIGHT // 32) * 32
+
+    def plane(k, i):
+        return torch.from_numpy(np.asarray(clip[k][i], np.int32)).to(dev)
+
+    def luma(k):
+        return torch.nn.functional.pad(plane(k, 0)[None].float(),
+                                       (0, 0, 0, ph - HEIGHT),
+                                       mode="replicate")[0].to(torch.int32)
+
+    y = luma(4)
+    lists = ((0, 8), (8, 16))
+    refs = torch.stack([luma(k) for lst in lists for k in lst])
+    ls = _lambda_sqrt(QP + 2)
+    st = me.me_state(y, refs, SR)
+    sp = me.subpel_from_state(st, ls)
+    hw = ph * WIDTH
+    for n in (8, 16, 32):
+        _, mv0, _, sel0 = _pick_ref(sp[n], 0, 1)
+        _, mv1, _, sel1 = _pick_ref(sp[n], 2, 3)
+        rates = (me.mv_rate_bits(mv0), me.mv_rate_bits(mv1))
+        args = (st.y, st.refs, mv0, sel0.to(torch.int32), mv1,
+                sel1.to(torch.int32) + 2, *rates, ls, n)
+        (pk, ck), (pp, cp) = me.bi_cost(*args), me.bi_cost(*args, plain=True)
+        _same(torch, f"K12 pbi n={n}", pk, pp)
+        _same(torch, f"K12 cbi bits n={n}", ck.view(torch.int32),
+              cp.view(torch.int32))
+        ms = _median_ms(lambda: me.bi_cost(*args))
+        plain_ms = _median_ms(lambda: me.bi_cost(*args, plain=True))
+        b = hw // (n * n)
+        # the reference planes and the source read once (the blocks'
+        # windows overlap), each block's MVs, refs and rates in, pbi and
+        # cbi out.  Two lists' separable filters, the average (4
+        # operations a sample) and the 8x8 Hadamard (6 butterfly operations
+        # a sample, the difference and the absolute sum)
+        w = (4 * (refs.shape[0] * hw + hw + b * (8 + n * n + 1)),
+             b * (2 * _interp_ops(n, 8) + n * n * (4 + 8)))
+        b_ms, b_by = _bound(*w)
+        print(f"kernel bi_cost n={n}: {ms:.4f} ms, plain twin "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if n == 8:
+            timed["bi_cost"], work["bi_cost"] = (ms, plain_ms), w
+
+    # K11's bi-predicting planes on this frame's B decisions
+    pk = search_b_maps(y[None], refs[None, :2], refs[None, 2:], [ls], 5, 3,
+                       WIDTH, HEIGHT, SR, nref0=[2], nref1=[2])
+    gh, gw = HEIGHT // 8, WIDTH // 8
+    im = pk[:, :gh, :gw, 2].to(torch.int32)
+    mv = pk[:, :gh, :gw, 3:7].to(torch.int32)
+    rm = pk[:, :gh, :gw, 7:9].to(torch.int32)
+    share = [float((im == d).float().mean().item()) for d in (1, 2, 3)]
+    print(f"B search of the phase-2c frame: L0 {share[0]:.3f}, L1 "
+          f"{share[1]:.3f}, BI {share[2]:.3f} of the granules")
+    stacks = [tuple(torch.stack([plane(k, i) for k in lst])[None]
+                    for i in range(3)) for lst in lists]
+
+    def pred(plain=False):
+        return me.inter_pred_planes(stacks[0], stacks[1], im, mv,
+                                    ref_map=rm, plain=plain)
+
+    for name, a, b in zip(("y", "cb", "cr"), pred(), pred(True)):
+        _same(torch, f"K11 inter_pred_bi {name}", a, b)
+    timed["inter_pred_bi"] = (_median_ms(pred), _median_ms(lambda: pred(True)))
+    fpx = HEIGHT * WIDTH
+    # each granule filters its lists: two for BI, one otherwise
+    lists_per_granule = float((1 + (im == 3).to(torch.int64)).sum().item())
+    work["inter_pred_bi"] = (
+        4 * (4 * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
+        lists_per_granule * (_interp_ops(8, 8) + 2 * _interp_ops(4, 4)))
+    torch.cuda.synchronize()
+
+
 def _encode(torch, cfg, clip, device="cuda", plain=False):
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     enc = TorchEncoder(cfg, device, plain=plain)
@@ -516,19 +667,32 @@ def _require(launches: dict, names, what: str) -> None:
                                  f"{what}")
 
 
-def phase_device_route(torch):
-    """Phases 3 and 4; returns (launches, fps)."""
-    from fasthevc_tpu_torch import _build
-    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+def _ai_clip():
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+    return synthesize_yuv(WIDTH, HEIGHT, GROUP + TIMED, seed=1)
+
+
+def _ai_cfg(frames: int, log2_ctu: int = 5):
+    """bench.py's 1080p all-intra tools: default tools, auto tiles, the
+    checksum hash."""
     from fasthevc_tpu_torch.config import EncoderConfig
     from fasthevc_tpu_torch.config.config import auto_tile_grid
-    from fasthevc_tpu_torch.utils import psnr, synthesize_yuv, yuv_from_planes
-
-    clip = synthesize_yuv(WIDTH, HEIGHT, GROUP + TIMED, seed=1)
-    warm, timed_clip = clip[:GROUP], clip[GROUP:]
     tc, tr = auto_tile_grid(WIDTH, HEIGHT)
-    cfg = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=TIMED,
-                        tile_cols=tc, tile_rows=tr, hash_type=2)
+    return EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=frames,
+                         tile_cols=tc, tile_rows=tr, hash_type=2,
+                         log2_ctu=log2_ctu)
+
+
+def phase_device_route(torch):
+    """Phase 3; returns (launches, fps)."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
+
+    clip = _ai_clip()
+    warm, timed_clip = clip[:GROUP], clip[GROUP:]
+    cfg = _ai_cfg(TIMED)
+    tc, tr = cfg.tile_cols, cfg.tile_rows
     enc = TorchEncoder(cfg, "cuda")
     enc.encode(warm)
     torch.cuda.synchronize()
@@ -550,59 +714,93 @@ def phase_device_route(torch):
           f"thread-s over the pool")
     print(f"launches in the timed device-route encode: {launches}")
     _require(launches, INTRA_ROUTE, "all-intra device-route encode")
-    # phase 4: one group of those frames through the kernels and the twins
-    cfg4 = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=GROUP,
-                         tile_cols=tc, tile_rows=tr, hash_type=2)
-    kernel_stream, _, _, _ = _encode(torch, cfg4, timed_clip[:GROUP])
-    before = dict(_build.LAUNCHES)
-    plain_stream, _, pdt, _ = _encode(torch, cfg4, timed_clip[:GROUP],
-                                      plain=True)
-    print(f"twin device route: {GROUP / pdt:.4f} fps")
-    if dict(_build.LAUNCHES) != before:
-        raise AssertionError("the twin route launched a kernel")
-    if plain_stream != kernel_stream:
-        raise AssertionError("kernel-route stream differs from the twin "
-                             "route's")
-    print(f"kernel route == twin route: {len(kernel_stream)} bytes "
-          f"identical ({GROUP} frames)")
     return launches, fps
 
 
-def _check_small(torch, cfg, frames: int, route: str, keys: set):
-    """A 416x240 clip on the card and through the twins on the CPU:
-    identical streams that decode hash-clean."""
-    from fasthevc_tpu_torch.spec.decoder import SpecDecoder
+def _twin_route(torch, cfg, clip, what: str) -> str:
+    """clip through the kernels and through the twins on the card:
+    byte-identical streams, no kernel launched by the twins."""
+    from fasthevc_tpu_torch import _build
+    kernel_stream, _, _, _ = _encode(torch, cfg, clip)
+    before = dict(_build.LAUNCHES)
+    plain_stream, _, pdt, _ = _encode(torch, cfg, clip, plain=True)
+    if dict(_build.LAUNCHES) != before:
+        raise AssertionError(f"the {what} twin route launched a kernel")
+    if plain_stream != kernel_stream:
+        raise AssertionError(f"{what} kernel-route stream differs from the "
+                             f"twin route's")
+    return (f"{what} kernel route == twin route: {len(kernel_stream)} "
+            f"bytes identical ({len(clip)} frames; twins {pdt:.1f} s)")
+
+
+def _small_stream(torch, cfg, frames: int, device="cuda", plain=False,
+                  keys=None) -> bytes:
+    """A 416x240 clip of `frames` frames encoded with cfg (keys: timing
+    keys the route must report)."""
     from fasthevc_tpu_torch.utils import synthesize_yuv
 
     clip = synthesize_yuv(416, 240, frames, seed=3)
-    stream, _, _, enc = _encode(torch, cfg, clip)
-    if not keys <= set(enc.timing):
-        raise AssertionError(f"416x240 did not take the {route} route")
-    cpu_stream, _, _, _ = _encode(torch, cfg, clip, device="cpu")
-    if stream != cpu_stream:
-        raise AssertionError(f"416x240 {route} route: card stream differs "
-                             f"from the CPU twins' stream")
+    stream, _, _, enc = _encode(torch, cfg, clip, device=device, plain=plain)
+    if keys is not None and not keys <= set(enc.timing):
+        raise AssertionError(f"416x240 did not take the route with {keys}")
+    return stream
+
+
+def _decode_clean(stream: bytes, frames: int) -> bool:
+    from fasthevc_tpu_torch.spec.decoder import SpecDecoder
     pics = SpecDecoder().decode(stream)
-    if len(pics) != frames or not all(p.hash_ok for p in pics):
-        raise AssertionError(f"416x240 {route} route stream does not decode "
-                             f"hash-clean")
-    print(f"416x240 {route} route: {len(stream)} bytes, equal to the CPU "
-          f"twins' stream, {len(pics)} pictures hash_ok")
+    return len(pics) == frames and all(p.hash_ok for p in pics)
+
+
+def _small_cfgs():
+    """The 416x240 checks: name -> (config, frames, route, timing keys)."""
+    from fasthevc_tpu_torch.config import (EncoderConfig, low_delay_p,
+                                           random_access_gop16)
+    dev_keys = {"device_s", "entropy_s"}
+    return {
+        "device (CTU 32)": (EncoderConfig(width=416, height=240, qp=QP,
+                                          frames=2), 2, dev_keys),
+        "pipelined (CTU 64)": (EncoderConfig(width=416, height=240, qp=QP,
+                                             frames=2, log2_ctu=6), 2,
+                               {"search_s", "commit_s"}),
+        "low-delay P": (low_delay_p(width=416, height=240, qp=QP, frames=4),
+                        4, dev_keys),
+        "random-access": (random_access_gop16(width=416, height=240, qp=QP,
+                                              frames=RA_FRAMES), RA_FRAMES,
+                          dev_keys),
+    }
+
+
+def job_small(torch, route: str, against: str) -> dict:
+    """A 416x240 check: the clip on the card must give the stream of the
+    twins on the CPU (against "cpu"; that stream must also decode
+    hash-clean) or of the twins on the card ("card")."""
+    import hashlib
+    cfg, frames, keys = _small_cfgs()[route]
+    stream = _small_stream(torch, cfg, frames, keys=keys)
+    if against == "card":
+        if _small_stream(torch, cfg, frames, plain=True) != stream:
+            raise AssertionError(f"416x240 {route} route: kernel stream "
+                                 f"differs from the card twins' stream")
+        log = "equal to the card twins' stream"
+    else:
+        if _small_stream(torch, cfg, frames, device="cpu") != stream:
+            raise AssertionError(f"416x240 {route} route: card stream "
+                                 f"differs from the CPU twins' stream")
+        if not _decode_clean(stream, frames):
+            raise AssertionError(f"416x240 {route} route stream does not "
+                                 f"decode hash-clean")
+        log = f"equal to the CPU twins' stream, {frames} pictures hash_ok"
+    return {"sha": hashlib.sha256(stream).hexdigest(),
+            "log": f"416x240 {route} route: {len(stream)} bytes, {log}"}
 
 
 def phase_pipelined_route(torch, device_fps: float):
     from fasthevc_tpu_torch import _build
-    from fasthevc_tpu_torch.config import EncoderConfig
-    from fasthevc_tpu_torch.config.config import auto_tile_grid
     from fasthevc_tpu_torch.utils import synthesize_yuv
 
-    _check_small(torch, EncoderConfig(width=416, height=240, qp=QP, frames=2,
-                                      log2_ctu=6), 2, "pipelined (CTU 64)",
-                 {"search_s", "commit_s"})
     clip = synthesize_yuv(WIDTH, HEIGHT, 2 * GROUP, seed=1)
-    tc, tr = auto_tile_grid(WIDTH, HEIGHT)
-    cfg = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=GROUP,
-                        tile_cols=tc, tile_rows=tr, hash_type=2, log2_ctu=6)
+    cfg = _ai_cfg(GROUP, log2_ctu=6)
     _encode(torch, cfg, clip[:GROUP])
     _build.LAUNCHES.clear()
     stream, _, dt, enc = _encode(torch, cfg, clip[GROUP:])
@@ -631,7 +829,7 @@ def _ldp_cfg(frames: int):
 
 
 def phase_ldp_route(torch):
-    """Phases 7 and 8; returns the launches of the timed encode."""
+    """Phase 7; returns the launches of the timed encode."""
     from fasthevc_tpu_torch import _build
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
@@ -663,37 +861,58 @@ def phase_ldp_route(torch):
           f"thread-s")
     print(f"launches in the timed low-delay P encode: {launches}")
     _require(launches, LDP_ROUTE, "low-delay P encode")
-    # phase 8: the first frames through the kernels and the twins
-    cfg = _ldp_cfg(LDP_TWIN_FRAMES)
-    kernel_stream, _, _, _ = _encode(torch, cfg, clip[:LDP_TWIN_FRAMES])
-    before = dict(_build.LAUNCHES)
-    plain_stream, _, pdt, _ = _encode(torch, cfg, clip[:LDP_TWIN_FRAMES],
-                                      plain=True)
-    if dict(_build.LAUNCHES) != before:
-        raise AssertionError("the low-delay P twin route launched a kernel")
-    if plain_stream != kernel_stream:
-        raise AssertionError("low-delay P kernel-route stream differs from "
-                             "the twin route's")
-    print(f"low-delay P kernel route == twin route: {len(kernel_stream)} "
-          f"bytes identical ({LDP_TWIN_FRAMES} frames; twins "
-          f"{pdt:.1f} s)")
     return launches
 
 
-def profile_ldp(torch) -> None:
-    """One profiled 1080p LDP encode (after a warm-up and one unprofiled
-    repeat): device busy share, and device time by kernel."""
+def phase_ra_route(torch):
+    """Phase 10; returns the launches of the timed encode."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
+
+    clip = _ra_clip()
+    enc = TorchEncoder(_ra_cfg(RA_FRAMES), "cuda")
+    enc.encode(clip)                       # warm-up: the same 17 frames
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stream, recons = enc.encode(clip)
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    tm = enc.timing
+    ps = []
+    for f, r in zip(clip, recons):
+        ry, _, _ = yuv_from_planes((r.y, r.cb, r.cr), WIDTH, HEIGHT)
+        ps.append(psnr(f[0], ry))
+    spans = ", ".join(f"{v:.4f}" for v in enc.spans)
+    print(f"random-access device route, 1080p QP32 SR {SR}, 1 I + "
+          f"{RA_FRAMES - 1} B frames: {RA_FRAMES / dt:.4f} fps, "
+          f"{len(stream) * 8 / RA_FRAMES / 1000:.2f} kbit/frame, Y-PSNR "
+          f"{np.mean(ps):.3f} dB (I {ps[0]:.3f}, B mean "
+          f"{np.mean(ps[1:]):.3f}); wall {dt:.3f} s; {len(enc.spans)} "
+          f"batches on the card {tm['device_s']:.4f} s (spans {spans} s), "
+          f"host blocked on them {tm['wait_s']:.4f} s; host CABAC "
+          f"{tm['entropy_s']:.3f} thread-s")
+    print(f"launches in the timed random-access encode: {launches}")
+    _require(launches, RA_ROUTE, "random-access encode")
+    return launches
+
+
+def profile_route(torch, label, clip, cfg, warm) -> None:
+    """One profiled 1080p encode of `clip` (after a warm-up on `warm` and
+    one unprofiled repeat): device busy share, and device time by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
 
-    clip = _ldp_clip()
-    enc = TorchEncoder(_ldp_cfg(len(clip)), "cuda")
-    enc.encode(clip[:3])
-    for label in ("unprofiled", "profiled"):
+    print(f"--- {label}")
+    enc = TorchEncoder(cfg, "cuda")
+    enc.encode(warm)
+    for run in ("unprofiled", "profiled"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if label == "profiled":
+        if run == "profiled":
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
             prof.__enter__()
@@ -701,9 +920,9 @@ def profile_ldp(torch) -> None:
         enc.encode(clip)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if label == "profiled":
+        if run == "profiled":
             prof.__exit__(None, None, None)
-        print(f"{label} encode: {len(clip) / wall:.4f} fps, wall "
+        print(f"{run} encode: {len(clip) / wall:.4f} fps, wall "
               f"{wall:.4f} s, device_s {enc.timing['device_s']:.4f}, "
               f"entropy {enc.timing['entropy_s']:.3f} thread-s, peak "
               f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
@@ -739,6 +958,89 @@ def profile_ldp(torch) -> None:
               f"{name[:90]}")
 
 
+def _intra_sp():
+    from fasthevc_tpu_torch.spec.encoder import config_to_sp
+    return config_to_sp(_ai_cfg(GROUP))
+
+
+def job_k5_intra(torch) -> dict:
+    """Phase 2a's K5 against its twin on the first TWIN_FRAMES frames."""
+    y, c = _kernel_inputs(torch, torch.device("cuda"))
+    run_commit, _ = _intra_commit(torch, y, c, _intra_sp())
+    want = run_commit(TWIN_FRAMES, False)
+    twin, twin_ms = _timed_once(lambda: run_commit(TWIN_FRAMES, True))
+    for name, a, b in zip(LEVEL_NAMES, want, twin):
+        _same(torch, f"K5 {name}", a, b)
+    return {"twin_ms": twin_ms,
+            "log": f"K5 == its twin on {TWIN_FRAMES} 1080p frames"}
+
+
+def job_k5_mixed(torch) -> dict:
+    """Phase 2b's mixed K5 against its twin."""
+    d = _p_commit_inputs(torch)
+    want = _run_mixed(torch, d, False)
+    twin, twin_ms = _timed_once(lambda: _run_mixed(torch, d, True))
+    for name, a, b in zip(LEVEL_NAMES, want, twin):
+        _same(torch, f"K5 mixed {name}", a, b)
+    return {"twin_ms": twin_ms, "log": "K5 mixed == its twin (1080p P frame)"}
+
+
+# Checks that run the twins, each in its own process (the twins are bound
+# by the host's launches and Python, so they overlap): phase 2's K5
+# twins, 4, 5 and 6's 416x240 check, 8, 9 and 11.
+JOBS = {
+    "k5-intra": job_k5_intra,
+    "k5-mixed": job_k5_mixed,
+    "ai-twin-route": lambda torch: {"log": _twin_route(
+        torch, _ai_cfg(GROUP), _ai_clip()[GROUP:2 * GROUP], "all-intra")},
+    "ldp-twin-route": lambda torch: {"log": _twin_route(
+        torch, _ldp_cfg(LDP_TWIN_FRAMES), _ldp_clip()[:LDP_TWIN_FRAMES],
+        "low-delay P")},
+    "small-device": lambda torch: job_small(torch, "device (CTU 32)", "cpu"),
+    "small-pipelined": lambda torch: job_small(torch, "pipelined (CTU 64)",
+                                               "cpu"),
+    "small-ldp": lambda torch: job_small(torch, "low-delay P", "cpu"),
+    "small-ra-card": lambda torch: job_small(torch, "random-access", "card"),
+    "small-ra-cpu": lambda torch: job_small(torch, "random-access", "cpu"),
+}
+
+
+def _run_jobs(t_start: float) -> dict:
+    """Every JOBS entry in its own process (`chip_smoke.py --job NAME`),
+    all at once; each prints its log and, last, a JSON line of results.
+    Raises if one fails; stops every process it started."""
+    here = os.path.abspath(__file__)
+    procs = {name: subprocess.Popen(
+        [sys.executable, here, "--job", name], cwd=os.path.dirname(here),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in JOBS}
+    results, failed = {}, []
+    try:
+        for name, proc in procs.items():
+            left = max(1.0, JOBS_DEADLINE_S - (time.perf_counter() - t_start))
+            out, _ = proc.communicate(timeout=left)
+            lines = out.strip().splitlines()
+            last = [ln for ln in lines if ln.startswith("{")][-1:]
+            if proc.returncode != 0 or not last:
+                failed.append(f"job {name} (exit {proc.returncode}):\n"
+                              + "\n".join(lines[-30:]))
+                continue
+            results[name] = json.loads(last[0])
+            print(f"[{name}] {results[name]['log']}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return results
+
+
+def _stamp(t_start: float, what: str) -> None:
+    print(f"[{time.perf_counter() - t_start:.1f} s] {what}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -746,18 +1048,26 @@ def main() -> int:
     # the device routes are the default; this variable would force the
     # pipelined all-intra route (and refuse P orders)
     os.environ.pop("FASTHEVC_FORCE_CLASSIC", None)
+    argv = sys.argv[1:]
+    if "--job" in argv:
+        # one twin check in its own process: the library is built already
+        torch.set_num_threads(2)
+        name = argv[argv.index("--job") + 1]
+        print(json.dumps(JOBS[name](torch)))
+        return 0
     card = _card_line()
     from fasthevc_tpu_torch import _build
-    from fasthevc_tpu_torch.config import EncoderConfig
-    from fasthevc_tpu_torch.config.config import auto_tile_grid
-    from fasthevc_tpu_torch.spec.encoder import config_to_sp
 
     t_start = time.perf_counter()
     _build.lib()
     print(f"kernel build: {time.perf_counter() - t_start:.2f} s "
           f"({len(_build.sources())} sources)")
-    if "--profile" in sys.argv[1:]:
-        profile_ldp(torch)
+    if "--profile" in argv:
+        clip = _ldp_clip()
+        profile_route(torch, "low-delay P", clip, _ldp_cfg(len(clip)),
+                      clip[:3])
+        clip = _ra_clip()
+        profile_route(torch, "random access", clip, _ra_cfg(len(clip)), clip)
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -769,13 +1079,34 @@ def main() -> int:
     work: dict = {}
     y, c = _kernel_inputs(torch, dev)
     phase_search_kernels(torch, y, c, errs, timed, work)
-    tc, tr = auto_tile_grid(WIDTH, HEIGHT)
-    sp = config_to_sp(EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP,
-                                    tile_cols=tc, tile_rows=tr))
-    phase_pixel_kernels(torch, y, c, sp, timed, work)
+    phase_pixel_kernels(torch, y, c, _intra_sp(), timed, work)
     del y, c
     torch.cuda.empty_cache()
     phase_inter_kernels(torch, timed, work)
+    phase_b_kernels(torch, timed, work)
+    _stamp(t_start, "phase 2 (kernels; K5's twins run in the jobs)")
+    # the timed encodes first, alone on the card and the host
+    torch.cuda.empty_cache()
+    launches, fps = phase_device_route(torch)
+    phase_pipelined_route(torch, fps)
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in phase_ldp_route(torch).items()
+                     if k in P_KERNELS})
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in phase_ra_route(torch).items()
+                     if k in B_KERNELS})
+    _stamp(t_start, "phases 3, 6, 7, 10 (the timed encodes)")
+    torch.cuda.empty_cache()
+    jobs = _run_jobs(t_start)
+    if jobs["small-ra-card"]["sha"] != jobs["small-ra-cpu"]["sha"]:
+        raise AssertionError("416x240 random-access: the kernel streams of "
+                             "the two checks differ")
+    _stamp(t_start, "phases 2a/2b's K5 twins, 4, 5, 6's 416x240, 8, 9, 11 "
+           "(the twin jobs, in parallel)")
+    timed["commit_intra"] = (timed["commit_intra"][0],
+                             jobs["k5-intra"]["twin_ms"])
+    timed["commit_mixed"] = (timed["commit_mixed"][0],
+                             jobs["k5-mixed"]["twin_ms"])
     bounds = {name: _bound(*work[name]) for name in META}
     for name in META:
         ms, plain_ms = timed[name]
@@ -783,22 +1114,12 @@ def main() -> int:
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
     print("(phase 2a: 1080p group-of-8 shapes, K1-K4 at n=8, commit_intra "
-          f"on {TWIN_FRAMES} frames with RDOQ; phase 2b: one 1080p P frame, "
-          "SR 64, two references, ME and MC on the 8-blocks, commit_mixed "
-          "with RDOQ)")
-    torch.cuda.empty_cache()
-    launches, fps = phase_device_route(torch)
-    torch.cuda.empty_cache()
-    _check_small(torch, EncoderConfig(width=416, height=240, qp=QP,
-                                      frames=2), 2, "device (CTU 32)",
-                 {"device_s", "entropy_s"})
-    phase_pipelined_route(torch, fps)
-    torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_ldp_route(torch).items()
-                     if k in P_KERNELS})
-    from fasthevc_tpu_torch.config import low_delay_p
-    _check_small(torch, low_delay_p(width=416, height=240, qp=QP, frames=4),
-                 4, "low-delay P", {"device_s", "entropy_s"})
+          f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
+          "frame, SR 64, two references, ME and MC on the 8-blocks, "
+          "commit_mixed with RDOQ; phase 2c: one 1080p B frame, two "
+          "references per list, bi_cost on the 8-blocks, inter_pred_bi on "
+          "its B decisions; the K5 twins' times were taken beside the "
+          "other twin jobs)")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fasthevc_tpu_torch/{src}", "replaces": rep,

@@ -75,6 +75,9 @@ _SIGNATURES = {
     # ref0, ref1, dir, mv, rmap, out, F, R0, R1, H, W, chroma, bit_depth,
     # stream
     "fhv_inter_pred": [_P] * 6 + [_I] * 7 + [_P],
+    # src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls, pbi, cbi, R, H,
+    # W, n, stream
+    "fhv_bi_cost": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -5,10 +5,12 @@ Counterpart of fasthevc_tpu/codec/device_pipeline.py.  `encode_group_device`
 (intra frames): the batched intra search (K1-K4), the wavefront commit with
 the parallel RDOQ trellis (K5), deblocking (K6), SAO (K7) and the Annex D
 checksum (K8), enqueued on the current stream for the whole group.
-`encode_inter_group_device` (P frames): the P search (K1-K4 for its intra
-candidates, K9 integer ME, K10 sub-pel, K11 merge-candidate MC), exact MC
-of the decided motion (K11), the mixed wavefront commit (K5), deblocking
-with boundary strengths (K6), SAO and the checksum.  The JAX
+`encode_inter_group_device` (P or B frames): the P or B search (K1-K4 for
+its intra candidates, K9 integer ME, K10 sub-pel, K11 merge-candidate MC,
+K12 the bi-prediction cost of B), exact MC of the decided motion (K11,
+bi-predicted where B chose it), the mixed wavefront commit (K5),
+deblocking with both lists' boundary strengths (K6), SAO and the
+checksum.  The JAX
 package's int8 level packing with its overflow flag and its search
 micro-batches exist for the TPU's host link and memory; the port returns
 the int16 levels and runs the search over the whole group.
@@ -23,7 +25,7 @@ from ..ops.commit import wavefront_commit_intra, wavefront_commit_mixed
 from ..ops.deblock import deblock
 from ..ops.me import inter_pred_planes
 from ..ops.sao import sao
-from .search import search_intra_maps_batch, search_p_maps
+from .search import search_b_maps, search_intra_maps_batch, search_p_maps
 
 
 def device_path_ok(cfg, sp) -> bool:
@@ -161,30 +163,45 @@ def encode_inter_group_device(y, cb, cr, r0_y, r0_cb, r0_cr, lambda_sqrt,
                               tile_bounds_x: tuple = (),
                               tile_bounds_y: tuple = (), rd_cands: int = 3,
                               nref0=None, rdoq: bool = False,
-                              checksum: bool = True,
-                              plain: bool = False) -> dict:
-    """Search + MC + mixed exact commit + filters for F P frames
-    (device_pipeline.py:170 with is_b=False).
+                              checksum: bool = True, plain: bool = False,
+                              r1=None, nref1=None) -> dict:
+    """Search + MC + mixed exact commit + filters for F P frames, or F B
+    frames when r1 is given (device_pipeline.py:170).
 
     y: [F, PH, PW] uint8 CTU-padded sources, cb/cr [F, PH/2, PW/2];
-    r0_*: [F, 2, coded_h, coded_w] (chroma halved) uint8 reference stacks
-    from the on-device DPB (the second duplicates the first when the
-    frame has one reference, and nref0 says so).  lambda_sqrt, qp_y,
-    qp_cb, qp_cr, qp_for_deblock and nref0 are per-frame sequences, so a
-    batch may mix temporal layers.  Returns the dict of
-    encode_group_device."""
+    r0_*: [F, 2, coded_h, coded_w] (chroma halved) uint8 list-0 reference
+    stacks from the on-device DPB (the second duplicates the first when
+    the frame has one reference, and nref0 says so); r1: the (y, cb, cr)
+    list-1 stacks of B frames, masked by nref1 alike.  lambda_sqrt, qp_y,
+    qp_cb, qp_cr, qp_for_deblock, nref0 and nref1 are per-frame sequences,
+    so a batch may mix temporal layers.  The trellis tables are those of
+    init_type 1 for B frames too, as the reference builds them
+    (commit.py:590), although CABAC codes B slices with init_type 2.
+    Returns the dict of encode_group_device."""
     f, ph, pw = y.shape
     gh, gw = coded_h >> 3, coded_w >> 3
     nref0 = [2] * f if nref0 is None else [int(v) for v in nref0]
     lams = [float(v) for v in lambda_sqrt]
-    # the search runs on the padded source against the references
-    # edge-padded to it (device_pipeline.py:209-214)
-    r0_pad = torch.nn.functional.pad(
-        r0_y.to(torch.int32), (0, pw - coded_w, 0, ph - coded_h),
-        mode="replicate")
-    packed = search_p_maps(y, r0_pad, lams, log2_ctu, log2_min_cu, coded_w,
-                           coded_h, search_range, nref=nref0,
-                           rd_cands=rd_cands, plain=plain)
+
+    def pad(r):
+        # the search runs on the padded source against the references
+        # edge-padded to it (device_pipeline.py:209-214)
+        return torch.nn.functional.pad(
+            r.to(torch.int32), (0, pw - coded_w, 0, ph - coded_h),
+            mode="replicate")
+
+    common = dict(rd_cands=rd_cands, plain=plain)
+    if r1 is None:
+        packed = search_p_maps(y, pad(r0_y), lams, log2_ctu, log2_min_cu,
+                               coded_w, coded_h, search_range, nref=nref0,
+                               **common)
+        ref1 = None
+    else:
+        nref1 = [2] * f if nref1 is None else [int(v) for v in nref1]
+        packed = search_b_maps(y, pad(r0_y), pad(r1[0]), lams, log2_ctu,
+                               log2_min_cu, coded_w, coded_h, search_range,
+                               nref0=nref0, nref1=nref1, **common)
+        ref1 = tuple(r.to(torch.int32) for r in r1)
     dm = packed[:, :gh, :gw, 0].to(torch.int32)
     mm = packed[:, :gh, :gw, 1].to(torch.int32)
     im = packed[:, :gh, :gw, 2].to(torch.int32)
@@ -195,7 +212,7 @@ def encode_inter_group_device(y, cb, cr, r0_y, r0_cb, r0_cr, lambda_sqrt,
     scb = cb[:, :ch, :cw].to(torch.int32)
     scr = cr[:, :ch, :cw].to(torch.int32)
     ipy, ipcb, ipcr = inter_pred_planes(
-        tuple(r.to(torch.int32) for r in (r0_y, r0_cb, r0_cr)), None, im,
+        tuple(r.to(torch.int32) for r in (r0_y, r0_cb, r0_cr)), ref1, im,
         mv, ref_map=rmap, plain=plain)
     committed = wavefront_commit_mixed(
         sy, scb, scr, dm, mm, im, ipy, ipcb, ipcr, qp_y, qp_cb, qp_cr,

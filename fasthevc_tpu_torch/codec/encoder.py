@@ -1,5 +1,5 @@
 """Encoder top of the port: the all-intra routes of TpuEncoder and its
-low-delay P device route.
+GOP device route (low-delay P and random access).
 
 Counterpart of fasthevc_tpu/codec/encoder.py TpuEncoder, routed as
 TpuEncoder routes:
@@ -13,17 +13,17 @@ TpuEncoder routes:
     or FASTHEVC_FORCE_CLASSIC set): the search runs on the device and the
     C++ slice engine (`cabac_cpp.encode_slice_native`) commits each frame,
     deblocks, applies SAO and emits CABAC on a thread pool;
-  * the GOP device route (`_encode_gop_device`, orders of I and P slices
-    under the device route's conditions): dependency batches of P frames
-    through `device_pipeline.encode_inter_group_device` with the
-    references in a DPB on the device, I frames through
+  * the GOP device route (`_encode_gop_device`, orders of I, P and B
+    slices under the device route's conditions): dependency batches of P
+    or B frames through `device_pipeline.encode_inter_group_device` with
+    the references in a DPB on the device, I frames through
     `encode_group_device`, CABAC with TMVP on the host.
 Given the same config and frames, the stream is the one TpuEncoder writes
 on the same route.
 
-Every other route (B slices, the classic per-frame P/B loop, rate
-control, ...) raises NotImplementedError naming the ROADMAP.md item that
-ports it; nothing falls back to the JAX package.
+Every other route (the classic per-frame P/B loop, rate control, ...)
+raises NotImplementedError naming the ROADMAP.md item that ports it;
+nothing falls back to the JAX package.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import cabac_cpp
-from .gop import SLICE_B, SLICE_I, coding_order, ref_lists
+from .gop import SLICE_B, SLICE_I, SLICE_P, coding_order, ref_lists
 from ..config import EncoderConfig
 from ..spec import bitstream as bs
 from ..spec.cabac import ContextSet
@@ -59,7 +59,7 @@ from .device_pipeline import (device_path_ok, encode_group_device,
 from .search import search_intra_maps_batch
 
 # Frames per search dispatch (fasthevc_tpu/codec/encoder.py FRAME_GROUP),
-# and the most P pictures of one batch on the GOP route.
+# and the most P or B pictures of one batch on the GOP route.
 FRAME_GROUP = 8
 
 # One picture of a coding order on the GOP route: its reference lists (as
@@ -76,7 +76,8 @@ def _unported(what: str, item: str):
 
 
 class TorchEncoder:
-    """Encoder on a torch device (all-intra and low-delay P orders).
+    """Encoder on a torch device (all-intra, low-delay P and random-access
+    orders).
 
     cfg: the port's EncoderConfig.  device: where the device work runs
     ("cuda" launches the hand-written kernels; "cpu" runs their plain
@@ -160,10 +161,8 @@ class TorchEncoder:
                                                      on_frame)
             return self._encode_all_intra_pipelined(frames, start_poc, out,
                                                     on_frame)
-        if any(st == SLICE_B for _, st, _, _ in order):
-            raise _unported("B slices (the random-access orders)", "9")
         if not device_ok:
-            raise _unported("the classic per-frame P route (CTU 64, high "
+            raise _unported("the classic per-frame P/B route (CTU 64, high "
                             "bit depth, weighted prediction or "
                             "FASTHEVC_FORCE_CLASSIC)", "11")
         return self._encode_gop_device(frames, start_poc, out, order,
@@ -419,13 +418,16 @@ class TorchEncoder:
         return nal, planes
 
     def _encode_gop_device(self, frames, start_poc, out, order, on_frame):
-        """Device route of coding orders with I and P slices: the
-        counterpart of fasthevc_tpu/codec/encoder.py:518-965 for P slices,
-        without rate control.  A pre-pass resolves every picture's
-        reference lists and packs batches of up to FRAME_GROUP P pictures
-        whose references all lie in earlier batches (in low-delay P each
-        picture references its predecessor, so batches hold one); I
-        pictures go alone through encode_group_device, P batches through
+        """Device route of coding orders with I, P and B slices: the
+        counterpart of fasthevc_tpu/codec/encoder.py:518-965 without rate
+        control.  A pre-pass resolves every picture's reference lists and
+        packs batches of up to FRAME_GROUP P or B pictures whose signalled
+        references all lie in earlier batches (in low-delay P each picture
+        references its predecessor, so batches hold one; a random-access
+        GOP-16 goes as [16] [8] [4, 12] [2, 6, 10, 14] [the odd POCs], and
+        the stream holds its pictures in that batch order, as the
+        reference's device route writes them); I pictures go alone through
+        encode_group_device, P and B batches through
         encode_inter_group_device, two batches in flight.  References live
         in a DPB of uint8 recon planes on the device, each evicted after
         the last batch that reads it; the host keeps each picture's motion
@@ -464,8 +466,9 @@ class TorchEncoder:
             sim_dpb.add(cvs_poc)
 
         # ---- the dependency batcher (encoder.py:600-646): a batch starts
-        # at the earliest pending picture and takes later P pictures of the
-        # same CVS whose whole signalled RPS is already dispatched
+        # at the earliest pending picture and takes later pictures of its
+        # slice type and CVS whose whole signalled RPS is already
+        # dispatched
         batches = []
         pending = list(entries)
         done: set = set()
@@ -528,19 +531,27 @@ class TorchEncoder:
                                           self._lambda_sqrt(qp), qy, qcb,
                                           qcr, qp, **common)
             else:
-                def stack(pi):
+                def stack(li, pi):
+                    """[F, 2, H, W] plane pi of each picture's list li: its
+                    two references, the first twice when it has one."""
+                    pairs = [(e.idr, e.l1 if li else e.l0) for e in batch]
                     return torch.stack([torch.stack(
-                        [dev_dpb[(e.idr, e.l0[0])][pi],
-                         dev_dpb[(e.idr, e.l0[-1])][pi]]) for e in batch])
+                        [dev_dpb[(idr, lst[0])][pi],
+                         dev_dpb[(idr, lst[-1])][pi]]) for idr, lst in pairs])
 
                 tq = [qps_of(e.qp) for e in batch]
+                is_b = batch[0].st == SLICE_B
                 res = encode_inter_group_device(
-                    ys, cbs, crs, stack(0), stack(1), stack(2),
+                    ys, cbs, crs, stack(0, 0), stack(0, 1), stack(0, 2),
                     [self._lambda_sqrt(e.qp) for e in batch],
                     [t[0] for t in tq], [t[1] for t in tq],
                     [t[2] for t in tq], [e.qp for e in batch],
                     search_range=cfg.search_range,
-                    nref0=[len(e.l0) for e in batch], **common)
+                    nref0=[len(e.l0) for e in batch],
+                    r1=(tuple(stack(1, pi) for pi in range(3)) if is_b
+                        else None),
+                    nref1=[len(e.l1) for e in batch] if is_b else None,
+                    **common)
             for j, e in enumerate(batch):
                 dev_dpb[(e.idr, e.cvs_poc)] = (res["rec_y"][j],
                                                res["rec_cb"][j],
@@ -551,16 +562,19 @@ class TorchEncoder:
 
         def motion_ctx(e):
             """The picture's MotionCtx, with TMVP from the collocated
-            picture's recorded motion (encoder.py:678-698)."""
+            picture's recorded motion (encoder.py:678-698): l0[0] for P,
+            l1[0] for B (HM's default)."""
             if e.st == SLICE_I:
                 return None
+            col_from_l0 = e.st != SLICE_B
             m = MotionCtx(cur_poc=e.cvs_poc, l0_pocs=tuple(e.l0),
-                          l1_pocs=tuple(e.l1), tmvp=False, col_from_l0=True,
-                          log2_ctu=sp.log2_ctu)
-            col = motion_dpb.get((e.idr, e.l0[0]))
+                          l1_pocs=tuple(e.l1), tmvp=False,
+                          col_from_l0=col_from_l0, log2_ctu=sp.log2_ctu)
+            lst = e.l0 if col_from_l0 else e.l1
+            col = motion_dpb.get((e.idr, lst[0])) if lst else None
             if sp.temporal_mvp_enabled and col is not None:
                 m.tmvp = True
-                m.col_poc = e.l0[0]
+                m.col_poc = lst[0]
                 m.col_dir, m.col_mv, m.col_refpoc = col
             return m
 
@@ -601,7 +615,7 @@ class TorchEncoder:
                                                       .astype(np.int16)),
                           ref_map=np.ascontiguousarray(pk[..., 7:9]
                                                        .astype(np.int8)))
-            init_type = 0 if e.is_idr else 1
+            init_type = 0 if e.is_idr else (1 if e.st == SLICE_P else 2)
             subs = cabac_cpp.entropy_slice_native(
                 sp, qp_y, qp_cb, qp_cr,
                 np.ascontiguousarray(pk[..., 0].astype(np.int8)),
@@ -621,7 +635,8 @@ class TorchEncoder:
                 num_ref_idx_l0=max(1, len(e.l0)),
                 num_ref_idx_l1=max(1, len(e.l1)),
                 temporal_mvp=bool(mctx and mctx.tmvp),
-                collocated_from_l0=True, sao_luma=sao_on,
+                collocated_from_l0=mctx.col_from_l0 if mctx else True,
+                sao_luma=sao_on,
                 sao_chroma=sao_on,
                 entry_points=tuple(len(s) for s in subs[:-1]))
             w = write_slice_header(sh, sp, nal_type)

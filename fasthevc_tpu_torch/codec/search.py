@@ -1,4 +1,4 @@
-"""Batched RDO search: the intra and P halves of
+"""Batched RDO search: the intra, P and B searches of
 fasthevc_tpu/codec/search.py.
 
 Intra, for every aligned block of every CU size of every frame: SATD over
@@ -9,7 +9,10 @@ quadtree DP and the packed int16 [gh, gw, 9] decision maps of the C++
 slice engine.  P frames add, per block, the best of up to two references
 from integer ME (K9) and sub-pel refinement (K10), two merge candidates
 priced through exact MC (K11) and SATD, and the inter RD leaf at the inter
-dead-zone offset; the DP then runs over the per-block minimum.
+dead-zone offset; the DP then runs over the per-block minimum.  B frames
+run one ME state over both lists' references, the P candidates per list,
+and the bi-prediction of the two lists' winners costed by K12; the
+direction is chosen in the SATD domain before the one inter RD leaf.
 
 The f32 costs are built with the same operations, in the same order, as
 the JAX search, so both take the same decisions.  `plain=True` runs the
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import cost, intra, me, transform
+from ..ops import cost, intra, me, per_frame, transform
 
 # Bit proxies of the CU syntax (fasthevc_tpu/codec/search.py).
 CU_OVERHEAD_BITS = 3.0
@@ -196,6 +199,71 @@ def _neighbor_fields(field: torch.Tensor, gy: int,
     return left.reshape(-1, c), top.reshape(-1, c)
 
 
+def _with_merge_cands(st, src_b, ia: int, ib: int, mv, ridx, pred, cost_,
+                      rate_bits, n: int, ls, satd, plain: bool) -> tuple:
+    """Fold the left and top same-size neighbours' (MV, ref) into one
+    list's candidate at the merge rate of 2 bits, chosen in the SATD
+    domain (search.py:438 `with_merge_cands`; the P search's loop at
+    :318-334 is the same with state refs 0 and R-1); a merge winner
+    adopts the neighbour's reference, ia or ib of the ME state."""
+    field = torch.cat([mv, ridx[:, None]], dim=1)
+    for cand in _neighbor_fields(field, st.h // n, st.w // n):
+        cmv, cref = cand[:, :2].contiguous(), cand[:, 2]
+        raw_c, valid = me.mc_raw_from_state_sel(st, ia, ib, cref > 0, n, cmv,
+                                                plain=plain)
+        predc = ((raw_c + 32) >> 6).clamp(0, 255)
+        costc = torch.where(
+            valid, satd(src_b, predc[:, None])[:, 0].to(torch.float32)
+            + ls * 2.0, float("inf"))
+        better = costc < cost_
+        cost_ = torch.where(better, costc, cost_)
+        mv = torch.where(better[:, None], cmv, mv)
+        ridx = torch.where(better, cref, ridx)
+        pred = torch.where(better[:, None, None], predc, pred)
+        rate_bits = torch.where(better, 2.0, rate_bits)
+    return mv, ridx, pred, cost_, rate_bits
+
+
+def _pick_ref(sp_n, ia: int, ib: int) -> tuple:
+    """Per-block choice between state refs ia and ib of one size's sub-pel
+    results (search.py:424 `pick_ref`; ia == ib: one reference): (cost,
+    mv, pred, sel)."""
+    c, mvq, pred = sp_n
+    if ia == ib:
+        return (c[ia], mvq[ia], pred[ia],
+                torch.zeros_like(c[ia], dtype=torch.bool))
+    sel = c[ib] < c[ia]
+    return (torch.minimum(c[ia], c[ib]),
+            torch.where(sel[:, None], mvq[ib], mvq[ia]),
+            torch.where(sel[:, None, None], pred[ib], pred[ia]), sel)
+
+
+def _inter_leaf(y, n: int, pred, rate_bits, qp_i: int, lam, tq_roundtrip,
+                sse_rate):
+    """The true-RD leaf cost of an inter candidate's residual at the inter
+    dead-zone offset; XLA contracts dist + lam * (...) into one fused
+    multiply-add."""
+    pn = min(n, 32)
+    res = (_blocks(y[None], n) - pred)[:, :pn, :pn].contiguous()
+    levels, rq = tq_roundtrip(res, qp_i, pn.bit_length() - 1, is_intra=False)
+    dist, rate = sse_rate(res, rq, levels)
+    return cost.fma_f32(lam, (rate + rate_bits) + INTER_OVERHEAD_BITS,
+                        dist) * (4.0 if pn != n else 1.0)
+
+
+def _dp_step(out: dict, dp, leaf, n: int, h: int, w: int, lam):
+    """One bottom-up level of the inter quadtree DP: the four children
+    summed in raster order against the leaf; records split{n}."""
+    if dp is None:
+        return leaf
+    ch = dp.reshape(h // n, 2, w // n, 2)
+    sum_child = (ch[:, 0, :, 0] + ch[:, 0, :, 1] + ch[:, 1, :, 0]
+                 + ch[:, 1, :, 1]).reshape(-1)
+    split = sum_child + lam * SPLIT_FLAG_BITS < leaf
+    out[f"split{n}"] = split
+    return torch.where(split, sum_child + lam * SPLIT_FLAG_BITS, leaf)
+
+
 def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
                    log2_ctu: int = 5, log2_min_cu: int = 3,
                    search_range: int = 8, rd_cands: int = 3,
@@ -205,10 +273,11 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     the per-block minimum.
 
     y [H, W] int32; refs [R, H, W] (R = 1 or 2) edge-padded to y's size;
-    nref: the active references (default R).  Returns the intra outputs'
-    mode{n} and split{n} plus inter{n} (inter chosen), mv{n} ([B_n, 2]
-    quarter-pel) and ref{n} ([B_n] ref index), each in block raster order.
-    """
+    nref: the active references (default R).  Returns the B search's keys:
+    the intra outputs' mode{n} and split{n} plus inter{n} (inter chosen),
+    dir{n} (1), mv0{n} ([B_n, 2] quarter-pel) and ref0{n} ([B_n] ref
+    index), with list 1's mv1{n} and ref1{n} zero, each in block raster
+    order."""
     _, satd, tq_roundtrip, sse_rate = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
@@ -220,7 +289,7 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     # a second reference that nref masks out (cost inf, never selected,
     # no neighbour carries its index) changes nothing: leave it out
     refs = refs[:max(1, min(refs.shape[0] if nref is None else nref, 2))]
-    r = refs.shape[0]
+    ib = refs.shape[0] - 1
     intra_dec = search_intra_frame(y, lambda_sqrt, log2_ctu, log2_min_cu,
                                    rd_cands=rd_cands, plain=plain)
     st = me.me_state(y, refs, search_range, max_size=1 << log2_ctu,
@@ -228,64 +297,103 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     sp = me.subpel_from_state(st, lambda_sqrt, plain=plain)
     out = {}
     dp = None
-    for i, n in enumerate(sizes):
-        c, mvq, pred = sp[n]
-        if r > 1:
-            sel = c[1] < c[0]
-            me_cost = torch.minimum(c[0], c[1])
-            mv = torch.where(sel[:, None], mvq[1], mvq[0])
-            pred = torch.where(sel[:, None, None], pred[1], pred[0])
-        else:
-            sel = torch.zeros_like(c[0], dtype=torch.bool)
-            me_cost, mv, pred = c[0], mvq[0], pred[0]
-        ridx = sel.to(torch.int32)
+    for n in sizes:
+        me_cost, mv, pred, sel = _pick_ref(sp[n], 0, ib)
+        mv, ridx, pred, _, rate_bits = _with_merge_cands(
+            st, _blocks(y[None], n), 0, ib, mv, sel.to(torch.int32), pred,
+            me_cost, me.mv_rate_bits(mv), n, ls, satd, plain)
+        icost = _inter_leaf(y, n, pred, rate_bits, qp_i, lam, tq_roundtrip,
+                            sse_rate)
+        raw_intra = intra_dec[f"rawcost{n}"]
+        out[f"mode{n}"] = intra_dec[f"mode{n}"]
+        out[f"inter{n}"] = icost < raw_intra
+        out[f"dir{n}"] = torch.ones_like(ridx, dtype=torch.int32)
+        out[f"mv0{n}"] = mv.to(torch.int32)
+        out[f"mv1{n}"] = torch.zeros_like(out[f"mv0{n}"])
+        out[f"ref0{n}"] = ridx.to(torch.int32)
+        out[f"ref1{n}"] = torch.zeros_like(out[f"ref0{n}"])
+        leaf = torch.minimum(icost, raw_intra) + lam * CU_OVERHEAD_BITS
+        dp = _dp_step(out, dp, leaf, n, h, w, lam)
+    return out
+
+
+def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
+                   lambda_sqrt: float, log2_ctu: int = 5, log2_min_cu: int = 3,
+                   search_range: int = 8, rd_cands: int = 3,
+                   nref0: int | None = None, nref1: int | None = None,
+                   plain: bool = False) -> dict:
+    """B-frame search (search.py:359): intra, L0, L1 and BI candidates for
+    every block over up to two active references per list, then the
+    quadtree DP over the per-block minimum.
+
+    y [H, W] int32; refs0, refs1 [R, H, W] (R = 1 or 2) the lists'
+    references edge-padded to y's size; nref0, nref1 the active ones
+    (default R).  One ME state serves both lists over the references l0a
+    [l0b] l1a [l1b]: a second reference that its list's count masks out
+    changes nothing (cost inf, never chosen, no neighbour carries its
+    index), so it is left out and list 1's state indices move with it.
+    BI (K12) averages the two lists' exact predictions at their final MVs.
+    Returns the intra outputs' mode{n} and split{n} plus inter{n}, dir{n}
+    (1 L0, 2 L1, 3 BI; 1 for intra), mv0{n}, mv1{n} ([B_n, 2]
+    quarter-pel), ref0{n} and ref1{n} ([B_n] ref index), each in block
+    raster order."""
+    _, satd, tq_roundtrip, sse_rate = _ops(plain)
+    h, w = y.shape
+    sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
+    ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
+    lam = ls * ls
+    qp_i = search_qp(lambda_sqrt)
+    lists = []
+    for refs, nref in ((refs0, nref0), (refs1, nref1)):
+        refs = refs[None] if refs.dim() == 2 else refs
+        lists.append(refs[:max(1, min(refs.shape[0] if nref is None
+                                      else nref, 2))])
+    i0b = lists[0].shape[0] - 1
+    i1a = i0b + 1
+    i1b = i1a + lists[1].shape[0] - 1
+    intra_dec = search_intra_frame(y, lambda_sqrt, log2_ctu, log2_min_cu,
+                                   rd_cands=rd_cands, plain=plain)
+    st = me.me_state(y, torch.cat(lists), search_range,
+                     max_size=1 << log2_ctu, plain=plain)
+    sp = me.subpel_from_state(st, lambda_sqrt, plain=plain)
+    out = {}
+    dp = None
+    for n in sizes:
         src_b = _blocks(y[None], n)
-        # merge-style candidates: the left and top neighbours' (MV, ref)
-        # at 2 bits, chosen in the SATD domain; only the winner pays the
-        # transform round trip
-        rate_bits = me.mv_rate_bits(mv)
-        sel_cost = me_cost
-        field = torch.cat([mv, ridx[:, None]], dim=1)
-        for cand in _neighbor_fields(field, h // n, w // n):
-            cmv, cref = cand[:, :2].contiguous(), cand[:, 2]
-            raw_c, valid = me.mc_raw_from_state_sel(st, 0, r - 1, cref > 0,
-                                                    n, cmv, plain=plain)
-            predc = ((raw_c + 32) >> 6).clamp(0, 255)
-            costc = torch.where(
-                valid, satd(src_b, predc[:, None])[:, 0].to(torch.float32)
-                + ls * 2.0, float("inf"))
-            better = costc < sel_cost
-            sel_cost = torch.where(better, costc, sel_cost)
-            mv = torch.where(better[:, None], cmv, mv)
-            ridx = torch.where(better, cref, ridx)
-            pred = torch.where(better[:, None, None], predc, pred)
-            rate_bits = torch.where(better, 2.0, rate_bits)
-        # the true-RD leaf cost of the winner's residual (inter offset);
-        # XLA contracts dist + lam * (...) into one fused multiply-add
-        pn = min(n, 32)
-        res = (src_b - pred)[:, :pn, :pn].contiguous()
-        levels, rq = tq_roundtrip(res, qp_i, pn.bit_length() - 1,
-                                  is_intra=False)
-        dist, rate = sse_rate(res, rq, levels)
-        icost = cost.fma_f32(lam, (rate + rate_bits) + INTER_OVERHEAD_BITS,
-                             dist) * (4.0 if pn != n else 1.0)
+        per_list = []
+        for ia, ib in ((0, i0b), (i1a, i1b)):
+            c, mv, pred, sel = _pick_ref(sp[n], ia, ib)
+            per_list.append(_with_merge_cands(
+                st, src_b, ia, ib, mv, sel.to(torch.int32), pred, c,
+                me.mv_rate_bits(mv), n, ls, satd, plain))
+        (mv0, r0idx, p0, c0, r0bits), (mv1, r1idx, p1, c1, r1bits) = per_list
+        pbi, cbi = me.bi_cost(
+            st.y, st.refs, mv0, torch.where(r0idx > 0, i0b, 0), mv1,
+            torch.where(r1idx > 0, i1b, i1a), r0bits, r1bits, lambda_sqrt,
+            n, plain=plain)
+        # direction in the SATD domain (the first of equal costs, as
+        # jnp.argmin), then one T/Q on the winner; the reference's one-hot
+        # einsum of the predictions and rates is exact, so a select
+        dchoice = torch.argmin(torch.stack([c0, c1, cbi]), dim=0)
+        d3 = dchoice[:, None, None]
+        pred_sel = torch.where(d3 == 0, p0, torch.where(d3 == 1, p1, pbi))
+        rate_sel = torch.where(dchoice == 0, r0bits,
+                               torch.where(dchoice == 1, r1bits,
+                                           r0bits + r1bits))
+        icost = _inter_leaf(y, n, pred_sel, rate_sel, qp_i, lam,
+                            tq_roundtrip, sse_rate)
         raw_intra = intra_dec[f"rawcost{n}"]
         use_inter = icost < raw_intra
-        leaf = torch.minimum(icost, raw_intra) + lam * CU_OVERHEAD_BITS
         out[f"mode{n}"] = intra_dec[f"mode{n}"]
-        out[f"mv{n}"] = mv.to(torch.int32)
-        out[f"ref{n}"] = ridx.to(torch.int32)
         out[f"inter{n}"] = use_inter
-        if i == 0:
-            dp = leaf
-            continue
-        gy, gx = h // n, w // n
-        ch = dp.reshape(gy, 2, gx, 2)
-        sum_child = (ch[:, 0, :, 0] + ch[:, 0, :, 1] + ch[:, 1, :, 0]
-                     + ch[:, 1, :, 1]).reshape(-1)
-        split = sum_child + lam * SPLIT_FLAG_BITS < leaf
-        dp = torch.where(split, sum_child + lam * SPLIT_FLAG_BITS, leaf)
-        out[f"split{n}"] = split
+        out[f"dir{n}"] = torch.where(use_inter, dchoice + 1, 1).to(
+            torch.int32)
+        out[f"mv0{n}"] = mv0.to(torch.int32)
+        out[f"mv1{n}"] = mv1.to(torch.int32)
+        out[f"ref0{n}"] = r0idx.to(torch.int32)
+        out[f"ref1{n}"] = r1idx.to(torch.int32)
+        leaf = torch.minimum(icost, raw_intra) + lam * CU_OVERHEAD_BITS
+        dp = _dp_step(out, dp, leaf, n, h, w, lam)
     return out
 
 
@@ -294,10 +402,11 @@ def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
                log2_min_cu: int) -> torch.Tensor:
     """Fold the per-size decisions into packed int16 [F, ph/8, pw/8, 9]
     maps = (depth, mode, dir, mv0x, mv0y, mv1x, mv1y, ref0, ref1), as
-    fasthevc_tpu/codec/search.py _pack_maps_device does for intra and P
-    searches (a P search's entries carry inter{n}, mv{n} and ref{n}; inter
-    CUs get direction 1 and mode -1).  Blocks that overflow the coded
-    picture split whatever the DP chose."""
+    fasthevc_tpu/codec/search.py _pack_maps_device does.  An inter
+    search's entries carry inter{n}, dir{n}, mv0{n}, mv1{n}, ref0{n} and
+    ref1{n}; the MVs are stored whatever the direction (the recorded TMVP
+    motion reads them).  Inter CUs get mode -1.  Blocks that overflow the
+    coded picture split whatever the DP chose."""
     gw, gh = padded_w >> 3, padded_h >> 3
     sizes = [1 << lg for lg in range(log2_ctu, log2_min_cu - 1, -1)]
     dev = dec[f"mode{sizes[0]}"].device
@@ -308,7 +417,8 @@ def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
         return a.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
 
     def grid(key, n, *tail):
-        return dec[key].reshape(f, padded_h // n, padded_w // n, *tail)
+        return up(dec[key].reshape(f, padded_h // n, padded_w // n, *tail)
+                  .to(i16), n)
 
     def forced(n):
         bx = torch.arange(padded_w // n, device=dev) * n
@@ -318,21 +428,19 @@ def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
 
     def level_maps(n):
         """(mode, dir, mv [.., 4], ref [.., 2]) of the n-level decisions."""
-        mode = up(grid(f"mode{n}", n).to(i16), n)
+        mode = grid(f"mode{n}", n)
         if f"inter{n}" not in dec:
             return mode, None, None, None
-        inter = up(grid(f"inter{n}", n), n)
-        dir_n = inter.to(i16)
-        mvs = up(grid(f"mv{n}", n, 2).to(i16), n)
-        zero = torch.zeros_like(dir_n)
-        mv = torch.stack([mvs[..., 0], mvs[..., 1], zero, zero], dim=-1)
-        ref = torch.stack([up(grid(f"ref{n}", n).to(i16), n), zero], dim=-1)
-        return torch.where(inter, -1, mode).to(i16), dir_n, mv, ref
+        inter = grid(f"inter{n}", n) > 0
+        dir_n = torch.where(inter, grid(f"dir{n}", n), 0).to(i16)
+        mv = torch.cat([grid(f"mv0{n}", n, 2), grid(f"mv1{n}", n, 2)], dim=-1)
+        ref = torch.stack([grid(f"ref0{n}", n), grid(f"ref1{n}", n)], dim=-1)
+        return torch.where(dir_n > 0, -1, mode).to(i16), dir_n, mv, ref
 
     depth = torch.zeros((f, gh, gw), dtype=i16, device=dev)
     mode, dir_m, mv, ref = level_maps(sizes[0])
     for d, n in enumerate(sizes[:-1]):
-        split = up(grid(f"split{n}", n), n)
+        split = grid(f"split{n}", n) > 0
         active = (depth == d) & (split | forced(n))
         cmode, cdir, cmv, cref = level_maps(sizes[d + 1])
         depth = torch.where(active, d + 1, depth).to(i16)
@@ -373,12 +481,30 @@ def search_p_maps(y_batch: torch.Tensor, refs: torch.Tensor, lambda_sqrt,
     the same size, lambda_sqrt and nref scalars or per-frame sequences.
     Returns packed [F, H/8, W/8, 9] int16 maps."""
     f, h, w = y_batch.shape
-    lams = (list(lambda_sqrt) if isinstance(lambda_sqrt, (list, tuple))
-            else [lambda_sqrt] * f)
-    nrefs = list(nref) if isinstance(nref, (list, tuple)) else [nref] * f
+    lams, nrefs = per_frame(lambda_sqrt, f), per_frame(nref, f)
     decs = [search_p_frame(y_batch[i].to(torch.int32),
                            refs[i].to(torch.int32), lams[i], log2_ctu,
                            log2_min_cu, search_range, rd_cands, nrefs[i],
                            plain) for i in range(f)]
+    dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
+    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)
+
+
+def search_b_maps(y_batch: torch.Tensor, refs0: torch.Tensor,
+                  refs1: torch.Tensor, lambda_sqrt, log2_ctu: int,
+                  log2_min_cu: int, coded_w: int, coded_h: int,
+                  search_range: int, nref0=None, nref1=None,
+                  rd_cands: int = 3, plain: bool = False) -> torch.Tensor:
+    """B search of F frames (search.py:710, one frame at a time): y_batch
+    [F, H, W] padded luma, refs0/refs1 [F, R, H, W] each list's references
+    edge-padded to the same size, lambda_sqrt, nref0 and nref1 scalars or
+    per-frame sequences.  Returns packed [F, H/8, W/8, 9] int16 maps."""
+    f, h, w = y_batch.shape
+    lams, n0s, n1s = (per_frame(v, f) for v in (lambda_sqrt, nref0, nref1))
+    decs = [search_b_frame(y_batch[i].to(torch.int32),
+                           refs0[i].to(torch.int32), refs1[i].to(torch.int32),
+                           lams[i], log2_ctu, log2_min_cu, search_range,
+                           rd_cands, n0s[i], n1s[i], plain)
+            for i in range(f)]
     dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)

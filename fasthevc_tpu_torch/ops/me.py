@@ -1,6 +1,6 @@
 """Batched motion estimation and exact motion compensation.
 
-Counterpart of fasthevc_tpu/ops/me.py.  Three kernels carry it on the card:
+Counterpart of fasthevc_tpu/ops/me.py.  Four kernels carry it on the card:
   * K9 (csrc/me_int.cu), the integer stage: `downsample4` (the 4x
     decimation of the coarse search) and `sad_search`, one CTA per (ref,
     block), which serves both the dense full search (the reference's
@@ -13,7 +13,10 @@ Counterpart of fasthevc_tpu/ops/me.py.  Three kernels carry it on the card:
     every n-block from per-block (qpel MV, ref) with the reference's window
     test (`mc_raw_from_state_sel`), and `inter_pred`, the commit's
     prediction planes (`inter_pred_planes`: luma 8-tap, chroma 4-tap,
-    uni/bi rounding).
+    uni/bi rounding; counted as `inter_pred_bi` when list 1 is given);
+  * K12 (csrc/bi.cu), `bi_cost`: the B search's BI candidate, the bi
+    average of both lists' exact predictions and its SATD cost, on K11's
+    filter (csrc/mc_common.cuh).
 Each has a plain PyTorch twin (`*_plain`) in this module.
 
 The JAX package gathers per-tier reference windows once (edge-clamped, at
@@ -504,6 +507,64 @@ def mc_raw_from_state_sel(st: MEState, r_lo: int, r_hi: int, sel, n: int,
     return mc_sel(st.refs, st.base[tier], mvq, refsel, n, tier, plain=plain)
 
 
+# ---------------------------------------------------------------------------
+# K12: the bi-prediction cost of the B search
+# ---------------------------------------------------------------------------
+
+def bi_cost_plain(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits,
+                  lambda_sqrt: float, n: int):
+    """K12 twin (search.py:476-481): the raw predictions of both lists
+    at each list's final MV and absolute ref index (the filter of
+    mc_sel_plain; the window test is not taken: every such MV passed it),
+    their bi average pbi = clip((raw0 + raw1 + 64) >> 7, 0, 255) and its
+    cost fma(lambda_sqrt, r0bits + r1bits, SATD(src - pbi)) in f32.  src
+    [H, W], refs [R, H, W], mv0/mv1 [B, 2] quarter pels, sel0/sel1 [B],
+    r0bits/r1bits [B] f32.  Returns (pbi [B, n, n] int32, cbi [B] f32)."""
+    h, w = src.shape
+    oy, ox = _block_origins(h, w, n, refs.device)
+    taps = _const("luma", refs.device)
+    raw0, raw1 = (_mc_raw_plain(refs, sel.to(torch.int64), oy, ox,
+                                mv.to(torch.int64), n, taps, 2)
+                  for mv, sel in ((mv0, sel0), (mv1, sel1)))
+    pbi = ((raw0 + raw1 + 64) >> 7).clamp(0, 255).to(torch.int32)
+    s = cost.satd_plain(_blocks(src.to(torch.int32), n), pbi[:, None])[:, 0]
+    ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
+    return pbi, cost.fma_f32(ls, r0bits + r1bits, s.to(torch.float32))
+
+
+def bi_cost(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits,
+            lambda_sqrt: float, n: int, plain: bool = False):
+    """The BI candidate of `bi_cost_plain`.  CUDA tensors go through K12
+    unless `plain`."""
+    if plain or not src.is_cuda:
+        return bi_cost_plain(src, refs, mv0, sel0, mv1, sel1, r0bits,
+                             r1bits, lambda_sqrt, n)
+    i32 = [t.to(torch.int32).contiguous()
+           for t in (src, refs, mv0, sel0, mv1, sel1)]
+    f32 = [t.to(torch.float32).contiguous() for t in (r0bits, r1bits)]
+    src, refs, mv0, sel0, mv1, sel1 = i32
+    _build.require_cuda("bi_cost", *i32, *f32)
+    r, h, w = refs.shape
+    b = (h // n) * (w // n)
+    if (src.shape != (h, w) or n not in (8, 16, 32) or h % n or w % n
+            or mv0.shape != (b, 2) or mv1.shape != (b, 2)
+            or sel0.shape != (b,) or sel1.shape != (b,)
+            or any(t.shape != (b,) for t in f32)):
+        raise ValueError("bi_cost: src [H, W], refs [R, H, W], mv0/mv1 "
+                         "[B, 2], sel0/sel1/r0bits/r1bits [B], n in 8..32")
+    pbi = torch.empty((b, n, n), dtype=torch.int32, device=src.device)
+    cbi = torch.empty((b,), dtype=torch.float32, device=src.device)
+    ls = float(torch.tensor(lambda_sqrt, dtype=torch.float32))
+    rc = _build.lib().fhv_bi_cost(
+        src.data_ptr(), refs.data_ptr(), mv0.data_ptr(), sel0.data_ptr(),
+        mv1.data_ptr(), sel1.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
+        ls, pbi.data_ptr(), cbi.data_ptr(), r, h, w, n,
+        _build.stream_handle(src))
+    _build.LAUNCHES["bi_cost"] += 1
+    _build.check(rc, "bi_cost")
+    return pbi, cbi
+
+
 def _as_stack(p: torch.Tensor, frames: bool) -> torch.Tensor:
     """A reference component as [F, R, H, W]."""
     if frames:
@@ -575,8 +636,10 @@ def _inter_comp_cuda(ref0, ref1, d, mv, rmap, chroma: bool,
         None if rmap is None else rmap.data_ptr(), out.data_ptr(), nf, r0,
         0 if ref1 is None else ref1.shape[1], h, w, int(chroma), bit_depth,
         _build.stream_handle(ref0))
-    _build.LAUNCHES["inter_pred"] += 1
-    _build.check(rc, "inter_pred")
+    # the bi-predicting form of B pictures counts apart from P's
+    name = "inter_pred" if ref1 is None else "inter_pred_bi"
+    _build.LAUNCHES[name] += 1
+    _build.check(rc, name)
     return out
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K11 of fasthevc_tpu_torch against their plain twins.
+"""The CUDA kernels K1-K12 of fasthevc_tpu_torch against their plain twins.
 
 Tests marked `cuda` need an NVIDIA card: the `cuda_device` fixture skips
 them elsewhere (the decision is made inside the fixture, never at import
@@ -18,7 +18,8 @@ import torch
 
 from fasthevc_tpu_torch import _build
 from fasthevc_tpu_torch.codec import device_pipeline
-from fasthevc_tpu_torch.codec.search import (search_intra_maps_batch,
+from fasthevc_tpu_torch.codec.search import (search_b_maps,
+                                             search_intra_maps_batch,
                                              search_p_maps)
 from fasthevc_tpu_torch.ops import (commit, cost, deblock, intra, me, sao,
                                     transform)
@@ -337,3 +338,60 @@ def test_mixed_commit_and_bs_deblock_match_twins(cuda_device, rdoq):
         assert torch.equal(a, b)
     assert (_build.LAUNCHES["deblock_bs"],
             _build.LAUNCHES["deblock_cbf"]) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_bi_cost_kernel_matches_twin(cuda_device):
+    """K12 on an ME state of four references, with MVs far enough out to
+    clamp at every picture edge (|mvx| + |mvy| within the rate table)."""
+    y, refs = _p_inputs(128, 96, 90, cuda_device)
+    refs = torch.cat([refs, refs.flip(0)])
+    st = me.me_state(y, refs, 64, plain=True)
+    rng = np.random.default_rng(91)
+    before = _build.LAUNCHES["bi_cost"]
+    for n in (8, 16, 32):
+        b = (128 // n) * (96 // n)
+        mvs = [torch.from_numpy(rng.integers(-259, 260, (b, 2)).astype(
+            np.int32)).to(cuda_device) for _ in range(2)]
+        sel0 = torch.from_numpy(rng.integers(0, 2, b)).to(cuda_device)
+        sel1 = torch.from_numpy(rng.integers(2, 4, b)).to(cuda_device)
+        rates = [me.mv_rate_bits(m) for m in mvs]
+        args = (st.y, st.refs, mvs[0], sel0, mvs[1], sel1, *rates, 9.75, n)
+        got, want = me.bi_cost(*args), me.bi_cost(*args, plain=True)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert _build.LAUNCHES["bi_cost"] == before + 3
+
+
+@pytest.mark.cuda
+def test_b_search_kernels_match_twins(cuda_device):
+    """The whole B search, K12 included, on the card against its twins:
+    frame 2 of a clip between frames 1, 0 (list 0) and 3, 4 (list 1)."""
+    clip = synthesize_yuv(96, 64, 5, seed=5)
+    fr = [torch.from_numpy(np.asarray(c[0], np.int32)) for c in clip]
+    ls = float(np.sqrt(0.57 * 2.0 ** ((27 - 12) / 3.0)))
+    args = (fr[2][None], torch.stack([fr[1], fr[0]])[None],
+            torch.stack([fr[3], fr[4]])[None], [ls], 5, 3, 96, 64, 64)
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    kw = dict(nref0=[2], nref1=[2])
+    got = search_b_maps(*args, **kw)
+    want = search_b_maps(*args, **kw, plain=True)
+    assert torch.equal(got, want)
+    assert set(torch.unique(got[..., 2]).tolist()) >= {1, 2, 3}
+
+
+def test_bi_cost_on_the_cpu_runs_the_twin_and_counts_no_launch():
+    y, refs = _p_inputs(64, 64, 93, torch.device("cpu"))
+    st = me.me_state(y, torch.cat([refs, refs]), 16)
+    mv = torch.zeros((64, 2), dtype=torch.int32)
+    sel = torch.zeros(64, dtype=torch.int32)
+    rate = me.mv_rate_bits(mv)
+    _build.LAUNCHES.clear()
+    pbi, cbi = me.bi_cost(st.y, st.refs, mv, sel, mv, sel + 2, rate, rate,
+                          8.0, 8)
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert pbi.shape == (64, 8, 8) and cbi.dtype == torch.float32
+    # equal references and MVs: the bi average is the uni prediction
+    raw = me.mc_sel_plain(st.refs, st.base[16], mv, sel, 8, 16)[0]
+    assert torch.equal(pbi, ((raw + 32) >> 6).clamp(0, 255))

@@ -103,19 +103,26 @@ def test_ldp_stream_matches_tpu_device_route(monkeypatch, extra):
 
 
 def test_b_orders_and_the_classic_p_route_raise(monkeypatch):
-    clip = synthesize_yuv(64, 64, 17, seed=1)
-    _, ra = _configs("random_access_gop16", width=64, height=64, frames=17)
-    monkeypatch.delenv("FASTHEVC_FORCE_CLASSIC", raising=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TorchEncoder(ra, "cpu").encode(clip)
+    """B orders take the GOP device route (a 3-frame GOP-2 of B pictures,
+    the first with l0 == l1); B and P orders under FASTHEVC_FORCE_CLASSIC
+    (the classic per-frame route, item 11) and rate control (item 7)
+    raise."""
+    clip = synthesize_yuv(64, 64, 3, seed=1)
+    gop = [port_config.GopEntry(2, 1, "B", (-2,)),
+           port_config.GopEntry(1, 2, "B", (-1, 1))]
+    b_cfg = port_config.EncoderConfig(width=64, height=64, qp=32, frames=3,
+                                      intra_period=-1, gop=gop)
+    stream, _ = _port_encode(monkeypatch, b_cfg, clip)
+    assert _hash_clean(stream, 3)
     _, ldp = _configs("low_delay_p", width=64, height=64, frames=3)
     monkeypatch.setenv("FASTHEVC_FORCE_CLASSIC", "1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TorchEncoder(ldp, "cpu").encode(clip[:3])
-    _, rc = _configs("low_delay_p", width=64, height=64, frames=3,
-                     target_bitrate=100000)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TorchEncoder(rc, "cpu")
+    for cfg in (b_cfg, ldp):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            TorchEncoder(cfg, "cpu").encode(clip)
+    for cfg in (b_cfg, ldp):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            TorchEncoder(dataclasses.replace(cfg, target_bitrate=100000),
+                         "cpu")
 
 
 def test_the_port_takes_only_its_own_config():
