@@ -29,6 +29,15 @@ Phases (any failure raises, and the script exits non-zero):
         the 8-, 16- and 32-blocks, each with its time, twin time and bound,
         and K11's bi-predicting planes on that frame's B decisions, exactly
         (K12's f32 costs bit for bit);
+     d. the partition CNN with seeded random weights: K13 on a 1080p group
+        of 8 at CTU 32 (and one 1080p frame at CTU 64), its training-mode
+        logits within CNN_TOL of the conv2d chain's and its depth maps
+        equal wherever the chain's top-two margin exceeds 2 CNN_TOL; K13's
+        training mode and K14 on one training batch of 64 CTUs against
+        autograd through the chain (gradients within 1e-4 of each
+        tensor's largest); K15 on the flat parameters, bit for bit; each
+        with its time, twin time, bound and the library call's time (the
+        conv2d chain, its backward, torch.optim.Adam);
   3. encodes synthesized 1920x1080 QP32 frames with TorchEncoder on its
      all-intra device route (bench.py's tools: default tools,
      auto_tile_grid tiles, hash type 2): one warm-up group, then 16 timed
@@ -62,13 +71,29 @@ Phases (any failure raises, and the script exits non-zero):
      by that encode;
  11. a 416x240 17-frame random-access clip through the kernels and through
      the twins on the card, and through the twins on the CPU: identical
-     streams that decode hash-clean in SpecDecoder.
+     streams that decode hash-clean in SpecDecoder;
+ 12. trains the partition CNN on the card with
+     train_self_distilled(qps=(27, 37), steps=400), the recipe of the
+     reference's BASELINE config 4, printing its loss, accuracy and wall
+     time, and requires K1-K4, K13's training mode, K14 and K15 to have
+     been launched;
+ 13. the fast-partition path with those parameters: phases 3, 7 and 10
+     again (the same frames) with fast_partition, fps, kbit/frame and
+     Y-PSNR printed beside the full search's, each requiring K13 and its
+     route's kernels; then config 4 itself (416x240, 4 frames, QP 22, 27,
+     32 and 37, full vs fast, every stream hash-clean) and its BD-rate by
+     the port's utils.bd_rate, printed against the 2% gate as a
+     measurement; and 416x240 fast-partition streams (all-intra and random
+     access with the trained CNN, the CTU-64 pipelined route with a seeded
+     CTU-64 CNN) through the kernels on the card and through the twins on
+     the CPU: identical, hash-clean.
 
-Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10)
-alone on the card; then every check that runs twins (K5's twins of phase
-2, phases 4, 5, 6's 416x240 check, 8, 9 and 11) as JOBS, each a process
-of its own (`chip_smoke.py --job NAME`), all at once: the twins are bound
-by the host's Python and launches, so they overlap.
+Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10),
+the training (12) and the timed fast-partition encodes (13) alone on the
+card; then every check that runs twins (K5's twins of phase 2, phases 4,
+5, 6's 416x240 check, 8, 9, 11 and 13's 416x240 checks) and config 4 as
+JOBS, each a process of its own (`chip_smoke.py --job NAME`), all at once:
+the twins are bound by the host's Python and launches, so they overlap.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -100,6 +125,7 @@ TWIN_FRAMES = 2          # K5's twin at 1080p: the first frames of the group
 # multiply-add counted as two).  The kernels here are int32 work.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 33.5e12
+PEAK_F32_FLOPS_S = 67e12     # the partition CNN's f32 work, no tensor core
 SEARCH_KERNELS = ("intra_pred", "satd", "tq_roundtrip", "sse_rate")
 INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
 P_KERNELS = ("me_downsample4", "me_full_search", "me_refine", "subpel",
@@ -110,6 +136,14 @@ RA_FRAMES = 17           # random access: the IDR and one GOP-16
 B_KERNELS = ("bi_cost", "inter_pred_bi")
 RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
             + B_KERNELS)
+TRAIN_KERNELS = ("cnn_train", "cnn_backward", "adam")
+CNN_KERNELS = ("cnn_depth",) + TRAIN_KERNELS
+# K13's f32 logits against the conv2d chain's (cuDNN, TF32 off): sums of up
+# to 585 products in two orders; a depth decision whose top-two logits lie
+# within 2 CNN_TOL may go either way
+CNN_TOL = 1e-4
+CNN_BATCH = 64           # train_self_distilled's batch of CTUs
+CNN_QPS = (22, 27, 32, 37)   # config 4's rate points (cli/evaluate.py QPS)
 META = {
     "intra_pred": ("csrc/intra_pred.cu", "fasthevc_tpu/ops/intra.py:171"),
     "satd": ("csrc/satd.cu", "fasthevc_tpu/ops/cost.py:26"),
@@ -132,6 +166,11 @@ META = {
     "deblock_cbf": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
     "bi_cost": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
     "inter_pred_bi": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
+    "cnn_depth": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:82"),
+    "cnn_train": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:30"),
+    "cnn_backward": ("csrc/cnn.cu",
+                     "fasthevc_tpu/models/partition_cnn.py:158"),
+    "adam": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:153"),
 }
 
 
@@ -172,11 +211,12 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def _bound(nbytes: float, ops: float) -> tuple:
+def _bound(nbytes: float, ops: float, peak: float = PEAK_INT32_OPS_S
+           ) -> tuple:
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the int32 operations over the int32 peak."""
+    memory rate and the operations over their peak (int32 by default)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -650,9 +690,169 @@ def phase_b_kernels(torch, timed, work):
     torch.cuda.synchronize()
 
 
-def _encode(torch, cfg, clip, device="cuda", plain=False):
+def _cnn_macs(ctu: int, d: int) -> tuple:
+    """(forward, backward) f32 multiply-adds of the partition CNN on one
+    CTU: the five layers' products; the backward takes every weight
+    gradient (as many products as the forward) and the input gradients of
+    Conv_4 to Conv_1 (Conv_3's over its 64 activation channels; Conv_0's
+    input needs none)."""
+    h2, h4, g = ctu // 2, ctu // 4, ctu // 8
+    layers = (h2 * h2 * 16 * 9, h4 * h4 * 32 * 16 * 9, g * g * 64 * 32 * 9,
+              g * g * 64 * 65 * 9, g * g * 64 * d)
+    fwd = sum(layers)
+    return fwd, 2 * fwd + g * g * 64 * 64 * 9 - layers[3] - layers[0]
+
+
+def _cnn_frames(torch, lg: int, frames: int):
+    """Phase 3's first frames, luma edge-padded to the CTU grid: uint8
+    [F, PH, 1920] on the card."""
+    from fasthevc_tpu_torch.utils.video import pad_plane
+    ph = -(-HEIGHT // (1 << lg)) * (1 << lg)
+    return torch.from_numpy(np.stack([
+        pad_plane(np.asarray(f[0], np.int32), ph, WIDTH).astype(np.uint8)
+        for f in _ai_clip()[:frames]])).to("cuda")
+
+
+def _seeded_cnn(torch, lg: int):
+    """A partition CNN of random weights made from a seed, on the card."""
+    from fasthevc_tpu_torch.models import init_params
+    return init_params(torch.Generator().manual_seed(lg), lg, "cuda")
+
+
+def phase_cnn_kernels(torch, errs, timed, work, lib_ms):
+    """Phase 2d: K13 at 1080p (a group of 8 at CTU 32, one frame at CTU
+    64), K13's training mode, K14 and K15 on a training batch of 64
+    CTUs, against their twins; the library calls are the conv2d chain
+    (cuDNN, TF32 off), its backward and torch.optim.Adam."""
+    from fasthevc_tpu_torch.ops import cnn
+
+    for lg, frames in ((5, GROUP), (6, 1)):
+        ctu, d = 1 << lg, lg - 2
+        y = _cnn_frames(torch, lg, frames)
+        theta = _seeded_cnn(torch, lg).flat_params()
+        layers = cnn.unflatten(theta, d)
+        got = cnn.cnn_depth(y, theta, QP, lg)
+        want = cnn.cnn_depth(y, theta, QP, lg, plain=True)
+        x = cnn.ctu_batch(y, ctu)
+        q = torch.full((x.shape[0],), float(QP), device="cuda")
+        lk, _ = cnn.cnn_train_forward(x[:, 0], q, theta)
+        lp = cnn.logits_plain(x, q, layers)
+        err = (lk - lp).abs().max().item()
+        if err > CNN_TOL:
+            raise AssertionError(f"K13 CTU {ctu}: logits differ from the "
+                                 f"twin's by {err:.3g}")
+        top2 = torch.topk(lp, 2, dim=-1).values
+        sure = cnn._granule_map(top2[..., 0] - top2[..., 1] > 2 * CNN_TOL,
+                                frames, y.shape[1], WIDTH, ctu)
+        if not torch.equal(got[sure], want[sure]):
+            raise AssertionError(f"K13 CTU {ctu}: depth differs from the "
+                                 f"twin's beyond the margin")
+        ms = _median_ms(lambda: cnn.cnn_depth(y, theta, QP, lg))
+        plain_ms = _median_ms(lambda: cnn.cnn_depth(y, theta, QP, lg,
+                                                    plain=True))
+        library = _median_ms(lambda: cnn.logits_plain(x, q, layers))
+        # luma in and the weights read once, the int16 map written; f32
+        # multiply-adds as two operations
+        w = (y.numel() + 4 * theta.numel() + 2 * (y.numel() // 64),
+             2 * x.shape[0] * _cnn_macs(ctu, d)[0], PEAK_F32_FLOPS_S)
+        b_ms, b_by = _bound(*w)
+        hist = torch.bincount(got.flatten().long(), minlength=d).tolist()
+        print(f"kernel cnn_depth CTU {ctu}, {frames} 1080p frame(s) "
+              f"({x.shape[0]} CTUs): {ms:.4f} ms, plain twin {plain_ms:.4f} "
+              f"ms, conv2d chain {library:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); logits max err {err:.3g}, "
+              f"{sure.float().mean().item():.5f} of the granules beyond "
+              f"2 CNN_TOL, depth histogram {hist}")
+        if lg == 5:
+            timed["cnn_depth"], work["cnn_depth"] = (ms, plain_ms), w
+            lib_ms["cnn_depth"], errs["cnn_depth"] = library, err
+
+    # one training batch of CTU 32, as train_self_distilled draws it
+    rng = np.random.default_rng(12)
+    p_ = cnn.n_params(3)
+    x = cnn.ctu_batch(_cnn_frames(torch, 5, 1), 32)[:CNN_BATCH, 0]
+    x = x.contiguous()
+    nb = x.shape[0]
+    q = torch.from_numpy(rng.choice([27.0, 37.0], nb)
+                         .astype(np.float32)).to("cuda")
+    t = torch.from_numpy(rng.integers(0, 3, (nb, 4, 4))
+                         .astype(np.int32)).to("cuda")
+    theta = _seeded_cnn(torch, 5).flat_params()
+    layers = cnn.unflatten(theta, 3)
+    lk, acts = cnn.cnn_train_forward(x, q, theta)
+    lp = cnn.logits_plain(x[:, None], q, layers)
+    errs["cnn_train"] = (lk - lp).abs().max().item()
+    if errs["cnn_train"] > CNN_TOL:
+        raise AssertionError("K13's training mode: logits differ from the "
+                             "twin's")
+    timed["cnn_train"] = (
+        _median_ms(lambda: cnn.cnn_train_forward(x, q, theta)),
+        _median_ms(lambda: cnn.logits_plain(x[:, None], q, layers)))
+    lib_ms["cnn_train"] = timed["cnn_train"][1]
+    fwd, bwd = _cnn_macs(32, 3)
+    work["cnn_train"] = (4 * (x.numel() + nb + p_ + lk.numel()
+                              + acts.numel()),
+                         2 * nb * fwd, PEAK_F32_FLOPS_S)
+
+    gk = cnn.cnn_backward(x, q, t, theta, acts, lk)
+    th = theta.clone().requires_grad_(True)
+    loss_p, logits_p = cnn.cnn_loss_plain(th, x, q, t)
+    gp, = torch.autograd.grad(loss_p, th, retain_graph=True)
+    for (wk, bk), (wp, bp) in zip(cnn.unflatten(gk, 3),
+                                  cnn.unflatten(gp, 3)):
+        for a, b in ((wk, wp), (bk, bp)):
+            if (a - b).abs().max().item() > 1e-4 * b.abs().max().item():
+                raise AssertionError("K14: a gradient differs from "
+                                     "autograd's")
+    errs["cnn_backward"] = (gk - gp).abs().max().item()
+    th_lib = theta.clone().requires_grad_(True)
+    ce = torch.nn.functional.cross_entropy(
+        cnn.logits_plain(x[:, None], q, cnn.unflatten(th_lib, 3))
+        .permute(0, 3, 1, 2), t.long())
+    timed["cnn_backward"] = (
+        _median_ms(lambda: cnn.cnn_backward(x, q, t, theta, acts, lk)),
+        _median_ms(lambda: torch.autograd.grad(loss_p, th,
+                                               retain_graph=True)))
+    lib_ms["cnn_backward"] = _median_ms(
+        lambda: torch.autograd.grad(ce, th_lib, retain_graph=True))
+    work["cnn_backward"] = (4 * (x.numel() + nb + t.numel() + p_
+                                 + acts.numel() + lk.numel() + p_),
+                            2 * nb * bwd, PEAK_F32_FLOPS_S)
+
+    bufs = [theta.clone(), torch.zeros_like(theta), torch.zeros_like(theta)]
+    twin = [b.clone() for b in bufs]
+    for step in (1, 2):
+        cnn.adam_update(bufs[0], gk, bufs[1], bufs[2], step, 3e-3)
+        cnn.adam_update(twin[0], gk, twin[1], twin[2], step, 3e-3,
+                        plain=True)
+        for a, b in zip(bufs, twin):
+            _same(torch, "K15", a, b)
+    errs["adam"] = 0.0
+    timed["adam"] = (
+        _median_ms(lambda: cnn.adam_update(bufs[0], gk, bufs[1], bufs[2], 3,
+                                           3e-3)),
+        _median_ms(lambda: cnn.adam_update(twin[0], gk, twin[1], twin[2], 3,
+                                           3e-3, plain=True)))
+    param = torch.nn.Parameter(theta.clone())
+    param.grad = gk.clone()
+    opt = torch.optim.Adam([param], lr=3e-3, betas=(0.9, 0.999), eps=1e-8,
+                           fused=True)
+    lib_ms["adam"] = _median_ms(opt.step)
+    # theta, the gradient and both moments read, theta and the moments
+    # written; about 12 f32 operations an element
+    work["adam"] = (4 * 7 * p_, 12 * p_, PEAK_F32_FLOPS_S)
+    for name in TRAIN_KERNELS:
+        b_ms, b_by = _bound(*work[name])
+        print(f"kernel {name} ({nb} CTUs of 32): "
+              f"{timed[name][0]:.4f} ms, plain twin {timed[name][1]:.4f} ms, "
+              f"library {lib_ms[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}),"
+              f" max abs err {errs[name]:.3g}")
+    torch.cuda.synchronize()
+
+
+def _encode(torch, cfg, clip, device="cuda", plain=False, params=None):
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
-    enc = TorchEncoder(cfg, device, plain=plain)
+    enc = TorchEncoder(cfg, device, plain=plain, partition_params=params)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -683,17 +883,32 @@ def _ai_cfg(frames: int, log2_ctu: int = 5):
                          log2_ctu=log2_ctu)
 
 
-def phase_device_route(torch):
-    """Phase 3; returns (launches, fps)."""
+def _fast(cfg, params):
+    """cfg with fast_partition when the CNN's parameters are given."""
+    return cfg if params is None else cfg.replace(fast_partition=True)
+
+
+def _label(params) -> str:
+    return "full search" if params is None else "fast partition"
+
+
+def _stats(fps: float, stream: bytes, frames: int, psnrs) -> dict:
+    return {"fps": fps, "kbit": len(stream) * 8 / frames / 1000,
+            "psnr": float(np.mean(psnrs))}
+
+
+def phase_device_route(torch, params=None):
+    """Phase 3 (phase 13 with the CNN's parameters); returns (launches,
+    stats)."""
     from fasthevc_tpu_torch import _build
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
 
     clip = _ai_clip()
     warm, timed_clip = clip[:GROUP], clip[GROUP:]
-    cfg = _ai_cfg(TIMED)
+    cfg = _fast(_ai_cfg(TIMED), params)
     tc, tr = cfg.tile_cols, cfg.tile_rows
-    enc = TorchEncoder(cfg, "cuda")
+    enc = TorchEncoder(cfg, "cuda", partition_params=params)
     enc.encode(warm)
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
@@ -701,20 +916,23 @@ def phase_device_route(torch):
     stream, recons = enc.encode(timed_clip)
     dt = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    ry, _, _ = yuv_from_planes((recons[0].y, recons[0].cb, recons[0].cr),
-                               WIDTH, HEIGHT)
-    p = psnr(timed_clip[0][0], ry)
+    ps = []
+    for f, r in zip(timed_clip, recons):
+        ry, _, _ = yuv_from_planes((r.y, r.cb, r.cr), WIDTH, HEIGHT)
+        ps.append(psnr(f[0], ry))
     tm = enc.timing
-    fps = TIMED / dt
-    print(f"device route, 1080p QP32 all-intra, {TIMED} frames, tiles "
-          f"{tc}x{tr}: {fps:.4f} fps, {len(stream) * 8 / TIMED / 1000:.2f} "
-          f"kbit/frame, Y-PSNR {p:.3f} dB; wall {dt:.3f} s; group programs "
-          f"on the card {tm['device_s']:.4f} s (host blocked on them "
-          f"{tm['wait_s']:.4f} s); host CABAC {tm['entropy_s']:.3f} "
-          f"thread-s over the pool")
+    st = _stats(TIMED / dt, stream, TIMED, ps)
+    print(f"device route ({_label(params)}), 1080p QP32 all-intra, {TIMED} "
+          f"frames, tiles {tc}x{tr}: {st['fps']:.4f} fps, "
+          f"{st['kbit']:.2f} kbit/frame, Y-PSNR {st['psnr']:.3f} dB; wall "
+          f"{dt:.3f} s; group programs on the card {tm['device_s']:.4f} s "
+          f"(host blocked on them {tm['wait_s']:.4f} s); host CABAC "
+          f"{tm['entropy_s']:.3f} thread-s over the pool")
     print(f"launches in the timed device-route encode: {launches}")
-    _require(launches, INTRA_ROUTE, "all-intra device-route encode")
-    return launches, fps
+    _require(launches, INTRA_ROUTE + (() if params is None
+                                      else ("cnn_depth",)),
+             f"all-intra device-route encode ({_label(params)})")
+    return launches, st
 
 
 def _twin_route(torch, cfg, clip, what: str) -> str:
@@ -828,15 +1046,17 @@ def _ldp_cfg(frames: int):
                        hash_type=2)
 
 
-def phase_ldp_route(torch):
-    """Phase 7; returns the launches of the timed encode."""
+def phase_ldp_route(torch, params=None):
+    """Phase 7 (phase 13 with the CNN's parameters); returns (the launches
+    of the timed encode, stats)."""
     from fasthevc_tpu_torch import _build
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
 
     clip = _ldp_clip()
     n = len(clip)
-    enc = TorchEncoder(_ldp_cfg(n), "cuda")
+    enc = TorchEncoder(_fast(_ldp_cfg(n), params), "cuda",
+                       partition_params=params)
     enc.encode(clip[:3])                   # warm-up: I + 2 P
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
@@ -850,28 +1070,33 @@ def phase_ldp_route(torch):
         ry, _, _ = yuv_from_planes((r.y, r.cb, r.cr), WIDTH, HEIGHT)
         ps.append(psnr(f[0], ry))
     batches = enc.spans
-    print(f"low-delay P device route, 1080p QP32 SR {SR}, 1 I + "
-          f"{LDP_TIMED_P} P frames: {n / dt:.4f} fps, "
-          f"{len(stream) * 8 / n / 1000:.2f} kbit/frame, Y-PSNR "
-          f"{np.mean(ps):.3f} dB (I {ps[0]:.3f}, P mean "
+    st = _stats(n / dt, stream, n, ps)
+    print(f"low-delay P device route ({_label(params)}), 1080p QP32 SR "
+          f"{SR}, 1 I + {LDP_TIMED_P} P frames: {st['fps']:.4f} fps, "
+          f"{st['kbit']:.2f} kbit/frame, Y-PSNR "
+          f"{st['psnr']:.3f} dB (I {ps[0]:.3f}, P mean "
           f"{np.mean(ps[1:]):.3f}); wall {dt:.3f} s; batches on the card "
           f"{tm['device_s']:.4f} s (I {batches[0]:.4f} s, P mean "
           f"{np.mean(batches[1:]):.4f} s), host blocked on them "
           f"{tm['wait_s']:.4f} s; host CABAC {tm['entropy_s']:.3f} "
           f"thread-s")
     print(f"launches in the timed low-delay P encode: {launches}")
-    _require(launches, LDP_ROUTE, "low-delay P encode")
-    return launches
+    _require(launches, LDP_ROUTE + (() if params is None
+                                    else ("cnn_depth",)),
+             f"low-delay P encode ({_label(params)})")
+    return launches, st
 
 
-def phase_ra_route(torch):
-    """Phase 10; returns the launches of the timed encode."""
+def phase_ra_route(torch, params=None):
+    """Phase 10 (phase 13 with the CNN's parameters); returns (the launches
+    of the timed encode, stats)."""
     from fasthevc_tpu_torch import _build
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
 
     clip = _ra_clip()
-    enc = TorchEncoder(_ra_cfg(RA_FRAMES), "cuda")
+    enc = TorchEncoder(_fast(_ra_cfg(RA_FRAMES), params), "cuda",
+                       partition_params=params)
     enc.encode(clip)                       # warm-up: the same 17 frames
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
@@ -885,17 +1110,150 @@ def phase_ra_route(torch):
         ry, _, _ = yuv_from_planes((r.y, r.cb, r.cr), WIDTH, HEIGHT)
         ps.append(psnr(f[0], ry))
     spans = ", ".join(f"{v:.4f}" for v in enc.spans)
-    print(f"random-access device route, 1080p QP32 SR {SR}, 1 I + "
-          f"{RA_FRAMES - 1} B frames: {RA_FRAMES / dt:.4f} fps, "
-          f"{len(stream) * 8 / RA_FRAMES / 1000:.2f} kbit/frame, Y-PSNR "
-          f"{np.mean(ps):.3f} dB (I {ps[0]:.3f}, B mean "
+    st = _stats(RA_FRAMES / dt, stream, RA_FRAMES, ps)
+    print(f"random-access device route ({_label(params)}), 1080p QP32 SR "
+          f"{SR}, 1 I + {RA_FRAMES - 1} B frames: {st['fps']:.4f} fps, "
+          f"{st['kbit']:.2f} kbit/frame, Y-PSNR "
+          f"{st['psnr']:.3f} dB (I {ps[0]:.3f}, B mean "
           f"{np.mean(ps[1:]):.3f}); wall {dt:.3f} s; {len(enc.spans)} "
           f"batches on the card {tm['device_s']:.4f} s (spans {spans} s), "
           f"host blocked on them {tm['wait_s']:.4f} s; host CABAC "
           f"{tm['entropy_s']:.3f} thread-s")
     print(f"launches in the timed random-access encode: {launches}")
-    _require(launches, RA_ROUTE, "random-access encode")
+    _require(launches, RA_ROUTE + (() if params is None
+                                   else ("cnn_depth",)),
+             f"random-access encode ({_label(params)})")
+    return launches, st
+
+
+def params_path() -> str:
+    """Where phase 12 leaves the trained parameters for the jobs (under the
+    git-ignored build directory)."""
+    from fasthevc_tpu_torch import _build
+    return os.path.join(_build.BUILD_DIR, "partition_cnn_smoke.pkl")
+
+
+def phase_train(torch):
+    """Phase 12: config 4's training recipe on the card; returns (the
+    parameter tree, the launches of the training)."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.models import save_params, train_self_distilled
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    params = train_self_distilled(qps=(27, 37), steps=400, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"train_self_distilled(qps=(27, 37), steps=400) on the card: "
+          f"{dt:.2f} s wall (targets from the port's intra search, then "
+          f"400 steps of K13's training mode, K14 and K15)")
+    print(f"launches in the training: {launches}")
+    _require(launches, SEARCH_KERNELS + TRAIN_KERNELS, "training")
+    save_params(params, params_path())
+    return params, launches
+
+
+def phase_fast_routes(torch, params, full: dict) -> dict:
+    """Phase 13's timed encodes: phases 3, 7 and 10 with fast_partition,
+    beside the full search's stats; returns the summed launches."""
+    launches: dict = {}
+    for name, phase in (("all-intra", phase_device_route),
+                        ("low-delay P", phase_ldp_route),
+                        ("random access", phase_ra_route)):
+        torch.cuda.empty_cache()
+        got, st = phase(torch, params)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ref = full[name]
+        print(f"{name} 1080p QP32, fast partition vs full search: "
+              f"{st['fps']:.4f} vs {ref['fps']:.4f} fps, {st['kbit']:.2f} "
+              f"vs {ref['kbit']:.2f} kbit/frame, Y-PSNR {st['psnr']:.3f} vs "
+              f"{ref['psnr']:.3f} dB")
     return launches
+
+
+def job_config4(torch) -> dict:
+    """BASELINE config 4 (fasthevc_tpu/cli/evaluate.py:136-163) on the
+    card: 416x240, 4 frames, the rate points of CNN_QPS with the full
+    search and with the trained CNN, every stream hash-clean; the BD-rate
+    of fast against full by the port's utils.bd_rate."""
+    from fasthevc_tpu_torch.config import EncoderConfig
+    from fasthevc_tpu_torch.models import load_params
+    from fasthevc_tpu_torch.utils import (bd_rate, psnr, synthesize_yuv,
+                                          yuv_from_planes)
+
+    params = load_params(params_path())
+    w, h, n = 416, 240, 4
+    frames = synthesize_yuv(w, h, n, seed=4)
+    curves = {}
+    for label, p in (("full", None), ("fast", params)):
+        rates, psnrs = [], []
+        for qp in CNN_QPS:
+            cfg = _fast(EncoderConfig(width=w, height=h, frames=n, qp=qp), p)
+            stream, recons, _, _ = _encode(torch, cfg, frames, params=p)
+            if not _decode_clean(stream, n):
+                raise AssertionError(f"config 4 {label} QP{qp}: the stream "
+                                     f"does not decode hash-clean")
+            rates.append(len(stream) * 8)
+            psnrs.append(float(np.mean([
+                psnr(f[0], yuv_from_planes((r.y, r.cb, r.cr), w, h)[0])
+                for f, r in zip(frames, recons)])))
+        curves[label] = (rates, psnrs)
+    bd = bd_rate(*curves["full"], *curves["fast"])
+    pts = "; ".join(
+        f"QP{qp}: full {curves['full'][0][i] / n / 1000:.2f} kbit/frame "
+        f"{curves['full'][1][i]:.3f} dB, fast "
+        f"{curves['fast'][0][i] / n / 1000:.2f} kbit/frame "
+        f"{curves['fast'][1][i]:.3f} dB" for i, qp in enumerate(CNN_QPS))
+    return {"bd_rate_pct": bd,
+            "log": f"config 4 (416x240, {n} frames, fast vs full, every "
+                   f"stream hash-clean): BD-rate {bd:+.4f}% (the gate is "
+                   f"<= 2%: {'within' if bd <= 2.0 else 'outside'} it; a "
+                   f"measurement, not a pass or fail); {pts}"}
+
+
+def _fast_small(torch, route: str):
+    """The 416x240 fast-partition checks: (config, frames, parameters)."""
+    from fasthevc_tpu_torch.config import EncoderConfig, random_access_gop16
+    from fasthevc_tpu_torch.models import load_params, params_to_flax
+
+    if route == "pipelined (CTU 64)":
+        cnn64 = params_to_flax(_seeded_cnn(torch, 6).cpu())
+        return (EncoderConfig(width=416, height=240, qp=QP, frames=2,
+                              log2_ctu=6, fast_partition=True), 2, cnn64)
+    params = load_params(params_path())
+    if route == "all-intra":
+        return (EncoderConfig(width=416, height=240, qp=QP, frames=2,
+                              fast_partition=True), 2, params)
+    return (random_access_gop16(width=416, height=240, qp=QP,
+                                frames=RA_FRAMES, fast_partition=True),
+            RA_FRAMES, params)
+
+
+def job_fast_small(torch, route: str) -> dict:
+    """A 416x240 fast-partition clip through the kernels on the card (K13
+    launched) and through the twins on the CPU: identical streams that
+    decode hash-clean."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+
+    cfg, frames, params = _fast_small(torch, route)
+    clip = synthesize_yuv(416, 240, frames, seed=3)
+    _build.LAUNCHES.clear()
+    stream = _encode(torch, cfg, clip, params=params)[0]
+    if _build.LAUNCHES["cnn_depth"] <= 0:
+        raise AssertionError(f"416x240 fast {route}: K13 was not launched")
+    if _encode(torch, cfg, clip, device="cpu", params=params)[0] != stream:
+        raise AssertionError(f"416x240 fast {route}: the card's stream "
+                             f"differs from the CPU twins'")
+    if not _decode_clean(stream, frames):
+        raise AssertionError(f"416x240 fast {route}: the stream does not "
+                             f"decode hash-clean")
+    return {"log": f"416x240 fast-partition {route}: {len(stream)} bytes, "
+                   f"equal to the CPU twins' stream, {frames} pictures "
+                   f"hash_ok"}
 
 
 def profile_route(torch, label, clip, cfg, warm) -> None:
@@ -987,7 +1345,8 @@ def job_k5_mixed(torch) -> dict:
 
 # Checks that run the twins, each in its own process (the twins are bound
 # by the host's launches and Python, so they overlap): phase 2's K5
-# twins, 4, 5 and 6's 416x240 check, 8, 9 and 11.
+# twins, 4, 5 and 6's 416x240 check, 8, 9, 11, and phase 13's config 4
+# and 416x240 fast-partition checks (these read phase 12's parameters).
 JOBS = {
     "k5-intra": job_k5_intra,
     "k5-mixed": job_k5_mixed,
@@ -1002,6 +1361,11 @@ JOBS = {
     "small-ldp": lambda torch: job_small(torch, "low-delay P", "cpu"),
     "small-ra-card": lambda torch: job_small(torch, "random-access", "card"),
     "small-ra-cpu": lambda torch: job_small(torch, "random-access", "cpu"),
+    "config4": job_config4,
+    "fast-small-ai": lambda torch: job_fast_small(torch, "all-intra"),
+    "fast-small-ra": lambda torch: job_fast_small(torch, "random-access"),
+    "fast-small-pipelined": lambda torch: job_fast_small(
+        torch, "pipelined (CTU 64)"),
 }
 
 
@@ -1077,6 +1441,7 @@ def main() -> int:
     errs = {name: 0.0 for name in META}
     timed: dict = {}
     work: dict = {}
+    lib_ms = {name: None for name in META}
     y, c = _kernel_inputs(torch, dev)
     phase_search_kernels(torch, y, c, errs, timed, work)
     phase_pixel_kernels(torch, y, c, _intra_sp(), timed, work)
@@ -1084,25 +1449,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_inter_kernels(torch, timed, work)
     phase_b_kernels(torch, timed, work)
+    torch.cuda.empty_cache()
+    phase_cnn_kernels(torch, errs, timed, work, lib_ms)
     _stamp(t_start, "phase 2 (kernels; K5's twins run in the jobs)")
     # the timed encodes first, alone on the card and the host
     torch.cuda.empty_cache()
-    launches, fps = phase_device_route(torch)
-    phase_pipelined_route(torch, fps)
+    full = {}
+    launches, full["all-intra"] = phase_device_route(torch)
+    phase_pipelined_route(torch, full["all-intra"]["fps"])
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_ldp_route(torch).items()
-                     if k in P_KERNELS})
+    got, full["low-delay P"] = phase_ldp_route(torch)
+    launches.update({k: v for k, v in got.items() if k in P_KERNELS})
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_ra_route(torch).items()
-                     if k in B_KERNELS})
+    got, full["random access"] = phase_ra_route(torch)
+    launches.update({k: v for k, v in got.items() if k in B_KERNELS})
     _stamp(t_start, "phases 3, 6, 7, 10 (the timed encodes)")
+    torch.cuda.empty_cache()
+    params, got = phase_train(torch)
+    launches.update({k: v for k, v in got.items() if k in TRAIN_KERNELS})
+    _stamp(t_start, "phase 12 (training)")
+    got = phase_fast_routes(torch, params, full)
+    launches["cnn_depth"] = got["cnn_depth"]
+    _stamp(t_start, "phase 13's timed fast-partition encodes")
     torch.cuda.empty_cache()
     jobs = _run_jobs(t_start)
     if jobs["small-ra-card"]["sha"] != jobs["small-ra-cpu"]["sha"]:
         raise AssertionError("416x240 random-access: the kernel streams of "
                              "the two checks differ")
     _stamp(t_start, "phases 2a/2b's K5 twins, 4, 5, 6's 416x240, 8, 9, 11 "
-           "(the twin jobs, in parallel)")
+           "and 13's config 4 and 416x240 checks (the jobs, in parallel)")
     timed["commit_intra"] = (timed["commit_intra"][0],
                              jobs["k5-intra"]["twin_ms"])
     timed["commit_mixed"] = (timed["commit_mixed"][0],
@@ -1111,22 +1486,27 @@ def main() -> int:
     for name in META:
         ms, plain_ms = timed[name]
         b_ms, b_by = bounds[name]
+        lib = ("" if lib_ms[name] is None
+               else f", library {lib_ms[name]:.4f} ms")
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by}){lib}")
     print("(phase 2a: 1080p group-of-8 shapes, K1-K4 at n=8, commit_intra "
           f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
           "frame, SR 64, two references, ME and MC on the 8-blocks, "
           "commit_mixed with RDOQ; phase 2c: one 1080p B frame, two "
           "references per list, bi_cost on the 8-blocks, inter_pred_bi on "
-          "its B decisions; the K5 twins' times were taken beside the "
-          "other twin jobs)")
+          "its B decisions; phase 2d: cnn_depth on the 1080p group of 8 "
+          f"at CTU 32, cnn_train, cnn_backward and adam on {CNN_BATCH} "
+          "CTUs of 32; the K5 twins' times were taken beside the other "
+          "twin jobs; cnn_depth's launches are phase 13's three timed "
+          "encodes', the training kernels' phase 12's)")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fasthevc_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name], "max_abs_err": errs[name],
                 "ms": timed[name][0], "plain_ms": timed[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": None}
+                "library_ms": lib_ms[name]}
                for name, (src, rep) in META.items()]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

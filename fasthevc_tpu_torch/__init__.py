@@ -18,9 +18,11 @@ copies, so that it imports nothing of `fasthevc_tpu` (and no JAX):
     library: `build/fasthevc_tpu_torch/`, keyed by a hash of the sources.
 A fix to one of these layers is made in both packages.
 
-Slices ported so far: the all-intra encode on both of TpuEncoder's routes
-and the low-delay P encode on the device route
-(`codec.encoder.TorchEncoder`).
+Slices ported so far (`codec.encoder.TorchEncoder`): the all-intra encode
+on both of TpuEncoder's routes, the low-delay P and random-access encodes
+on the device route, and the fast-partition path on every one of them
+(`models/`: the partition CNN, fused into the searches, and its
+self-distilled training).
 """
 
 import torch

@@ -78,6 +78,14 @@ _SIGNATURES = {
     # src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls, pbi, cbi, R, H,
     # W, n, stream
     "fhv_bi_cost": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],
+    # plane, dtype, qv, qp, theta, depth, logits, acts, F, PH, PW, log2_ctu,
+    # stream
+    "fhv_cnn_fwd": [_P, _I, _P, _F, _P, _P, _P, _P] + [_I] * 4 + [_P],
+    # x, qv, labels, theta, acts, logits, partial, grad, B, log2_ctu, inv_n,
+    # stream
+    "fhv_cnn_bwd": [_P] * 8 + [_I, _I, _F, _P],
+    # theta, grad, m, v, P, lr, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2, stream
+    "fhv_adam": [_P] * 4 + [_I] + [_F] * 8 + [_P],
 }
 
 _lib = None

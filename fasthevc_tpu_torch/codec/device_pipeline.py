@@ -10,7 +10,8 @@ its intra candidates, K9 integer ME, K10 sub-pel, K11 merge-candidate MC,
 K12 the bi-prediction cost of B), exact MC of the decided motion (K11,
 bi-predicted where B chose it), the mixed wavefront commit (K5),
 deblocking with both lists' boundary strengths (K6), SAO and the
-checksum.  The JAX
+checksum.  On the fast-partition path the partition CNN (K13) runs once
+per batch and its depth maps replace the search's splits.  The JAX
 package's int8 level packing with its overflow flag and its search
 micro-batches exist for the TPU's host link and memory; the port returns
 the int16 levels and runs the search over the whole group.
@@ -127,7 +128,8 @@ def encode_group_device(y, cb, cr, lambda_sqrt: float, qp_y: int, qp_cb: int,
                         sdh: bool, deblock_on: bool, sao_on: bool,
                         tile_bounds_x: tuple = (), tile_bounds_y: tuple = (),
                         rd_cands: int = 3, rdoq: bool = False,
-                        checksum: bool = True, plain: bool = False) -> dict:
+                        checksum: bool = True, plain: bool = False,
+                        cnn=None, qp: int = 0) -> dict:
     """Search + exact commit + filters for F intra frames.
 
     y: [F, PH, PW] uint8 (CTU-padded), cb/cr: [F, PH/2, PW/2].  Returns a
@@ -135,11 +137,13 @@ def encode_group_device(y, cb, cr, lambda_sqrt: float, qp_y: int, qp_cb: int,
     lv_y/lv_cb/lv_cr int16 levels and rec_y/rec_cb/rec_cr uint8 recon in
     coded dims, sao [F, ny, nx, 3, 7] int32 (zeros when SAO is off) and,
     with `checksum`, cksum [F, 3] int64.  plain=True runs every kernel's
-    twin instead."""
+    twin instead.  cnn, qp: the partition CNN of the fast-partition path
+    and the qp it is fed (device_pipeline.py:78-95)."""
     gh, gw = coded_h >> 3, coded_w >> 3
     packed = search_intra_maps_batch(
         y, lambda_sqrt, log2_ctu, log2_min_cu, coded_w, coded_h,
-        cb_batch=cb, cr_batch=cr, rd_cands=rd_cands, plain=plain)
+        cb_batch=cb, cr_batch=cr, rd_cands=rd_cands, plain=plain, cnn=cnn,
+        qp=qp)
     dm = packed[:, :gh, :gw, 0].to(torch.int32)
     mm = packed[:, :gh, :gw, 1].to(torch.int32)
     ch, cw = coded_h // 2, coded_w // 2
@@ -164,7 +168,8 @@ def encode_inter_group_device(y, cb, cr, r0_y, r0_cb, r0_cr, lambda_sqrt,
                               tile_bounds_y: tuple = (), rd_cands: int = 3,
                               nref0=None, rdoq: bool = False,
                               checksum: bool = True, plain: bool = False,
-                              r1=None, nref1=None) -> dict:
+                              r1=None, nref1=None, cnn=None,
+                              qp: int = 0) -> dict:
     """Search + MC + mixed exact commit + filters for F P frames, or F B
     frames when r1 is given (device_pipeline.py:170).
 
@@ -177,7 +182,9 @@ def encode_inter_group_device(y, cb, cr, r0_y, r0_cb, r0_cr, lambda_sqrt,
     so a batch may mix temporal layers.  The trellis tables are those of
     init_type 1 for B frames too, as the reference builds them
     (commit.py:590), although CABAC codes B slices with init_type 2.
-    Returns the dict of encode_group_device."""
+    cnn, qp: the partition CNN and the one qp it is fed for the whole
+    batch (device_pipeline.py:180-241).  Returns the dict of
+    encode_group_device."""
     f, ph, pw = y.shape
     gh, gw = coded_h >> 3, coded_w >> 3
     nref0 = [2] * f if nref0 is None else [int(v) for v in nref0]
@@ -190,7 +197,7 @@ def encode_inter_group_device(y, cb, cr, r0_y, r0_cb, r0_cr, lambda_sqrt,
             r.to(torch.int32), (0, pw - coded_w, 0, ph - coded_h),
             mode="replicate")
 
-    common = dict(rd_cands=rd_cands, plain=plain)
+    common = dict(rd_cands=rd_cands, plain=plain, cnn=cnn, qp=qp)
     if r1 is None:
         packed = search_p_maps(y, pad(r0_y), lams, log2_ctu, log2_min_cu,
                                coded_w, coded_h, search_range, nref=nref0,

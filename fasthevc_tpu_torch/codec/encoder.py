@@ -18,8 +18,10 @@ TpuEncoder routes:
     or B frames through `device_pipeline.encode_inter_group_device` with
     the references in a DPB on the device, I frames through
     `encode_group_device`, CABAC with TMVP on the host.
-Given the same config and frames, the stream is the one TpuEncoder writes
-on the same route.
+With `fast_partition` every route's search takes the partition CNN's
+depth maps (kernel K13, one launch per batch) in place of its split
+decisions, as TpuEncoder's routes do.  Given the same config, frames and
+CNN, the stream is the one TpuEncoder writes on the same route.
 
 Every other route (the classic per-frame P/B loop, rate control, ...)
 raises NotImplementedError naming the ROADMAP.md item that ports it;
@@ -54,6 +56,7 @@ from ..spec.syntax import (
 )
 from ..utils.video import HASH_CHECKSUM, pad_plane, picture_hash
 
+from ..models.partition_cnn import as_partition_cnn
 from .device_pipeline import (device_path_ok, encode_group_device,
                               encode_inter_group_device)
 from .search import search_intra_maps_batch
@@ -82,14 +85,17 @@ class TorchEncoder:
     cfg: the port's EncoderConfig.  device: where the device work runs
     ("cuda" launches the hand-written kernels; "cpu" runs their plain
     twins).  plain=True runs the twins on any device, to hold the kernels
-    against them.  `timing` holds the phase times of the last encode:
+    against them.  partition_params: the partition CNN of
+    `cfg.fast_partition` (a parameter tree of either package, as
+    models.load_params returns it, or a models.PartitionCNN), converted
+    once to the device.  `timing` holds the phase times of the last encode:
     device_s, wait_s, entropy_s and wall_s on the device routes; search_s,
     wait_s, commit_s and wall_s on the pipelined route; `spans` each
     batch's time on the device.
     """
 
     def __init__(self, cfg: EncoderConfig, device="cuda",
-                 plain: bool = False) -> None:
+                 plain: bool = False, partition_params=None) -> None:
         if not isinstance(cfg, EncoderConfig):
             raise TypeError("TorchEncoder takes fasthevc_tpu_torch.config."
                             f"EncoderConfig, not {type(cfg).__module__}."
@@ -119,8 +125,15 @@ class TorchEncoder:
         if cfg.rqt_intra:
             raise NotImplementedError("depth-1 intra RQT runs on the spec "
                                       "tier: use SpecEncoder")
+        # the learned fast-partition model: its depth maps replace the
+        # search's split decisions (encoder.py:99-103)
+        self.cnn = None
         if cfg.fast_partition:
-            raise _unported("fast_partition (the partition CNN)", "10")
+            if partition_params is None:
+                raise ValueError("fast_partition requires partition_params "
+                                 "(train via models.train_self_distilled)")
+            self.cnn = as_partition_cnn(partition_params, self.device,
+                                        self.sp.log2_ctu)
         if cfg.lossless:
             raise _unported("lossless", "11")
         if cfg.search_recon_refs:
@@ -306,7 +319,7 @@ class TorchEncoder:
                 sp.coded_height, bool(sp.sign_data_hiding),
                 not sp.deblocking_disabled, sao_on, tbx, tby,
                 rd_cands=cfg.num_intra_rd_candidates, rdoq=bool(cfg.rdoq),
-                checksum=cksum_hash, plain=self.plain)
+                checksum=cksum_hash, plain=self.plain, cnn=self.cnn, qp=qp)
 
         def emit_frame(res, i, j, _):
             depth = np.ascontiguousarray(res["packed"][j, :gh, :gw, 0]
@@ -365,7 +378,7 @@ class TorchEncoder:
                 ys, self.lambda_sqrt, sp.log2_ctu, sp.log2_min_cu,
                 sp.coded_width, sp.coded_height, cb_batch=cbs, cr_batch=crs,
                 rd_cands=self.cfg.num_intra_rd_candidates,
-                plain=self.plain)}
+                plain=self.plain, cnn=self.cnn, qp=self.cfg.qp)}
 
         def commit(res, i, j, _):
             # every all-intra frame is an IDR: CVS-local POC is 0
@@ -523,7 +536,11 @@ class TorchEncoder:
                           tile_bounds_x=tbx, tile_bounds_y=tby,
                           rd_cands=cfg.num_intra_rd_candidates,
                           rdoq=bool(cfg.rdoq), checksum=cksum_hash,
-                          plain=self.plain)
+                          plain=self.plain, cnn=self.cnn,
+                          # the CNN's qp feature is the batch's first
+                          # picture's for every picture of the batch
+                          # (encoder.py:723, 767-769)
+                          qp=batch[0].qp)
             if batch[0].st == SLICE_I:
                 qp = batch[0].qp
                 qy, qcb, qcr = qps_of(qp)

@@ -13,6 +13,9 @@ dead-zone offset; the DP then runs over the per-block minimum.  B frames
 run one ME state over both lists' references, the P candidates per list,
 and the bi-prediction of the two lists' winners costed by K12; the
 direction is chosen in the SATD domain before the one inter RD leaf.
+With a partition CNN (the fast-partition path) every batch's packing
+takes the CNN's depth maps (K13) in place of the DP's splits; the search
+itself runs whole, as the reference runs it.
 
 The f32 costs are built with the same operations, in the same order, as
 the JAX search, so both take the same decisions.  `plain=True` runs the
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import cost, intra, me, per_frame, transform
+from ..ops.cnn import cnn_depth
 
 # Bit proxies of the CU syntax (fasthevc_tpu/codec/search.py).
 CU_OVERHEAD_BITS = 3.0
@@ -399,14 +403,17 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
 
 def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
                coded_w: int, coded_h: int, log2_ctu: int,
-               log2_min_cu: int) -> torch.Tensor:
+               log2_min_cu: int, depth_override=None) -> torch.Tensor:
     """Fold the per-size decisions into packed int16 [F, ph/8, pw/8, 9]
     maps = (depth, mode, dir, mv0x, mv0y, mv1x, mv1y, ref0, ref1), as
     fasthevc_tpu/codec/search.py _pack_maps_device does.  An inter
     search's entries carry inter{n}, dir{n}, mv0{n}, mv1{n}, ref0{n} and
     ref1{n}; the MVs are stored whatever the direction (the recorded TMVP
     motion reads them).  Inter CUs get mode -1.  Blocks that overflow the
-    coded picture split whatever the DP chose."""
+    coded picture split whatever the DP chose.  depth_override: the
+    partition CNN's [F, ph/8, pw/8] granule depth map, which replaces the
+    DP's split{n}: an n-block of depth d splits when the largest depth
+    over it exceeds d (search.py:586-595)."""
     gw, gh = padded_w >> 3, padded_h >> 3
     sizes = [1 << lg for lg in range(log2_ctu, log2_min_cu - 1, -1)]
     dev = dec[f"mode{sizes[0]}"].device
@@ -440,7 +447,13 @@ def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
     depth = torch.zeros((f, gh, gw), dtype=i16, device=dev)
     mode, dir_m, mv, ref = level_maps(sizes[0])
     for d, n in enumerate(sizes[:-1]):
-        split = grid(f"split{n}", n) > 0
+        if depth_override is None:
+            split = grid(f"split{n}", n) > 0
+        else:
+            g = n >> 3
+            rm = depth_override.reshape(f, padded_h // n, g, padded_w // n,
+                                        g).amax(dim=(2, 4))
+            split = up(rm > d, n)
         active = (depth == d) & (split | forced(n))
         cmode, cdir, cmv, cref = level_maps(sizes[d + 1])
         depth = torch.where(active, d + 1, depth).to(i16)
@@ -456,30 +469,45 @@ def _pack_maps(dec: dict, f: int, padded_w: int, padded_h: int,
     return torch.cat([depth[..., None], mode[..., None], rest], dim=-1)
 
 
+def _cnn_override(y_batch: torch.Tensor, cnn, qp, log2_ctu: int,
+                  plain: bool):
+    """The partition CNN's granule depth maps of the batch's padded luma
+    (K13, one launch for the F frames), or None without a CNN."""
+    if cnn is None:
+        return None
+    return cnn_depth(y_batch, cnn.flat_params(), qp, log2_ctu, plain=plain)
+
+
 def search_intra_maps_batch(y_batch: torch.Tensor, lambda_sqrt: float,
                             log2_ctu: int, log2_min_cu: int, coded_w: int,
                             coded_h: int, cb_batch=None, cr_batch=None,
-                            rd_cands: int = 3,
-                            plain: bool = False) -> torch.Tensor:
+                            rd_cands: int = 3, plain: bool = False,
+                            cnn=None, qp=0) -> torch.Tensor:
     """Multi-frame intra search: [F, H, W] padded luma (uint8 or int32)
-    -> [F, H/8, W/8, 9] int16 packed decision maps."""
+    -> [F, H/8, W/8, 9] int16 packed decision maps.  cnn: a
+    models.PartitionCNN on the batch's device, whose depth maps at `qp`
+    replace the DP's splits (the fast-partition path, search.py:622-624)."""
     y = y_batch.to(torch.int32)
     cb = None if cb_batch is None else cb_batch.to(torch.int32)
     cr = None if cr_batch is None else cr_batch.to(torch.int32)
     dec = search_intra_frames(y, lambda_sqrt, log2_ctu, log2_min_cu, cb, cr,
                               rd_cands, plain)
     f, h, w = y.shape
-    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)
+    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
+                      _cnn_override(y_batch, cnn, qp, log2_ctu, plain))
 
 
 def search_p_maps(y_batch: torch.Tensor, refs: torch.Tensor, lambda_sqrt,
                   log2_ctu: int, log2_min_cu: int, coded_w: int,
                   coded_h: int, search_range: int, nref=None,
-                  rd_cands: int = 3, plain: bool = False) -> torch.Tensor:
+                  rd_cands: int = 3, plain: bool = False, cnn=None,
+                  qp=0) -> torch.Tensor:
     """P search of F frames (search.py:682, one frame at a time): y_batch
     [F, H, W] padded luma, refs [F, R, H, W] its references edge-padded to
     the same size, lambda_sqrt and nref scalars or per-frame sequences.
-    Returns packed [F, H/8, W/8, 9] int16 maps."""
+    cnn, qp: the fast-partition override of search_intra_maps_batch (one
+    K13 launch for the batch, search.py:700-702).  Returns packed
+    [F, H/8, W/8, 9] int16 maps."""
     f, h, w = y_batch.shape
     lams, nrefs = per_frame(lambda_sqrt, f), per_frame(nref, f)
     decs = [search_p_frame(y_batch[i].to(torch.int32),
@@ -487,18 +515,22 @@ def search_p_maps(y_batch: torch.Tensor, refs: torch.Tensor, lambda_sqrt,
                            log2_min_cu, search_range, rd_cands, nrefs[i],
                            plain) for i in range(f)]
     dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
-    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)
+    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
+                      _cnn_override(y_batch, cnn, qp, log2_ctu, plain))
 
 
 def search_b_maps(y_batch: torch.Tensor, refs0: torch.Tensor,
                   refs1: torch.Tensor, lambda_sqrt, log2_ctu: int,
                   log2_min_cu: int, coded_w: int, coded_h: int,
                   search_range: int, nref0=None, nref1=None,
-                  rd_cands: int = 3, plain: bool = False) -> torch.Tensor:
+                  rd_cands: int = 3, plain: bool = False, cnn=None,
+                  qp=0) -> torch.Tensor:
     """B search of F frames (search.py:710, one frame at a time): y_batch
     [F, H, W] padded luma, refs0/refs1 [F, R, H, W] each list's references
     edge-padded to the same size, lambda_sqrt, nref0 and nref1 scalars or
-    per-frame sequences.  Returns packed [F, H/8, W/8, 9] int16 maps."""
+    per-frame sequences.  cnn, qp: the fast-partition override of
+    search_intra_maps_batch (search.py:729-731).  Returns packed
+    [F, H/8, W/8, 9] int16 maps."""
     f, h, w = y_batch.shape
     lams, n0s, n1s = (per_frame(v, f) for v in (lambda_sqrt, nref0, nref1))
     decs = [search_b_frame(y_batch[i].to(torch.int32),
@@ -507,4 +539,5 @@ def search_b_maps(y_batch: torch.Tensor, refs0: torch.Tensor,
                            rd_cands, n0s[i], n1s[i], plain)
             for i in range(f)]
     dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
-    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu)
+    return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
+                      _cnn_override(y_batch, cnn, qp, log2_ctu, plain))

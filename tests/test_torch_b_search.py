@@ -27,6 +27,11 @@ from fasthevc_tpu_torch.ops import me
 from fasthevc_tpu_torch.utils import synthesize_yuv
 from fasthevc_tpu_torch.utils.video import pad_plane
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 SR = 64
 SIZES = (8, 16, 32)
 

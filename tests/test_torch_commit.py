@@ -21,6 +21,11 @@ from fasthevc_tpu.utils.video import pad_plane
 from fasthevc_tpu_torch.codec.search import search_intra_maps_batch
 from fasthevc_tpu_torch.ops import commit
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 
 def _frame(w, h, qp, seed):
     """One synthesized frame in coded dims and its search decisions."""

@@ -16,6 +16,11 @@ from fasthevc_tpu.ops import cost as jcost
 from fasthevc_tpu.ops import transform as jtr
 from fasthevc_tpu_torch.ops import cost
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 RATE_RTOL = 1e-5
 
 

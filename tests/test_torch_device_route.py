@@ -12,6 +12,7 @@ tests/test_device_commit.py, so the JAX programs are shared with it.
 
 import numpy as np
 import pytest
+import torch
 
 from fasthevc_tpu.codec.encoder import TpuEncoder
 from fasthevc_tpu.config import EncoderConfig as JaxConfig
@@ -19,6 +20,11 @@ from fasthevc_tpu.spec.decoder import SpecDecoder
 from fasthevc_tpu_torch.codec.encoder import TorchEncoder
 from fasthevc_tpu_torch.config import EncoderConfig
 from fasthevc_tpu_torch.utils import synthesize_yuv
+
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
 
 DEVICE_KEYS = {"device_s", "wait_s", "entropy_s", "wall_s"}
 PIPELINED_KEYS = {"search_s", "wait_s", "commit_s", "wall_s"}

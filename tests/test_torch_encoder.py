@@ -12,13 +12,20 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from fasthevc_tpu.codec.encoder import TpuEncoder
 from fasthevc_tpu.config import EncoderConfig as JaxConfig
 from fasthevc_tpu.spec.decoder import SpecDecoder
 from fasthevc_tpu_torch.codec.encoder import TorchEncoder
 from fasthevc_tpu_torch.config import EncoderConfig, low_delay_p
+from fasthevc_tpu_torch.models import init_params, params_to_flax
 from fasthevc_tpu_torch.utils import synthesize_yuv
+
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,6 +79,7 @@ def test_port_imports_no_jax():
             "import fasthevc_tpu_torch.ops.deblock; "
             "import fasthevc_tpu_torch.ops.sao; "
             "import fasthevc_tpu_torch._build; "
+            "import fasthevc_tpu_torch.models; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax', 'fasthevc_tpu.ops', "
             "'fasthevc_tpu.codec.search', 'fasthevc_tpu.codec.encoder', "
@@ -84,7 +92,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    {"lossless": True}, {"fast_partition": True},
+    {"lossless": True},
     {"target_bitrate": 200000}, {"search_recon_refs": True},
     {"hrd": True}, {"rqt_intra": True}, {"wpp": True},
     {"scaling_lists": True},
@@ -93,6 +101,24 @@ def test_unported_tools_raise(kw):
     cfg = EncoderConfig(width=64, height=64, qp=32, frames=2, **kw)
     with pytest.raises(NotImplementedError):
         TorchEncoder(cfg, "cpu")
+
+
+def test_fast_partition_requires_params():
+    cfg = EncoderConfig(width=64, height=64, qp=32, frames=2,
+                        fast_partition=True)
+    with pytest.raises(ValueError, match="partition_params"):
+        TorchEncoder(cfg, "cpu")
+
+
+def test_a_ctu32_partition_cnn_on_a_ctu64_config_raises():
+    params = params_to_flax(init_params(torch.Generator().manual_seed(0),
+                                         device="cpu"))
+    cfg = EncoderConfig(width=64, height=64, qp=32, frames=2, log2_ctu=6,
+                        fast_partition=True)
+    with pytest.raises(ValueError, match="depths"):
+        TorchEncoder(cfg, "cpu", partition_params=params)
+    # the same network fits CTU 32
+    TorchEncoder(cfg.replace(log2_ctu=5), "cpu", partition_params=params)
 
 
 def test_inter_orders_raise():

@@ -18,6 +18,11 @@ from fasthevc_tpu.utils.video import picture_checksum
 from fasthevc_tpu_torch.codec.device_pipeline import device_checksum
 from fasthevc_tpu_torch.ops import deblock, sao
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 
 def _random_quadtree_depth(gh, gw, rng):
     depth = np.zeros((gh, gw), np.int8)

@@ -18,6 +18,11 @@ from fasthevc_tpu_torch.ops import commit, deblock, me
 from fasthevc_tpu_torch.utils import synthesize_yuv
 from fasthevc_tpu_torch.utils.video import pad_plane
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 W, H = 96, 64
 GH, GW = H // 8, W // 8
 

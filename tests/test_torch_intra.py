@@ -15,6 +15,11 @@ from fasthevc_tpu.ops import intra as jintra
 from fasthevc_tpu.utils import synthesize_yuv
 from fasthevc_tpu_torch.ops import intra
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 SIZES = [(2, True), (2, False), (3, True), (3, False), (4, True),
          (4, False), (5, True), (5, False)]
 

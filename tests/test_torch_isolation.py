@@ -19,7 +19,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "fasthevc_tpu_torch")
 REF = os.path.join(REPO, "fasthevc_tpu")
-BANNED = ("fasthevc_tpu", "jax")
+BANNED = ("fasthevc_tpu", "jax", "flax", "optax")
 COPIED_DIRS = ("spec", "config", "utils")
 CPP_SOURCES = ("cabac.cpp", "slice_engine.cpp", "sanitize_main.cpp")
 

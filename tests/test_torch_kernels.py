@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K12 of fasthevc_tpu_torch against their plain twins.
+"""The CUDA kernels K1-K15 of fasthevc_tpu_torch against their plain twins.
 
 Tests marked `cuda` need an NVIDIA card: the `cuda_device` fixture skips
 them elsewhere (the decision is made inside the fixture, never at import
@@ -21,10 +21,16 @@ from fasthevc_tpu_torch.codec import device_pipeline
 from fasthevc_tpu_torch.codec.search import (search_b_maps,
                                              search_intra_maps_batch,
                                              search_p_maps)
-from fasthevc_tpu_torch.ops import (commit, cost, deblock, intra, me, sao,
-                                    transform)
+from fasthevc_tpu_torch.models import init_params
+from fasthevc_tpu_torch.ops import (cnn, commit, cost, deblock, intra, me,
+                                    sao, transform)
 from fasthevc_tpu_torch.utils import synthesize_yuv
 from fasthevc_tpu_torch.utils.video import pad_plane
+
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
 
 SIZES = [(2, True), (2, False), (3, True), (3, False), (4, True),
          (4, False), (5, True), (5, False)]
@@ -108,10 +114,11 @@ def test_library_is_keyed_by_the_sources():
         "intra_pred.cu", "satd.cu", "tq_roundtrip.cu", "sse_rate.cu",
         "commit.cu", "deblock.cu", "sao.cu", "checksum.cu", "me_int.cu",
         "subpel.cu", "mc.cu", "intra_common.cuh", "tq_common.cuh",
-        "satd_common.cuh"}
+        "satd_common.cuh", "cnn.cu"}
     assert set(_build._SIGNATURES) >= {
         "fhv_downsample4", "fhv_sad_search", "fhv_subpel", "fhv_mc_sel",
-        "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf"}
+        "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf",
+        "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam"}
 
 
 @pytest.mark.cuda
@@ -395,3 +402,123 @@ def test_bi_cost_on_the_cpu_runs_the_twin_and_counts_no_launch():
     # equal references and MVs: the bi average is the uni prediction
     raw = me.mc_sel_plain(st.refs, st.base[16], mv, sel, 8, 16)[0]
     assert torch.equal(pbi, ((raw + 32) >> 6).clamp(0, 255))
+
+
+# The partition CNN's f32 logits: K13 sums up to 585 products per output in
+# its own order, cuDNN (TF32 off) in another, so the two differ by a few
+# ulps of the activations; 1e-4 bounds that with room (measured under 1e-6
+# on the CPU), and a depth decision whose top-two logits lie closer than
+# twice this may go either way.
+CNN_TOL = 1e-4
+
+
+def _cnn_planes(lg, frames, device):
+    """Seeded synthesized 1920x1080 luma, edge-padded to the CTU grid:
+    uint8 [F, PH, 1920]."""
+    ctu = 1 << lg
+    ph = -(-1080 // ctu) * ctu
+    clip = synthesize_yuv(1920, 1080, frames, seed=40 + lg)
+    return torch.from_numpy(np.stack([
+        pad_plane(np.asarray(f[0], np.int32), ph, 1920).astype(np.uint8)
+        for f in clip])).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg,frames", [(5, 2), (6, 1)])
+def test_cnn_depth_kernel_matches_twin(cuda_device, lg, frames):
+    """K13 at 1080p in one launch: its logits (training mode on the same
+    CTUs) within CNN_TOL of the conv2d chain's, its depth map equal to the
+    twin's wherever the twin's top-two margin exceeds 2 CNN_TOL."""
+    y = _cnn_planes(lg, frames, cuda_device)
+    theta = init_params(torch.Generator().manual_seed(lg), lg,
+                        cuda_device).flat_params()
+    before = _build.LAUNCHES["cnn_depth"]
+    got = cnn.cnn_depth(y, theta, 32, lg)
+    assert _build.LAUNCHES["cnn_depth"] == before + 1
+    want = cnn.cnn_depth(y, theta, 32, lg, plain=True)
+    ctu = 1 << lg
+    x = cnn.ctu_batch(y, ctu)
+    q = torch.full((x.shape[0],), 32.0, device=cuda_device)
+    lk, _ = cnn.cnn_train_forward(x[:, 0], q, theta)
+    lp = cnn.logits_plain(x, q, cnn.unflatten(theta, lg - 2))
+    assert (lk - lp).abs().max().item() <= CNN_TOL
+    top2 = torch.topk(lp, 2, dim=-1).values
+    sure = cnn._granule_map(top2[..., 0] - top2[..., 1] > 2 * CNN_TOL,
+                            frames, y.shape[1], y.shape[2], ctu)
+    assert sure.float().mean().item() > 0.99
+    assert torch.equal(got[sure], want[sure])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg", [5, 6])
+def test_cnn_backward_kernel_matches_autograd(cuda_device, lg):
+    """K13's training mode and K14 on a batch of 64 CTUs against autograd
+    through the conv2d chain: the loss within 1e-6 relative, each of the
+    ten gradient tensors within 1e-4 of its largest magnitude (f32 sums of
+    up to 64 x 1024 products, in another order)."""
+    ctu = 1 << lg
+    rng = np.random.default_rng(50 + lg)
+    x = cnn.ctu_batch(_cnn_planes(lg, 1, cuda_device), ctu)[:64, 0]
+    q = torch.from_numpy(rng.integers(22, 38, 64).astype(np.float32)).to(
+        cuda_device)
+    t = torch.from_numpy(rng.integers(0, lg - 2, (64, ctu // 8, ctu // 8))
+                         .astype(np.int32)).to(cuda_device)
+    theta = init_params(torch.Generator().manual_seed(lg), lg,
+                        cuda_device).flat_params()
+    before = (_build.LAUNCHES["cnn_train"], _build.LAUNCHES["cnn_backward"])
+    grads, losses = [], []
+    for plain in (False, True):
+        th = theta.clone().requires_grad_(True)
+        loss, _ = cnn.cnn_loss(th, x, q, t, plain=plain)
+        grads.append(torch.autograd.grad(loss, th)[0])
+        losses.append(loss.item())
+    assert (_build.LAUNCHES["cnn_train"],
+            _build.LAUNCHES["cnn_backward"]) == (before[0] + 1, before[1] + 1)
+    assert abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[1])
+    for (wk, bk), (wp, bp) in zip(cnn.unflatten(grads[0], lg - 2),
+                                  cnn.unflatten(grads[1], lg - 2)):
+        for a, b in ((wk, wp), (bk, bp)):
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_adam_kernel_matches_twin(cuda_device):
+    """K15 rounds every operation as its twin does: bit for bit."""
+    rng = np.random.default_rng(60)
+    n = cnn.n_params(3)
+    bufs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                             * s).to(cuda_device)
+            for s in (1.0, 1e-3, 1e-3)] + [
+        torch.from_numpy(rng.random(n).astype(np.float32) * 1e-6).to(
+            cuda_device)]
+    theta, grad, m, v = bufs
+    twin = [b.clone() for b in (theta, m, v)]
+    before = _build.LAUNCHES["adam"]
+    for step in (1, 7):
+        cnn.adam_update(theta, grad, m, v, step, 3e-3)
+        cnn.adam_update(twin[0], grad, twin[1], twin[2], step, 3e-3,
+                        plain=True)
+        for a, b in zip((theta, m, v), twin):
+            assert torch.equal(a, b)
+    assert _build.LAUNCHES["adam"] == before + 2
+
+
+def test_cnn_on_the_cpu_runs_the_twins_and_counts_no_launch():
+    theta = init_params(torch.Generator().manual_seed(1),
+                        device="cpu").flat_params()
+    y = torch.from_numpy(np.random.default_rng(61).integers(
+        0, 256, (1, 64, 96)).astype(np.uint8))
+    _build.LAUNCHES.clear()
+    depth = cnn.cnn_depth(y, theta, 30, 5)
+    assert depth.shape == (1, 8, 12) and depth.dtype == torch.int16
+    th = theta.clone().requires_grad_(True)
+    x = cnn.ctu_batch(y, 32)[:, 0]
+    loss, logits = cnn.cnn_loss(th, x, torch.full((6,), 30.0),
+                                torch.zeros((6, 4, 4), dtype=torch.int32))
+    loss.backward()
+    cnn.adam_update(th.detach(), th.grad, torch.zeros_like(theta),
+                    torch.zeros_like(theta), 1, 3e-3)
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert logits.shape == (6, 4, 4, 3)
+    with pytest.raises(ValueError):
+        cnn.cnn_depth(y, theta, 30, 6)   # a CTU-32 network on CTU 64

@@ -18,6 +18,11 @@ from fasthevc_tpu.ops import me as jme
 from fasthevc_tpu_torch.ops import cost, me
 from fasthevc_tpu_torch.utils import synthesize_yuv
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 LAMBDA_SQRT = float(np.sqrt(0.57 * 2.0 ** ((32 - 12) / 3.0)))
 CASES = [(8, 1), (8, 2), (64, 1), (64, 2)]
 

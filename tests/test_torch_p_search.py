@@ -19,6 +19,11 @@ from fasthevc_tpu_torch.codec.search import search_p_maps
 from fasthevc_tpu_torch.utils import synthesize_yuv
 from fasthevc_tpu_torch.utils.video import pad_plane
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 SR = 64
 CASES = ([(96, 64, seed, qp) for seed in (1, 2, 3)
           for qp in (22, 27, 32, 37)]

@@ -25,6 +25,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from fasthevc_tpu.codec.encoder import TpuEncoder
 from fasthevc_tpu.config import config as jax_config
@@ -33,6 +34,11 @@ from fasthevc_tpu_torch.codec.encoder import TorchEncoder
 from fasthevc_tpu_torch.config import config as port_config
 from fasthevc_tpu_torch.spec import bitstream as bs
 from fasthevc_tpu_torch.utils import synthesize_yuv
+
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
 
 W = H = 64
 FRAMES = 17

@@ -17,6 +17,11 @@ from fasthevc_tpu.ops import rdoq as jrdoq
 from fasthevc_tpu.ops.commit import _scan_oh
 from fasthevc_tpu_torch.ops import rdoq
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 KEYS = [(0, 3), (0, 4), (0, 5), (1, 2), (1, 3), (1, 4)]
 
 

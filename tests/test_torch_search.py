@@ -17,6 +17,11 @@ from fasthevc_tpu.codec import search as jsearch
 from fasthevc_tpu.utils import pad_plane, synthesize_yuv
 from fasthevc_tpu_torch.codec import search
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 # (width, height, qp, seed); seed None = a clip with large flat areas
 CLIPS = [(96, 64, 32, 21), (96, 64, 22, 5), (96, 64, 37, None),
          (104, 72, 37, 3), (128, 96, 27, 8)]

@@ -14,6 +14,11 @@ from fasthevc_tpu.ops import transform as jtr
 from fasthevc_tpu.spec import transform as spec_tr
 from fasthevc_tpu_torch.ops import transform
 
+# One intra-op thread: the suite runs several test workers at once, and
+# PyTorch's default of one OpenMP thread per core in each of them
+# oversubscribes the host many times over.
+torch.set_num_threads(1)
+
 CASES = [(lg, qp) for qp in (22, 32, 37) for lg in (2, 3, 4, 5)]
 
 
