@@ -29,6 +29,10 @@ Phases (any failure raises, and the script exits non-zero):
         the 8-, 16- and 32-blocks, each with its time, twin time and bound,
         and K11's bi-predicting planes on that frame's B decisions, exactly
         (K12's f32 costs bit for bit);
+     e. the forms the CTU-64 classic route adds, on that B frame padded
+        to the CTU-64 grid: K9's tier-64 search, K10, K2 and K12 on the
+        64-blocks, exactly, each with its time, twin time and bound
+        (run before d, which needs the card's memory);
      d. the partition CNN with seeded random weights: K13 on a 1080p group
         of 8 at CTU 32 (and one 1080p frame at CTU 64), its training-mode
         logits within CNN_TOL of the conv2d chain's and its depth maps
@@ -64,7 +68,9 @@ Phases (any failure raises, and the script exits non-zero):
      the CPU: identical streams that decode hash-clean in SpecDecoder;
  10. the random-access device route: random_access_gop16(1920, 1080,
      qp=32, hash_type=2) on synthesized frames, a warm-up, then 17 frames
-     timed (the IDR and one GOP-16, in 6 dependency batches); prints fps,
+     timed (the IDR and one GOP-16, in 7 dependency batches of 1, 1, 1,
+     2, 4, 4 and 4 frames: at 1280x720 and up a batch holds at most 4 B
+     pictures, as in the reference's batcher); prints fps,
      kbit/frame, Y-PSNR (I and B), each batch's span on the card and the
      host-wait / entropy split, and requires every kernel of the route
      (K12 and K11's bi-predicting planes included) to have been launched
@@ -86,14 +92,33 @@ Phases (any failure raises, and the script exits non-zero):
      measurement; and 416x240 fast-partition streams (all-intra and random
      access with the trained CNN, the CTU-64 pipelined route with a seeded
      CTU-64 CNN) through the kernels on the card and through the twins on
-     the CPU: identical, hash-clean.
+     the CPU: identical, hash-clean;
+ 14. the classic per-frame route: phase 7's low_delay_p at CTU 64 (which
+     TpuEncoder, too, sends to its per-frame loop), a warm-up, then 1 I
+     and 4 P frames timed; prints fps, kbit/frame, Y-PSNR and the
+     search (CUDA events) / host C++ commit split, and requires K1-K4,
+     K9, K10 and K11's merge-candidate MC to have been launched;
+ 15. rate control at 1080p: the all-intra device route on phase 3's 16
+     frames and the low-delay P device route on phase 7's 9 frames, each
+     with target_bitrate at 0.8 of the rate its fixed-QP phase realized;
+     prints the realized rate beside the target and the fps beside phases
+     3 and 7, and requires each route's kernels;
+ and the classic_small jobs: 416x240 streams of this slice's paths
+     (random access at CTU 64, which needs K12; low-delay P at CTU 64 with
+     a seeded CTU-64 CNN under fast_partition; weighted prediction on a
+     fade; lossless; quality()'s two-pass search under
+     FASTHEVC_FORCE_CLASSIC; HRD on the random-access device route; rate
+     control on the all-intra device route) through the kernels on the
+     card, through the twins on the card and through the twins on the
+     CPU: identical, hash-clean.
 
 Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10),
-the training (12) and the timed fast-partition encodes (13) alone on the
-card; then every check that runs twins (K5's twins of phase 2, phases 4,
-5, 6's 416x240 check, 8, 9, 11 and 13's 416x240 checks) and config 4 as
-JOBS, each a process of its own (`chip_smoke.py --job NAME`), all at once:
-the twins are bound by the host's Python and launches, so they overlap.
+the training (12), the timed fast-partition encodes (13) and phases 14
+and 15 alone on the card; then every check that runs twins (K5's twins of
+phase 2, phases 4, 5, 6's 416x240 check, 8, 9, 11, 13's 416x240 checks
+and classic_small) and config 4 as JOBS, each a process of its own
+(`chip_smoke.py --job NAME`), all at once: the twins are bound by the
+host's Python and launches, so they overlap.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -136,6 +161,12 @@ RA_FRAMES = 17           # random access: the IDR and one GOP-16
 B_KERNELS = ("bi_cost", "inter_pred_bi")
 RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
             + B_KERNELS)
+# the classic per-frame route's P search: K1-K4, K9, K10 and K11's merge
+# candidates (the C++ engine commits and compensates on the host)
+CLASSIC_ROUTE = SEARCH_KERNELS + ("me_downsample4", "me_full_search",
+                                  "me_refine", "subpel", "mc_sel")
+CLASSIC_TIMED_P = 4      # P frames of the timed classic-route encode
+RC_SHARE = 0.8           # phase 15's targets: this share of phases 3 and 7's
 TRAIN_KERNELS = ("cnn_train", "cnn_backward", "adam")
 CNN_KERNELS = ("cnn_depth",) + TRAIN_KERNELS
 # K13's f32 logits against the conv2d chain's (cuDNN, TF32 off): sums of up
@@ -690,6 +721,78 @@ def phase_b_kernels(torch, timed, work):
     torch.cuda.synchronize()
 
 
+def phase_ctu64_kernels(torch) -> None:
+    """Phase 2e: the forms the CTU-64 classic route adds, on phase 2c's B
+    frame and references padded to the CTU-64 grid, SR 64: K9's tier-64
+    search, K10 on the 64-blocks, K2 on the 64-blocks (the merge
+    candidates' SATD) and K12 on the 64-blocks, each against its twin,
+    exactly (K10's and K12's f32 costs bit for bit), with its time, twin
+    time and bound."""
+    from fasthevc_tpu_torch.codec.search import _blocks, _pick_ref
+    from fasthevc_tpu_torch.ops import cost, me
+
+    dev = torch.device("cuda")
+    clip = _ra_clip()
+    ph = -(-HEIGHT // 64) * 64
+    n = 64
+
+    def luma(k):
+        p = torch.from_numpy(np.asarray(clip[k][0], np.int32)).to(dev)
+        return torch.nn.functional.pad(p[None].float(),
+                                       (0, 0, 0, ph - HEIGHT),
+                                       mode="replicate")[0].to(torch.int32)
+
+    y = luma(4)
+    refs = torch.stack([luma(k) for k in (0, 8, 8, 16)])
+    ls = _lambda_sqrt(QP + 2)
+    st = me.me_state(y, refs, SR, max_size=n)
+    # K9's two tier-64 calls of me_state: the coarse search on the 1/4
+    # planes, the +-3 refinement around its bases
+    ds = me.downsample4(torch.cat([y[None], refs]))
+    sr4 = -(-SR // 4)
+    for name, args in (
+            ("K9 tier-64 bases", (ds[0], ds[1:], None, n // 4, sr4, n // 4,
+                                  4, SR)),
+            ("K9 tier-64 MVs", (y, refs, st.base[n], n, 3, n, 1, SR))):
+        _same(torch, name, me.sad_search(*args),
+              me.sad_search(*args, plain=True))
+    hw, rr, b = ph * WIDTH, refs.shape[0], ph * WIDTH // (n * n)
+    rows = []
+
+    def check(name, fn, plain_fn, w):
+        got, want = fn(), plain_fn()
+        for i, (a, c) in enumerate(zip(got, want)):
+            if a.dtype == torch.float32:
+                a, c = a.view(torch.int32), c.view(torch.int32)
+            _same(torch, f"{name} n=64 output {i}", a, c)
+        ms, plain_ms = _median_ms(fn), _median_ms(plain_fn, reps=1)
+        rows.append((name, ms, plain_ms, *_bound(*w)))
+        return got
+
+    sargs = (st.y, st.refs, st.mv_int[n], n, ls)
+    sp = check("subpel", lambda: me.subpel(*sargs),
+               lambda: me.subpel(*sargs, plain=True),
+               (4 * (hw * (1 + rr) + rr * b * (3 + n * n)),
+                rr * b * 17 * ((n + 7) * n * 16 + n * n * 28)))
+    src = _blocks(y[None], n).contiguous()
+    pred = sp[2][0][:, None].contiguous()
+    check("satd", lambda: (cost.satd(src, pred),),
+          lambda: (cost.satd_plain(src, pred),),
+          (4 * (2 * b * n * n + b), 9 * b * n * n))
+    _, mv0, _, sel0 = _pick_ref(sp, 0, 1)
+    _, mv1, _, sel1 = _pick_ref(sp, 2, 3)
+    bargs = (st.y, st.refs, mv0, sel0.to(torch.int32), mv1,
+             sel1.to(torch.int32) + 2, me.mv_rate_bits(mv0),
+             me.mv_rate_bits(mv1), ls, n)
+    check("bi_cost", lambda: me.bi_cost(*bargs),
+          lambda: me.bi_cost(*bargs, plain=True),
+          (4 * (rr * hw + hw + b * (8 + n * n + 1)),
+           b * (2 * _interp_ops(n, 8) + n * n * (4 + 8))))
+    for name, ms, plain_ms, b_ms, b_by in rows:
+        print(f"kernel {name} n=64 (CTU 64, 1088x1920): {ms:.4f} ms, plain "
+              f"twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+
 def _cnn_macs(ctu: int, d: int) -> tuple:
     """(forward, backward) f32 multiply-adds of the partition CNN on one
     CTU: the five layers' products; the backward takes every weight
@@ -1126,6 +1229,181 @@ def phase_ra_route(torch, params=None):
     return launches, st
 
 
+def _classic_cfg(frames: int):
+    """Phase 7's low_delay_p at CTU 64: the classic per-frame route."""
+    return _ldp_cfg(frames).replace(log2_ctu=6)
+
+
+def phase_classic_route(torch):
+    """Phase 14: 1 I + CLASSIC_TIMED_P P frames of phase 7's clip at CTU 64
+    on the classic per-frame route, after a warm-up; returns (the launches
+    of the timed encode, stats)."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.utils import psnr, yuv_from_planes
+
+    clip = _ldp_clip()[:1 + CLASSIC_TIMED_P]
+    n = len(clip)
+    enc = TorchEncoder(_classic_cfg(n), "cuda")
+    enc.encode(clip[:2])                   # warm-up: I + P
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stream, recons = enc.encode(clip)
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    tm = enc.timing
+    if set(tm) != {"search_s", "commit_s", "wall_s"}:
+        raise AssertionError(f"phase 14 did not take the classic route: {tm}")
+    ps = []
+    for f, r in zip(clip, recons):
+        ry, _, _ = yuv_from_planes((r.y, r.cb, r.cr), WIDTH, HEIGHT)
+        ps.append(psnr(f[0], ry))
+    st = _stats(n / dt, stream, n, ps)
+    spans = ", ".join(f"{v:.4f}" for v in enc.spans)
+    print(f"classic per-frame route, 1080p QP32 CTU 64 SR {SR}, 1 I + "
+          f"{CLASSIC_TIMED_P} P frames: {st['fps']:.4f} fps, "
+          f"{st['kbit']:.2f} kbit/frame, Y-PSNR {st['psnr']:.3f} dB (I "
+          f"{ps[0]:.3f}, P mean {np.mean(ps[1:]):.3f}); wall {dt:.3f} s; "
+          f"searches on the card {tm['search_s']:.4f} s (spans {spans} s), "
+          f"host C++ commit {tm['commit_s']:.4f} s")
+    print(f"launches in the timed classic-route encode: {launches}")
+    _require(launches, CLASSIC_ROUTE, "classic-route encode")
+    return launches, st
+
+
+def phase_rate_control(torch, full: dict) -> None:
+    """Phase 15: the all-intra device route on phase 3's 16 timed frames
+    and the low-delay P device route on phase 7's 9 frames, each with
+    target_bitrate at RC_SHARE of the rate its fixed-QP phase realized
+    (frame_rate 30), after a warm-up; prints the realized rate beside the
+    target and the fps beside the fixed-QP phase's, and requires each
+    route's kernels."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+
+    for name, clip, cfg_of, warm, kernels in (
+            ("all-intra", _ai_clip()[GROUP:], _ai_cfg, 2, INTRA_ROUTE),
+            ("low-delay P", _ldp_clip(), _ldp_cfg, 3, LDP_ROUTE)):
+        n = len(clip)
+        cfg = cfg_of(n)
+        target = int(RC_SHARE * full[name]["kbit"] * 1000 * cfg.frame_rate)
+        enc = TorchEncoder(cfg.replace(target_bitrate=target), "cuda")
+        enc.encode(clip[:warm])
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        stream, _ = enc.encode(clip)
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        realized = len(stream) * 8 * cfg.frame_rate / n
+        print(f"rate control, {name} device route, 1080p, {n} frames: "
+              f"target {target} bit/s, realized {realized:.0f} bit/s "
+              f"({realized / target:.4f} of the target); {n / dt:.4f} fps "
+              f"(fixed QP32: {full[name]['fps']:.4f} fps, "
+              f"{full[name]['kbit'] * 1000 * cfg.frame_rate:.0f} bit/s); "
+              f"batches on the card {enc.timing['device_s']:.4f} s")
+        print(f"launches in the rate-controlled {name} encode: {launches}")
+        _require(launches, kernels, f"rate-controlled {name} encode")
+
+
+def _fade_clip(frames: int):
+    """A global luminance fade at 416x240 (tests/test_weighted_pred.py's):
+    frame t is the first frame of synthesize_yuv, luma times (1 - t/4)
+    plus 10 t, chroma's distance from 128 times (1 - t/4)."""
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+    y0, cb0, cr0 = (p.astype(np.float64) for p in
+                    synthesize_yuv(416, 240, 1, seed=3, motion=False)[0])
+    out = []
+    for t in range(frames):
+        gain = 1.0 - 0.25 * t
+        out.append((np.clip(y0 * gain + 10 * t, 0, 255).astype(np.uint8),
+                    np.clip((cb0 - 128) * gain + 128, 0, 255)
+                    .astype(np.uint8),
+                    np.clip((cr0 - 128) * gain + 128, 0, 255)
+                    .astype(np.uint8)))
+    return out
+
+
+def _classic_small(torch, name: str):
+    """The 416x240 streams of the classic_small jobs: (config, clip, CNN
+    parameters, FASTHEVC_FORCE_CLASSIC, kernels the card must launch)."""
+    from fasthevc_tpu_torch.config import (EncoderConfig, low_delay_p,
+                                           quality, random_access_gop16)
+    from fasthevc_tpu_torch.models import params_to_flax
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+
+    w, h = 416, 240
+
+    def clip(n):
+        return synthesize_yuv(w, h, n, seed=3)
+
+    if name == "RA GOP-16 at CTU 64":
+        return (random_access_gop16(width=w, height=h, qp=QP,
+                                    frames=RA_FRAMES, log2_ctu=6),
+                clip(RA_FRAMES), None, False, CLASSIC_ROUTE + ("bi_cost",))
+    if name == "fast-partition LDP at CTU 64":
+        return (low_delay_p(width=w, height=h, qp=QP, frames=4, log2_ctu=6,
+                            fast_partition=True), clip(4),
+                params_to_flax(_seeded_cnn(torch, 6).cpu()), False,
+                CLASSIC_ROUTE + ("cnn_depth",))
+    if name == "weighted prediction on a fade":
+        return (low_delay_p(width=w, height=h, qp=QP, frames=3,
+                            weighted_pred=True), _fade_clip(3), None, False,
+                CLASSIC_ROUTE)
+    if name == "lossless LDP":
+        return (low_delay_p(width=w, height=h, qp=QP, frames=2,
+                            lossless=True), clip(2), None, False,
+                CLASSIC_ROUTE)
+    if name == "quality() two-pass search":
+        return (quality(EncoderConfig(width=w, height=h, qp=QP, frames=1)),
+                clip(1), None, True, SEARCH_KERNELS)
+    # the device routes with the main path's checksum hash (K8)
+    if name == "HRD on the RA device route":
+        return (random_access_gop16(width=w, height=h, qp=QP,
+                                    frames=RA_FRAMES, hrd=True, hash_type=2),
+                clip(RA_FRAMES), None, False, RA_ROUTE)
+    assert name == "rate-controlled all-intra device route"
+    return (EncoderConfig(width=w, height=h, qp=QP, frames=4, hash_type=2,
+                          target_bitrate=1_000_000), clip(4), None, False,
+            INTRA_ROUTE)
+
+
+def job_classic_small(torch, names) -> dict:
+    """416x240 streams of this slice's paths through the kernels on the
+    card (each of its kernels launched), through the twins on the card
+    (none launched) and through the twins on the CPU: identical streams
+    that decode hash-clean in SpecDecoder."""
+    from fasthevc_tpu_torch import _build
+
+    logs = []
+    for name in names:
+        cfg, clip, params, force, kernels = _classic_small(torch, name)
+        if force:
+            os.environ["FASTHEVC_FORCE_CLASSIC"] = "1"
+        try:
+            _build.LAUNCHES.clear()
+            stream = _encode(torch, cfg, clip, params=params)[0]
+            _require(_build.LAUNCHES, kernels, f"416x240 {name} encode")
+            before = dict(_build.LAUNCHES)
+            twins = _encode(torch, cfg, clip, plain=True, params=params)[0]
+            if dict(_build.LAUNCHES) != before:
+                raise AssertionError(f"416x240 {name}: the twins launched "
+                                     f"a kernel")
+            cpu = _encode(torch, cfg, clip, device="cpu", params=params)[0]
+        finally:
+            os.environ.pop("FASTHEVC_FORCE_CLASSIC", None)
+        if twins != stream or cpu != stream:
+            raise AssertionError(f"416x240 {name}: the card's stream differs "
+                                 f"from the card twins' or the CPU twins'")
+        if not _decode_clean(stream, len(clip)):
+            raise AssertionError(f"416x240 {name}: the stream does not "
+                                 f"decode hash-clean")
+        logs.append(f"{name}: {len(stream)} bytes, {len(clip)} pictures")
+    return {"log": "416x240 " + "; ".join(logs) + " (each equal on the "
+                   "card, the card twins and the CPU twins, hash_ok)"}
+
+
 def params_path() -> str:
     """Where phase 12 leaves the trained parameters for the jobs (under the
     git-ignored build directory)."""
@@ -1366,17 +1644,34 @@ JOBS = {
     "fast-small-ra": lambda torch: job_fast_small(torch, "random-access"),
     "fast-small-pipelined": lambda torch: job_fast_small(
         torch, "pipelined (CTU 64)"),
+    # this slice's 416x240 streams, in three processes of similar length
+    "classic-small-ra64": lambda torch: job_classic_small(
+        torch, ["RA GOP-16 at CTU 64"]),
+    "classic-small-hrd-ra": lambda torch: job_classic_small(
+        torch, ["HRD on the RA device route"]),
+    "classic-small": lambda torch: job_classic_small(
+        torch, ["fast-partition LDP at CTU 64",
+                "weighted prediction on a fade", "lossless LDP",
+                "quality() two-pass search",
+                "rate-controlled all-intra device route"]),
 }
+
+
+# The twin routes at 1080p set the length of the jobs' phase: every other
+# job runs at a lower CPU priority, so that it takes the cores they leave.
+LONG_JOBS = ("ai-twin-route", "ldp-twin-route")
 
 
 def _run_jobs(t_start: float) -> dict:
     """Every JOBS entry in its own process (`chip_smoke.py --job NAME`),
-    all at once; each prints its log and, last, a JSON line of results.
-    Raises if one fails; stops every process it started."""
+    all at once, those outside LONG_JOBS at niceness 10; each prints its
+    log and, last, a JSON line of results.  Raises if one fails; stops
+    every process it started."""
     here = os.path.abspath(__file__)
     procs = {name: subprocess.Popen(
         [sys.executable, here, "--job", name], cwd=os.path.dirname(here),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=None if name in LONG_JOBS else lambda: os.nice(10))
         for name in JOBS}
     results, failed = {}, []
     try:
@@ -1449,6 +1744,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_inter_kernels(torch, timed, work)
     phase_b_kernels(torch, timed, work)
+    phase_ctu64_kernels(torch)
     torch.cuda.empty_cache()
     phase_cnn_kernels(torch, errs, timed, work, lib_ms)
     _stamp(t_start, "phase 2 (kernels; K5's twins run in the jobs)")
@@ -1472,12 +1768,17 @@ def main() -> int:
     launches["cnn_depth"] = got["cnn_depth"]
     _stamp(t_start, "phase 13's timed fast-partition encodes")
     torch.cuda.empty_cache()
+    phase_classic_route(torch)
+    phase_rate_control(torch, full)
+    _stamp(t_start, "phases 14 and 15 (the classic route, rate control)")
+    torch.cuda.empty_cache()
     jobs = _run_jobs(t_start)
     if jobs["small-ra-card"]["sha"] != jobs["small-ra-cpu"]["sha"]:
         raise AssertionError("416x240 random-access: the kernel streams of "
                              "the two checks differ")
-    _stamp(t_start, "phases 2a/2b's K5 twins, 4, 5, 6's 416x240, 8, 9, 11 "
-           "and 13's config 4 and 416x240 checks (the jobs, in parallel)")
+    _stamp(t_start, "phases 2a/2b's K5 twins, 4, 5, 6's 416x240, 8, 9, 11, "
+           "13's config 4 and 416x240 checks and classic_small (the jobs, "
+           "in parallel)")
     timed["commit_intra"] = (timed["commit_intra"][0],
                              jobs["k5-intra"]["twin_ms"])
     timed["commit_mixed"] = (timed["commit_mixed"][0],

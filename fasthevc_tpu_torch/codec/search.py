@@ -91,13 +91,20 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
                         log2_ctu: int = 5, log2_min_cu: int = 3,
                         cb: torch.Tensor | None = None,
                         cr: torch.Tensor | None = None,
-                        rd_cands: int = 3, plain: bool = False) -> dict:
+                        rd_cands: int = 3, plain: bool = False,
+                        ref_y: torch.Tensor | None = None,
+                        ref_cb: torch.Tensor | None = None,
+                        ref_cr: torch.Tensor | None = None) -> dict:
     """Decide the CU quadtree and luma mode of every CTU of F frames.
 
     y: [F, H, W] int32 luma (H, W multiples of the CTU); cb, cr: optional
-    [F, H/2, W/2] int32 chroma for the chroma DM cost.  Returns the JAX
-    search's dict, every entry [F, B_n] in block raster order: mode{n},
-    cost{n} and split{n} (n above the min CU size), rawcost{n}.
+    [F, H/2, W/2] int32 chroma for the chroma DM cost.  ref_y, ref_cb,
+    ref_cr: optional reconstructions of the same shapes whose pixels feed
+    the intra reference rows in place of the source's (the two-pass
+    recon-reference search, search.py:117); SATD, SSE and the residuals
+    stay against the source.  Returns the JAX search's dict, every entry
+    [F, B_n] in block raster order: mode{n}, cost{n} and split{n} (n above
+    the min CU size), rawcost{n}.
     """
     predict, satd, tq_roundtrip, sse_rate = _ops(plain)
     f, h, w = y.shape
@@ -114,7 +121,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
         # top-left 32 quadrant (the commit re-derives it exactly)
         pn = min(n, 32)
         plg = pn.bit_length() - 1
-        top, left = intra.grid_refs(y, n)
+        top, left = intra.grid_refs(y if ref_y is None else ref_y, n)
         if pn != n:
             top = top[:, :2 * pn + 1].contiguous()
             left = left[:, :2 * pn + 1].contiguous()
@@ -148,8 +155,8 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
             # chroma DM cost of both planes
             cn = pn // 2
             clg = cn.bit_length() - 1
-            for cp in (cb, cr):
-                ctop, cleft = intra.grid_refs(cp, cn)
+            for cp, rcp in ((cb, ref_cb), (cr, ref_cr)):
+                ctop, cleft = intra.grid_refs(cp if rcp is None else rcp, cn)
                 cpred = predict(ctop, cleft, clg, modes[n][:, None],
                                 is_luma=False)[:, 0]
                 cres = _blocks(cp, cn) - cpred
@@ -179,15 +186,21 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
     return out
 
 
+def _one(t):
+    """A plane as a batch of one frame (None stays None)."""
+    return None if t is None else t[None]
+
+
 def search_intra_frame(y_plane: torch.Tensor, lambda_sqrt: float,
                        log2_ctu: int = 5, log2_min_cu: int = 3,
                        cb_plane=None, cr_plane=None, rd_cands: int = 3,
-                       plain: bool = False) -> dict:
+                       plain: bool = False, ref_y=None, ref_cb=None,
+                       ref_cr=None) -> dict:
     """One frame ([H, W] planes) of `search_intra_frames`; entries [B_n]."""
     dec = search_intra_frames(
-        y_plane[None], lambda_sqrt, log2_ctu, log2_min_cu,
-        None if cb_plane is None else cb_plane[None],
-        None if cr_plane is None else cr_plane[None], rd_cands, plain)
+        y_plane[None], lambda_sqrt, log2_ctu, log2_min_cu, _one(cb_plane),
+        _one(cr_plane), rd_cands, plain, _one(ref_y), _one(ref_cb),
+        _one(ref_cr))
     return {key: v[0] for key, v in dec.items()}
 
 
@@ -478,23 +491,45 @@ def _cnn_override(y_batch: torch.Tensor, cnn, qp, log2_ctu: int,
     return cnn_depth(y_batch, cnn.flat_params(), qp, log2_ctu, plain=plain)
 
 
+def _int32(t):
+    return None if t is None else t.to(torch.int32)
+
+
 def search_intra_maps_batch(y_batch: torch.Tensor, lambda_sqrt: float,
                             log2_ctu: int, log2_min_cu: int, coded_w: int,
                             coded_h: int, cb_batch=None, cr_batch=None,
                             rd_cands: int = 3, plain: bool = False,
-                            cnn=None, qp=0) -> torch.Tensor:
+                            cnn=None, qp=0, ref_y=None, ref_cb=None,
+                            ref_cr=None) -> torch.Tensor:
     """Multi-frame intra search: [F, H, W] padded luma (uint8 or int32)
     -> [F, H/8, W/8, 9] int16 packed decision maps.  cnn: a
     models.PartitionCNN on the batch's device, whose depth maps at `qp`
-    replace the DP's splits (the fast-partition path, search.py:622-624)."""
+    replace the DP's splits (the fast-partition path, search.py:622-624).
+    ref_y, ref_cb, ref_cr: the recon-reference planes of
+    search_intra_frames, padded as the source is."""
     y = y_batch.to(torch.int32)
-    cb = None if cb_batch is None else cb_batch.to(torch.int32)
-    cr = None if cr_batch is None else cr_batch.to(torch.int32)
-    dec = search_intra_frames(y, lambda_sqrt, log2_ctu, log2_min_cu, cb, cr,
-                              rd_cands, plain)
+    dec = search_intra_frames(y, lambda_sqrt, log2_ctu, log2_min_cu,
+                              _int32(cb_batch), _int32(cr_batch), rd_cands,
+                              plain, _int32(ref_y), _int32(ref_cb),
+                              _int32(ref_cr))
     f, h, w = y.shape
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
                       _cnn_override(y_batch, cnn, qp, log2_ctu, plain))
+
+
+def search_intra_maps(y: torch.Tensor, lambda_sqrt: float, log2_ctu: int,
+                      log2_min_cu: int, coded_w: int, coded_h: int, cb=None,
+                      cr=None, ref_y=None, ref_cb=None, ref_cr=None,
+                      rd_cands: int = 3, plain: bool = False, cnn=None,
+                      qp=0) -> torch.Tensor:
+    """One picture's intra search (search.py:631 `search_intra_maps`,
+    through `_search_intra_maps_impl` :607): [H, W] padded luma, optional
+    [H/2, W/2] chroma and recon-reference planes, the CNN's override at
+    the picture's own `qp`; returns its [H/8, W/8, 9] packed maps."""
+    return search_intra_maps_batch(
+        y[None], lambda_sqrt, log2_ctu, log2_min_cu, coded_w, coded_h,
+        _one(cb), _one(cr), rd_cands, plain, cnn, qp, _one(ref_y),
+        _one(ref_cb), _one(ref_cr))[0]
 
 
 def search_p_maps(y_batch: torch.Tensor, refs: torch.Tensor, lambda_sqrt,

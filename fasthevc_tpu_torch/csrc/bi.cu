@@ -32,9 +32,17 @@
 
 namespace {
 
-constexpr int kMaxN = 32;
-constexpr int kMaxWin = kMaxN + 7;
+// The shared layout, sized for blocks up to 32 (20 KB) or for CTU 64's
+// 64-blocks (73 KB, above the 48 KB default, so the launch opts in).
+template <int MaxN>
+struct BiSmem {
+  int win[2][(MaxN + 7) * (MaxN + 7)];
+  int src[MaxN * MaxN];
+  int pred[MaxN * MaxN];
+  int satd;
+};
 
+template <int MaxN>
 __global__ void __launch_bounds__(256)
     bi_cost_kernel(const int* __restrict__ src, const int* __restrict__ refs,
                    const int* __restrict__ mv0, const int* __restrict__ sel0,
@@ -43,10 +51,12 @@ __global__ void __launch_bounds__(256)
                    const float* __restrict__ r1bits, float ls,
                    int* __restrict__ pbi, float* __restrict__ cbi, int H,
                    int W, int n) {
-  __shared__ int win[2][kMaxWin * kMaxWin];
-  __shared__ int s_src[kMaxN * kMaxN];
-  __shared__ int s_pred[kMaxN * kMaxN];
-  __shared__ int s_satd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BiSmem<MaxN>& S = *reinterpret_cast<BiSmem<MaxN>*>(smem_raw);
+  auto& win = S.win;
+  int* s_src = S.src;
+  int* s_pred = S.pred;
+  int& s_satd = S.satd;
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int gx = W / n;
@@ -102,23 +112,40 @@ __global__ void __launch_bounds__(256)
     cbi[b] = __fmaf_rn(ls, __fadd_rn(r0bits[b], r1bits[b]), (float)s_satd);
 }
 
+template <int MaxN>
+int launch(const int* src, const int* refs, const int* mv0, const int* sel0,
+           const int* mv1, const int* sel1, const float* r0bits,
+           const float* r1bits, float ls, int* pbi, float* cbi, int B, int H,
+           int W, int n, cudaStream_t stream) {
+  const int smem = (int)sizeof(BiSmem<MaxN>);
+  cudaError_t err = cudaFuncSetAttribute(
+      bi_cost_kernel<MaxN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = n * n < 256 ? n * n : 256;
+  bi_cost_kernel<MaxN><<<B, threads, smem, stream>>>(
+      src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls, pbi, cbi, H, W,
+      n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // src [H, W], refs [R, H, W], mv0/mv1 [B, 2] (x, y) quarter pels, sel0/sel1
 // [B] absolute indices into refs, r0bits/r1bits [B] f32; pbi [B, n, n],
-// cbi [B] f32.  B = (H / n) * (W / n), n in 8, 16, 32.
+// cbi [B] f32.  B = (H / n) * (W / n), n in 8, 16, 32, 64.
 extern "C" int fhv_bi_cost(const int* src, const int* refs, const int* mv0,
                            const int* sel0, const int* mv1, const int* sel1,
                            const float* r0bits, const float* r1bits, float ls,
                            int* pbi, float* cbi, int R, int H, int W, int n,
                            cudaStream_t stream) {
-  if (n < 8 || n > kMaxN || (n & 7) || H % n || W % n)
+  if (n < 8 || n > 64 || (n & (n - 1)) || H % n || W % n)
     return (int)cudaErrorInvalidValue;
   const int B = (H / n) * (W / n);
   if (R <= 0 || B <= 0) return 0;
-  const int threads = n * n < 256 ? n * n : 256;
-  bi_cost_kernel<<<B, threads, 0, stream>>>(src, refs, mv0, sel0, mv1, sel1,
-                                            r0bits, r1bits, ls, pbi, cbi, H,
-                                            W, n);
-  return (int)cudaGetLastError();
+  if (n <= 32)
+    return launch<32>(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls,
+                      pbi, cbi, B, H, W, n, stream);
+  return launch<64>(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls, pbi,
+                    cbi, B, H, W, n, stream);
 }

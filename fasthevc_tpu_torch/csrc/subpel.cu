@@ -23,7 +23,9 @@
 // over 4 block sizes and 2 refs make about 20 G operations per 1080p frame.
 // Design: one CTA per (ref, block) keeps the source block, the clamped
 // (n + 8)^2 window, the horizontal filter rows and the best prediction in
-// shared memory; candidates run one after another between barriers.
+// shared memory; candidates run one after another between barriers.  The
+// shared layout is sized for blocks up to 32 (23 KB), or for the 64-blocks
+// of CTU 64's tier (88 KB, above the 48 KB default, so the launch opts in).
 
 #include <assert.h>
 #include <cuda_runtime.h>
@@ -33,7 +35,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxN = 32;
 
 __constant__ int kLumaTaps[4][8] = {
     {0, 0, 0, 64, 0, 0, 0, 0},
@@ -41,18 +42,20 @@ __constant__ int kLumaTaps[4][8] = {
     {-1, 4, -11, 40, 40, -11, 4, -1},
     {0, 1, -5, 17, 58, -10, 4, -1}};
 
+template <int MaxN>
 struct Smem {
-  int src[kMaxN * kMaxN];
-  int win[(kMaxN + 8) * (kMaxN + 8)];
-  int hbuf[(kMaxN + 7) * kMaxN];
-  int pred[kMaxN * kMaxN];
-  int best_pred[kMaxN * kMaxN];
+  int src[MaxN * MaxN];
+  int win[(MaxN + 8) * (MaxN + 8)];
+  int hbuf[(MaxN + 7) * MaxN];
+  int pred[MaxN * MaxN];
+  int best_pred[MaxN * MaxN];
   int satd;
   int better;
   float best_cost;
   int best_mx, best_my;
 };
 
+template <int MaxN>
 __global__ void __launch_bounds__(kThreads)
     subpel_kernel(const int* __restrict__ src, const int* __restrict__ refs,
                   const int* __restrict__ mv_int,
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ out_c, int* __restrict__ out_mv,
                   int* __restrict__ out_p, int H, int W, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<MaxN>& S = *reinterpret_cast<Smem<MaxN>*>(smem_raw);
   const int tid = threadIdx.x;
   const int gx = W / n;
   const int B = (H / n) * gx;
@@ -163,24 +166,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int MaxN>
+int launch(const int* src, const int* refs, const int* mv_int,
+           const float* rate_tab, int tab_len, float ls, float* out_c,
+           int* out_mv, int* out_p, int R, int B, int H, int W, int n,
+           cudaStream_t stream) {
+  const int smem = (int)sizeof(Smem<MaxN>);
+  cudaError_t err = cudaFuncSetAttribute(
+      subpel_kernel<MaxN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B, R);
+  subpel_kernel<MaxN><<<grid, kThreads, smem, stream>>>(
+      src, refs, mv_int, rate_tab, tab_len, ls, out_c, out_mv, out_p, H, W,
+      n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // src [H, W], refs [R, H, W], mv_int [R, B, 2] (x, y) integer pels; out_c
-// [R, B] f32, out_mv [R, B, 2] quarter pels, out_p [R, B, n, n].
+// [R, B] f32, out_mv [R, B, 2] quarter pels, out_p [R, B, n, n]; n in 8,
+// 16, 32, 64.
 extern "C" int fhv_subpel(const int* src, const int* refs, const int* mv_int,
                           const float* rate_tab, int tab_len, float ls,
                           float* out_c, int* out_mv, int* out_p, int R, int H,
                           int W, int n, cudaStream_t stream) {
   const int B = (H / n) * (W / n);
   if (R <= 0 || B <= 0) return 0;
-  if (n < 8 || n > kMaxN || (n & 7)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      subpel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, R);
-  subpel_kernel<<<grid, kThreads, smem, stream>>>(
-      src, refs, mv_int, rate_tab, tab_len, ls, out_c, out_mv, out_p, H, W,
-      n);
-  return (int)cudaGetLastError();
+  if (n < 8 || n > 64 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  if (n <= 32)
+    return launch<32>(src, refs, mv_int, rate_tab, tab_len, ls, out_c,
+                      out_mv, out_p, R, B, H, W, n, stream);
+  return launch<64>(src, refs, mv_int, rate_tab, tab_len, ls, out_c, out_mv,
+                    out_p, R, B, H, W, n, stream);
 }

@@ -90,9 +90,9 @@ def satd(src: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     src = src.to(torch.int32).contiguous()
     preds = preds.to(torch.int32).contiguous()
     _build.require_cuda("satd", src, preds, dtype=torch.int32)
-    if src.shape != (b, n, n) or n not in (4, 8, 16, 32):
+    if src.shape != (b, n, n) or n not in (4, 8, 16, 32, 64):
         raise ValueError("satd: src [B, N, N] and preds [B, M, N, N], "
-                         "N in 4..32")
+                         "N in 4..64")
     out = torch.zeros((b, m), dtype=torch.int32, device=src.device)
     rc = _build.lib().fhv_satd(src.data_ptr(), preds.data_ptr(),
                                out.data_ptr(), b, m, n,

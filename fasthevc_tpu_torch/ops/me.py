@@ -546,12 +546,12 @@ def bi_cost(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits,
     _build.require_cuda("bi_cost", *i32, *f32)
     r, h, w = refs.shape
     b = (h // n) * (w // n)
-    if (src.shape != (h, w) or n not in (8, 16, 32) or h % n or w % n
+    if (src.shape != (h, w) or n not in (8, 16, 32, 64) or h % n or w % n
             or mv0.shape != (b, 2) or mv1.shape != (b, 2)
             or sel0.shape != (b,) or sel1.shape != (b,)
             or any(t.shape != (b,) for t in f32)):
         raise ValueError("bi_cost: src [H, W], refs [R, H, W], mv0/mv1 "
-                         "[B, 2], sel0/sel1/r0bits/r1bits [B], n in 8..32")
+                         "[B, 2], sel0/sel1/r0bits/r1bits [B], n in 8..64")
     pbi = torch.empty((b, n, n), dtype=torch.int32, device=src.device)
     cbi = torch.empty((b,), dtype=torch.float32, device=src.device)
     ls = float(torch.tensor(lambda_sqrt, dtype=torch.float32))

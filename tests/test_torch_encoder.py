@@ -1,10 +1,11 @@
 """fasthevc_tpu_torch.codec.encoder.TorchEncoder against TpuEncoder.
 
 Under FASTHEVC_FORCE_CLASSIC=1 (tests/conftest.py) TpuEncoder encodes an
-all-intra clip on its pipelined route: the JAX search, then the C++ slice
-engine.  TorchEncoder on the CPU (the kernels' twins, then the same C++
-engine) must write the same bytes at the default config (RDOQ, SAO,
-deblocking and SDH on), and its stream must decode hash-clean.
+all-intra clip on its pipelined route (one picture, and P orders, on its
+per-frame route): the JAX search, then the C++ slice engine.  TorchEncoder
+on the CPU (the kernels' twins, then the same C++ engine) must write the
+same bytes at the default config (RDOQ, SAO, deblocking and SDH on), and
+its stream must decode hash-clean.
 """
 
 import os
@@ -16,6 +17,7 @@ import torch
 
 from fasthevc_tpu.codec.encoder import TpuEncoder
 from fasthevc_tpu.config import EncoderConfig as JaxConfig
+from fasthevc_tpu.config import low_delay_p as jax_low_delay_p
 from fasthevc_tpu.spec.decoder import SpecDecoder
 from fasthevc_tpu_torch.codec.encoder import TorchEncoder
 from fasthevc_tpu_torch.config import EncoderConfig, low_delay_p
@@ -51,8 +53,7 @@ def test_stream_matches_tpu_encoder(w, h, qp, seed, frames, extra):
 
 
 def test_single_frame_matches_tpu_encoder():
-    """One frame: TpuEncoder takes its per-frame route, the port its
-    group route with a group of one; the decisions are the same."""
+    """One frame: both packages take their per-frame route."""
     clip = synthesize_yuv(88, 72, 1, seed=22)
     kw = dict(width=88, height=72, qp=30, frames=1)
     want, _ = TpuEncoder(JaxConfig(**kw)).encode(clip)
@@ -92,12 +93,10 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    {"lossless": True},
-    {"target_bitrate": 200000}, {"search_recon_refs": True},
-    {"hrd": True}, {"rqt_intra": True}, {"wpp": True},
-    {"scaling_lists": True},
+    {"rqt_intra": True}, {"wpp": True}, {"scaling_lists": True},
 ])
 def test_unported_tools_raise(kw):
+    """The tools TpuEncoder refuses too (they run on the spec tier)."""
     cfg = EncoderConfig(width=64, height=64, qp=32, frames=2, **kw)
     with pytest.raises(NotImplementedError):
         TorchEncoder(cfg, "cpu")
@@ -122,11 +121,16 @@ def test_a_ctu32_partition_cnn_on_a_ctu64_config_raises():
 
 
 def test_inter_orders_raise():
-    """P orders run on the device route only: under FASTHEVC_FORCE_CLASSIC
-    (tests/conftest.py) they would take TpuEncoder's classic per-frame
-    loop, which is not ported."""
+    """P orders under FASTHEVC_FORCE_CLASSIC (tests/conftest.py) take the
+    classic per-frame route in both packages, and the port's stream (once
+    refused) is TpuEncoder's."""
     assert os.environ.get("FASTHEVC_FORCE_CLASSIC")
-    cfg = low_delay_p(width=64, height=64, frames=3)
     clip = synthesize_yuv(64, 64, 3, seed=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TorchEncoder(cfg, "cpu").encode(clip)
+    want, _ = TpuEncoder(jax_low_delay_p(width=64, height=64,
+                                         frames=3)).encode(clip)
+    enc = TorchEncoder(low_delay_p(width=64, height=64, frames=3), "cpu")
+    got, _ = enc.encode(clip)
+    assert set(enc.timing) == {"search_s", "commit_s", "wall_s"}
+    assert got == want
+    pics = SpecDecoder().decode(got)
+    assert len(pics) == 3 and all(p.hash_ok for p in pics)

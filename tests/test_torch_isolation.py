@@ -2,9 +2,9 @@
 JAX, and its copies of the host layers equal their originals.
 
 The port keeps verbatim copies of the JAX package's host layers (`spec/`,
-`config/`, `utils/`, `codec/gop.py` and the C++ entropy engine
-`cabac_cpp/`), so a fix to one of them is made in both packages; these
-tests fail when the two drift apart.
+`config/`, `utils/`, `codec/gop.py`, `codec/rate_control.py` and the C++
+entropy engine `cabac_cpp/`), so a fix to one of them is made in both
+packages; these tests fail when the two drift apart.
 """
 
 import ast
@@ -21,6 +21,7 @@ PORT = os.path.join(REPO, "fasthevc_tpu_torch")
 REF = os.path.join(REPO, "fasthevc_tpu")
 BANNED = ("fasthevc_tpu", "jax", "flax", "optax")
 COPIED_DIRS = ("spec", "config", "utils")
+COPIED_CODEC = ("gop.py", "rate_control.py")
 CPP_SOURCES = ("cabac.cpp", "slice_engine.cpp", "sanitize_main.cpp")
 
 
@@ -100,9 +101,9 @@ def _python_files(top):
 
 
 def test_copied_python_modules_equal_the_originals():
-    """spec/, config/, utils/ and codec/gop.py byte for byte (cabac_cpp's
-    __init__.py differs in its build location only), and synthesize_yuv
-    makes the same frames from both packages."""
+    """spec/, config/, utils/, codec/gop.py and codec/rate_control.py byte
+    for byte (cabac_cpp's __init__.py differs in its build location only),
+    and synthesize_yuv makes the same frames from both packages."""
     for d in COPIED_DIRS:
         ref_files = _python_files(os.path.join(REF, d))
         assert ref_files == _python_files(os.path.join(PORT, d)), d
@@ -110,8 +111,10 @@ def test_copied_python_modules_equal_the_originals():
             assert filecmp.cmp(os.path.join(REF, d, rel),
                                os.path.join(PORT, d, rel),
                                shallow=False), f"{d}/{rel}"
-    assert filecmp.cmp(os.path.join(REF, "codec", "gop.py"),
-                       os.path.join(PORT, "codec", "gop.py"), shallow=False)
+    for name in COPIED_CODEC:
+        assert filecmp.cmp(os.path.join(REF, "codec", name),
+                           os.path.join(PORT, "codec", name),
+                           shallow=False), f"codec/{name}"
     from fasthevc_tpu.utils import synthesize_yuv as ref_synth
     from fasthevc_tpu_torch.utils import synthesize_yuv as port_synth
     for a, b in zip(ref_synth(96, 64, 3, seed=11),

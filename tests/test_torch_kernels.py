@@ -136,11 +136,14 @@ def test_intra_kernel_matches_twin(cuda_device, lg, luma):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
 def test_satd_kernel_matches_twin(cuda_device, n):
+    """Every intra size over 35 modes; 64, the merge candidates' blocks at
+    CTU 64, over 2."""
     rng = np.random.default_rng(30 + n)
+    m = 2 if n == 64 else 35
     src = torch.from_numpy(rng.integers(0, 256, (400, n, n)).astype(np.int32))
-    preds = torch.from_numpy(rng.integers(0, 256, (400, 35, n, n))
+    preds = torch.from_numpy(rng.integers(0, 256, (400, m, n, n))
                              .astype(np.int32))
     s, p = src.to(cuda_device), preds.to(cuda_device)
     assert torch.equal(cost.satd(s, p), cost.satd_plain(s, p))
@@ -235,13 +238,18 @@ def _p_inputs(w, h, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sr,nref", [(8, 1), (8, 2), (64, 1), (64, 2)])
-def test_me_kernels_match_twins(cuda_device, sr, nref):
-    y, refs = _p_inputs(128, 96, 60 + sr, cuda_device)
+@pytest.mark.parametrize("sr,nref,ctu", [(8, 1, 32), (8, 2, 32),
+                                         (64, 1, 32), (64, 2, 32),
+                                         (64, 2, 64)])
+def test_me_kernels_match_twins(cuda_device, sr, nref, ctu):
+    """K9 and K10 against their twins; at CTU 64 the tier-64 search and
+    K10's 64-blocks (shared memory above the 48 KB default)."""
+    y, refs = _p_inputs(128, 96 if ctu == 32 else 128, 60 + sr, cuda_device)
     refs = refs[:nref].contiguous()
     before = dict(_build.LAUNCHES)
-    got = me.me_state(y, refs, sr)
-    want = me.me_state(y, refs, sr, plain=True)
+    got = me.me_state(y, refs, sr, max_size=ctu)
+    want = me.me_state(y, refs, sr, max_size=ctu, plain=True)
+    assert (64 in got.mv_int) == (ctu == 64)
     for n in got.base:
         assert torch.equal(got.base[n], want.base[n])
     for n in got.mv_int:
@@ -351,13 +359,13 @@ def test_mixed_commit_and_bs_deblock_match_twins(cuda_device, rdoq):
 def test_bi_cost_kernel_matches_twin(cuda_device):
     """K12 on an ME state of four references, with MVs far enough out to
     clamp at every picture edge (|mvx| + |mvy| within the rate table)."""
-    y, refs = _p_inputs(128, 96, 90, cuda_device)
+    y, refs = _p_inputs(128, 128, 90, cuda_device)
     refs = torch.cat([refs, refs.flip(0)])
     st = me.me_state(y, refs, 64, plain=True)
     rng = np.random.default_rng(91)
     before = _build.LAUNCHES["bi_cost"]
-    for n in (8, 16, 32):
-        b = (128 // n) * (96 // n)
+    for n in (8, 16, 32, 64):
+        b = (128 // n) ** 2
         mvs = [torch.from_numpy(rng.integers(-259, 260, (b, 2)).astype(
             np.int32)).to(cuda_device) for _ in range(2)]
         sel0 = torch.from_numpy(rng.integers(0, 2, b)).to(cuda_device)
@@ -367,7 +375,36 @@ def test_bi_cost_kernel_matches_twin(cuda_device):
         got, want = me.bi_cost(*args), me.bi_cost(*args, plain=True)
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
-    assert _build.LAUNCHES["bi_cost"] == before + 3
+    assert _build.LAUNCHES["bi_cost"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["p", "b"])
+def test_ctu64_searches_match_twins(cuda_device, kind):
+    """The P and B searches at CTU 64 on the card against their twins: K2,
+    K10 and K12 on 64-blocks, K9 at tier 64."""
+    clip = synthesize_yuv(128, 128, 5, seed=12)
+    fr = [torch.from_numpy(np.asarray(c[0], np.int32)).to(cuda_device)
+          for c in clip]
+    ls = [float(np.sqrt(0.57 * 2.0 ** ((27 - 12) / 3.0)))]
+    l0 = torch.stack([fr[1], fr[0]])[None]
+    if kind == "p":
+        def run(plain):
+            return search_p_maps(fr[2][None], l0, ls, 6, 3, 128, 128, 64,
+                                 plain=plain)
+    else:
+        l1 = torch.stack([fr[3], fr[4]])[None]
+
+        def run(plain):
+            return search_b_maps(fr[2][None], l0, l1, ls, 6, 3, 128, 128,
+                                 64, plain=plain)
+    before = dict(_build.LAUNCHES)
+    got = run(False)
+    names = ["satd", "subpel"] + (["bi_cost"] if kind == "b" else [])
+    for name in names:
+        assert _build.LAUNCHES[name] > before.get(name, 0), name
+    assert torch.equal(got, run(True))
+    assert (got[..., 2] > 0).any()
 
 
 @pytest.mark.cuda

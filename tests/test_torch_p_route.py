@@ -111,24 +111,25 @@ def test_ldp_stream_matches_tpu_device_route(monkeypatch, extra):
 def test_b_orders_and_the_classic_p_route_raise(monkeypatch):
     """B orders take the GOP device route (a 3-frame GOP-2 of B pictures,
     the first with l0 == l1); B and P orders under FASTHEVC_FORCE_CLASSIC
-    (the classic per-frame route, item 11) and rate control (item 7)
-    raise."""
+    take the classic per-frame route, with and without rate control, and
+    there (once refused) the port's streams are TpuEncoder's."""
     clip = synthesize_yuv(64, 64, 3, seed=1)
-    gop = [port_config.GopEntry(2, 1, "B", (-2,)),
-           port_config.GopEntry(1, 2, "B", (-1, 1))]
-    b_cfg = port_config.EncoderConfig(width=64, height=64, qp=32, frames=3,
-                                      intra_period=-1, gop=gop)
+    gop = [(2, 1, "B", (-2,)), (1, 2, "B", (-1, 1))]
+    kw = dict(width=64, height=64, qp=32, frames=3, intra_period=-1)
+    j_b, b_cfg = (m.EncoderConfig(gop=[m.GopEntry(*e) for e in gop], **kw)
+                  for m in (jax_config, port_config))
     stream, _ = _port_encode(monkeypatch, b_cfg, clip)
     assert _hash_clean(stream, 3)
-    _, ldp = _configs("low_delay_p", width=64, height=64, frames=3)
+    j_ldp, ldp = _configs("low_delay_p", width=64, height=64, frames=3)
     monkeypatch.setenv("FASTHEVC_FORCE_CLASSIC", "1")
-    for cfg in (b_cfg, ldp):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TorchEncoder(cfg, "cpu").encode(clip)
-    for cfg in (b_cfg, ldp):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TorchEncoder(dataclasses.replace(cfg, target_bitrate=100000),
-                         "cpu")
+    for jcfg, cfg in ((j_b, b_cfg), (j_ldp, ldp)):
+        for rc in ({}, {"target_bitrate": 100000}):
+            want, _ = TpuEncoder(dataclasses.replace(jcfg, **rc)).encode(clip)
+            enc = TorchEncoder(dataclasses.replace(cfg, **rc), "cpu")
+            got, _ = enc.encode(clip)
+            assert set(enc.timing) == {"search_s", "commit_s", "wall_s"}
+            assert got == want
+            assert _hash_clean(got, 3)
 
 
 def test_the_port_takes_only_its_own_config():
