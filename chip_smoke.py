@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # only the profiled 1080p LDP and RA
                                        # encodes
+    python3 chip_smoke.py --profile-mesh   # only phase 16's cases, profiled
 
 Phases (any failure raises, and the script exits non-zero):
   0. the card: requires torch.cuda.is_available(); prints nvidia-smi's
@@ -42,6 +43,12 @@ Phases (any failure raises, and the script exits non-zero):
         tensor's largest); K15 on the flat parameters, bit for bit; each
         with its time, twin time, bound and the library call's time (the
         conv2d chain, its backward, torch.optim.Adam);
+     f. the multi-device layer's kernels at the shapes of an interior rank
+        of the 1080p (2, 4) mesh (a 480-column tile): K16 (the halo
+        exchange: the search's source halo, and its packed form), K6's
+        tile-column form with P strengths and its CU cbf pass, K7's halo
+        form with both neighbours' columns, exactly, each with its time,
+        twin time and bound;
   3. encodes synthesized 1920x1080 QP32 frames with TorchEncoder on its
      all-intra device route (bench.py's tools: default tools,
      auto_tile_grid tiles, hash type 2): one warm-up group, then 16 timed
@@ -103,6 +110,19 @@ Phases (any failure raises, and the script exits non-zero):
      with target_bitrate at 0.8 of the rate its fixed-QP phase realized;
      prints the realized rate beside the target and the fps beside phases
      3 and 7, and requires each route's kernels;
+ 16. the in-process ("gop", "tile") mesh of 2 x 4 ranks on the one card,
+     one thread and one CUDA stream per rank: 1920x1080 all-intra with 4
+     tile columns (8 frames, SAO on), low_delay_p with one reference and 4
+     tile columns (2 segments of 4, SR 64: an ME halo of 128 columns on
+     480-column tiles), and IDR + P + B with the two-entry GOP (2
+     segments of 3); each sharded stream must equal TorchEncoder's
+     single-device route byte for byte, both fps printed, and K16, K6's
+     tile-column form and cbf pass and K7's halo form must have been
+     launched; the streams are decoded in the mesh-decode jobs;
+ 17. BASELINE config 5 through parallel.multiproc.gop_parallel_encode_check:
+     3840x2160, 16 frames, 2 processes on the card, tiles 2x2, intra
+     period 8: the concatenated stream must equal one process's byte for
+     byte, both fps printed; its decode runs in the config5-decode jobs;
  and the classic_small jobs: 416x240 streams of this slice's paths
      (random access at CTU 64, which needs K12; low-delay P at CTU 64 with
      a seeded CTU-64 CNN under fast_partition; weighted prediction on a
@@ -110,13 +130,22 @@ Phases (any failure raises, and the script exits non-zero):
      FASTHEVC_FORCE_CLASSIC; HRD on the random-access device route; rate
      control on the all-intra device route) through the kernels on the
      card, through the twins on the card and through the twins on the
-     CPU: identical, hash-clean.
+     CPU: identical, hash-clean; the sharded-small job: the dry run's two
+     configurations on 8 in-process ranks through the kernels on the card,
+     the twins on the card and the twins on the CPU, identical and each
+     equal to the single-device route, hash-clean; and the mesh-decode and
+     config5-decode jobs: in SpecDecoder, the whole IDR+P+B stream of
+     phase 16 (all 6 pictures, one decoder pass), the IDR and first P of
+     each segment of the all-intra and low-delay P streams (pictures 0-1;
+     0-1 and 4-5), and config 5's pictures 8-9 (the second process's IDR
+     and first P) decode hash-clean.
 
 Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10),
 the training (12), the timed fast-partition encodes (13) and phases 14
-and 15 alone on the card; then every check that runs twins (K5's twins of
-phase 2, phases 4, 5, 6's 416x240 check, 8, 9, 11, 13's 416x240 checks
-and classic_small) and config 4 as JOBS, each a process of its own
+and 15, then 16 and 17, alone on the card; then every check that runs
+twins (K5's twins of phase 2, phases 4, 5, 6's 416x240 check, 8, 9, 11,
+13's 416x240 checks, classic_small and sharded-small), config 4 and the
+decodes of phases 16 and 17 as JOBS, each a process of its own
 (`chip_smoke.py --job NAME`), all at once: the twins are bound by the
 host's Python and launches, so they overlap.
 
@@ -202,7 +231,15 @@ META = {
     "cnn_backward": ("csrc/cnn.cu",
                      "fasthevc_tpu/models/partition_cnn.py:158"),
     "adam": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:153"),
+    "halo": ("csrc/halo.cu", "fasthevc_tpu/parallel/sharded.py:46"),
+    "deblock_window": ("csrc/deblock.cu",
+                       "fasthevc_tpu/parallel/sharded.py:67"),
+    "sao_halo": ("csrc/sao.cu", "fasthevc_tpu/parallel/sharded.py:186"),
 }
+# the multi-device layer's kernels: K16, K6's tile-column form, K7's halo
+# form (phases 2f and 16; the P/B mesh cases run K6's cbf pass too)
+MESH_KERNELS = ("halo", "deblock_window", "sao_halo")
+MESH = (2, 4)            # phase 16's in-process ("gop", "tile") mesh
 
 
 def _card_line() -> str:
@@ -604,9 +641,16 @@ def phase_inter_kernels(torch, timed, work):
     work["commit_mixed"] = (fpx * 1.5 * (4 + 4 + 4 + 2),
                             _transform_ops(dm))
 
-    # K6 with strengths (and the cbf pass), one frame
+    # K6's cbf pass, then K6 with strengths from it, one frame
+    lv = rec[3]
+    cbf = deblock.tu_cbf(lv, dm, 5)
+    _same(torch, "K6 cbf", cbf, deblock.tu_cbf(lv, dm, 5, plain=True))
+    timed["deblock_cbf"] = (
+        _median_ms(lambda: deblock.tu_cbf(lv, dm, 5)),
+        _median_ms(lambda: deblock.tu_cbf(lv, dm, 5, plain=True)))
+    work["deblock_cbf"] = (2 * fpx + 8 * gh * gw, fpx)
     dargs = (*rec[:3], dm, [QP], [qc], [qc], 5)
-    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, lv_y=rec[3])
+    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, cbf=cbf)
     dk = deblock.deblock(*dargs, **kw)
     for name, a, b in zip(("y", "cb", "cr"), dk,
                           deblock.deblock(*dargs, plain=True, **kw)):
@@ -617,14 +661,6 @@ def phase_inter_kernels(torch, timed, work):
     segs = HEIGHT // 4 * gw + WIDTH // 4 * gh
     work["deblock_bs"] = (fpx * 1.5 * 4 * 2 + 4 * gh * gw * 8,
                           (120 + 40) * segs)
-    # the cbf pass alone: its share of the call above
-    lv = rec[3]
-    _same(torch, "K6 cbf", deblock.granule_nz(lv),
-          deblock.granule_nz(lv, plain=True))
-    timed["deblock_cbf"] = (
-        _median_ms(lambda: deblock.granule_nz(lv)),
-        _median_ms(lambda: deblock.granule_nz(lv, plain=True)))
-    work["deblock_cbf"] = (2 * fpx + 4 * gh * gw, fpx)
     torch.cuda.synchronize()
 
 
@@ -1534,6 +1570,22 @@ def job_fast_small(torch, route: str) -> dict:
                    f"hash_ok"}
 
 
+def _device_busy_us(events) -> float:
+    """Microseconds in which the card ran at least one of `events`."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
 def profile_route(torch, label, clip, cfg, warm) -> None:
     """One profiled 1080p encode of `clip` (after a warm-up on `warm` and
     one unprofiled repeat): device busy share, and device time by
@@ -1569,17 +1621,7 @@ def profile_route(torch, label, clip, cfg, warm) -> None:
     if not events:
         print("profiled: the profiler recorded no device time")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = _device_busy_us(events)
     idle = 100 * (1 - busy / 1e3 / (wall * 1e3))
     print(f"profiled: device busy {busy / 1e3:.3f} ms of a "
           f"{wall * 1e3:.3f} ms wall, idle {idle:.2f}%")
@@ -1621,6 +1663,351 @@ def job_k5_mixed(torch) -> dict:
     return {"twin_ms": twin_ms, "log": "K5 mixed == its twin (1080p P frame)"}
 
 
+def _quadtree_depth(rng, gh: int, gw: int):
+    """A seeded random CTU-32 depth map [gh, gw] (depths 0-2)."""
+    depth = np.zeros((gh, gw), np.int32)
+    for cy in range(0, gh, 4):
+        for cx in range(0, gw, 4):
+            if rng.random() < 0.7:
+                for sy in range(2):
+                    for sx in range(2):
+                        depth[cy + 2 * sy:cy + 2 * sy + 2,
+                              cx + 2 * sx:cx + 2 * sx + 2] = \
+                            1 + (rng.random() < 0.5)
+    return depth
+
+
+def phase_mesh_kernels(torch, timed, work):
+    """Phase 2f: K16, K6's tile-column form (with its CU cbf pass) and K7's
+    halo form against their twins at the shapes of an interior rank of a
+    1080p (2, 4) mesh (tile 1: 480 columns), exactly."""
+    from fasthevc_tpu_torch.ops import deblock, halo, sao
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2025)
+    tw, ph = WIDTH // MESH[1], -(-HEIGHT // 32) * 32
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape)
+                                .astype(np.uint8)).to(dev)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    # K16: the intra search's source exchange (a CTU left, two right)
+    shapes = [(1, ph, tw), (1, ph // 2, tw // 2), (1, ph // 2, tw // 2)]
+    own, left, right = ([u8(*s) for s in shapes] for _ in range(3))
+    wl, wr = [32, 16, 16], [64, 32, 32]
+    got = halo.halo_extend(own, left, right, wl, wr)
+    for k, (a, b) in enumerate(zip(got, halo.halo_extend(
+            own, left, right, wl, wr, plain=True))):
+        _same(torch, f"K16 plane {k}", a, b)
+    for k, (a, b) in enumerate(zip(halo.halo_pack(own, wl, wr),
+                                   halo.halo_pack(own, wl, wr, plain=True))):
+        _same(torch, f"K16 pack {k}", a, b)
+    timed["halo"] = (
+        _median_ms(lambda: halo.halo_extend(own, left, right, wl, wr)),
+        _median_ms(lambda: halo.halo_extend(own, left, right, wl, wr,
+                                            plain=True)))
+    out_bytes = sum(g.numel() * g.element_size() for g in got)
+    work["halo"] = (2 * out_bytes, 0.0)
+
+    # K6's tile-column form on the tile's recon extended by 8 luma columns
+    # each side, with P strengths from seeded maps
+    ew = tw + 16
+    gh, gw = HEIGHT // 8, ew // 8
+    yy, xx = np.mgrid[0:HEIGHT, 0:ew]
+    base = 110 + 50 * np.sin(xx / 11.0) * np.cos(yy / 7.0)
+    planes = [i32(np.clip(base + rng.integers(-20, 21, base.shape),
+                          0, 255))[None]]
+    planes += [i32(rng.integers(90, 170, (HEIGHT // 2, ew // 2)))[None]
+               for _ in range(2)]
+    dm = i32(_quadtree_depth(rng, gh, gw))[None]
+    lv = torch.from_numpy((rng.random((HEIGHT, ew)) < 0.004)
+                          .astype(np.int16) * 3)[None].to(dev)
+    maps = dict(dir_map=i32(rng.integers(0, 4, (gh, gw)))[None],
+                mv_map=i32(rng.integers(-12, 12, (gh, gw, 4)))[None])
+    cbf = deblock.tu_cbf(lv, dm, 5)
+    _same(torch, "K6 cbf (tile)", cbf, deblock.tu_cbf(lv, dm, 5,
+                                                      plain=True))
+    dargs = (*planes, dm, QP, QP - 1, QP - 1, 5)
+    dkw = dict(maps, cbf=cbf, x0=tw - 8, pic_w=WIDTH)
+    dk = deblock.deblock(*dargs, **dkw)
+    for name, a, b in zip(("y", "cb", "cr"), dk,
+                          deblock.deblock(*dargs, plain=True, **dkw)):
+        _same(torch, f"K6 window {name}", a, b)
+    timed["deblock_window"] = (
+        _median_ms(lambda: deblock.deblock(*dargs, **dkw)),
+        _median_ms(lambda: deblock.deblock(*dargs, plain=True, **dkw)))
+    px = HEIGHT * ew
+    segs = HEIGHT // 4 * gw + ew // 4 * gh
+    work["deblock_window"] = (px * 1.5 * 4 * 2 + 4 * gh * gw * 7, 120 * segs)
+
+    # K7's halo form on the tile with both neighbours' columns
+    src = [i32(rng.integers(0, 256, (HEIGHT >> (c > 0), tw >> (c > 0))))
+           [None] for c in range(3)]
+    rec = [(s + i32(rng.integers(-5, 6, s.shape[1:]))[None]).clamp(0, 255)
+           for s in src]
+    cols = [tuple(i32(rng.integers(0, 256, HEIGHT >> (c > 0)))[None]
+                  for _ in range(2)) for c in range(3)]
+    skw = dict(halo_y=cols[0], halo_cb=cols[1], halo_cr=cols[2],
+               l_avail=True, r_avail=True)
+    sk = sao.sao(*src, *rec, 5, **skw)
+    for name, a, b in zip(("y", "cb", "cr", "params"), sk,
+                          sao.sao(*src, *rec, 5, plain=True, **skw)):
+        _same(torch, f"K7 halo {name}", a, b)
+    timed["sao_halo"] = (
+        _median_ms(lambda: sao.sao(*src, *rec, 5, **skw)),
+        _median_ms(lambda: sao.sao(*src, *rec, 5, plain=True, **skw)))
+    tpx = HEIGHT * tw
+    work["sao_halo"] = (tpx * 1.5 * 4 * 3, 30 * tpx * 1.5)
+    torch.cuda.synchronize()
+
+
+def _mesh_cases():
+    """Phase 16's cases: name -> (config, clip, driver name)."""
+    from fasthevc_tpu_torch.config import EncoderConfig, GopEntry
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+
+    ai = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=GROUP,
+                       tile_cols=MESH[1], tile_rows=1, sao=True, hash_type=2)
+    ldp = _ldp_cfg(2 * 4).replace(num_ref_per_list=1, tile_cols=MESH[1],
+                                  tile_rows=1, intra_period=4)
+    ipb = EncoderConfig(width=WIDTH, height=HEIGHT, qp=QP, frames=6,
+                        tile_cols=MESH[1], tile_rows=1, sao=True,
+                        hash_type=2, intra_period=3, search_range=SR,
+                        num_ref_per_list=1,
+                        gop=[GopEntry(2, 0, "P", (-2,)),
+                             GopEntry(1, 1, "B", (-1, 1))])
+    return {
+        "all-intra": (ai, _ai_clip()[:GROUP], "sharded_encode_all_intra"),
+        "low-delay P": (ldp, _ldp_clip()[:8], "sharded_encode_gop"),
+        "IDR+P+B": (ipb, synthesize_yuv(WIDTH, HEIGHT, 6, seed=9),
+                    "sharded_encode_gop"),
+    }
+
+
+def _mesh_stream_path(name: str) -> str:
+    """Where phases 16 and 17 leave a stream for the decode jobs (under the
+    git-ignored build directory)."""
+    from fasthevc_tpu_torch import _build
+    tag = name.replace(" ", "_").replace("+", "")
+    return os.path.join(_build.BUILD_DIR, f"mesh_{tag}.bin")
+
+
+def phase_mesh(torch) -> dict:
+    """Phase 16: the in-process ("gop", "tile") mesh of MESH ranks on the
+    card, every rank on its own stream: each case's sharded stream must
+    equal TorchEncoder's single-device route byte for byte; prints both
+    fps; requires the mesh kernels and returns their launches.  The
+    streams go to the build directory for the decode jobs."""
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.parallel import gop_tile_mesh, sharded
+
+    mesh = gop_tile_mesh(MESH[0] * MESH[1], n_tile=MESH[1], device="cuda")
+    launches: dict = {}
+    for name, (cfg, clip, driver) in _mesh_cases().items():
+        encode = getattr(sharded, driver)
+        encode(clip, cfg, mesh)          # warm-up: streams, tables, caches
+        _encode(torch, cfg, clip)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        tm: dict = {}
+        t0 = time.perf_counter()
+        stream, _ = encode(clip, cfg, mesh, timing=tm)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = -(-len(clip) // MESH[0])
+        print(f"launches in the mesh {name} encode ({steps} steps of "
+              f"{MESH[0] * MESH[1]} ranks): "
+              f"{ {k: v for k, v in _build.LAUNCHES.items()} }")
+        for k, v in _build.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        single, _, sdt, _ = _encode(torch, cfg, clip)
+        if stream != single:
+            raise AssertionError(f"mesh {name}: sharded stream ({len(stream)}"
+                                 f" B) differs from the single-device route's"
+                                 f" ({len(single)} B)")
+        os.makedirs(os.path.dirname(_mesh_stream_path(name)), exist_ok=True)
+        with open(_mesh_stream_path(name), "wb") as f:
+            f.write(stream)
+        print(f"mesh {MESH} {name}, 1080p QP32, {len(clip)} frames, "
+              f"{cfg.tile_cols} tile columns: sharded == single-device "
+              f"({len(stream)} bytes); sharded {len(clip) / dt:.4f} fps "
+              f"(wall {dt:.3f} s: the ranks' threads {tm['run_s']:.3f} s, "
+              f"fetching their outputs {tm['fetch_s']:.3f} s, host CABAC "
+              f"and NAL glue {tm['entropy_s']:.3f} s), single-device "
+              f"{len(clip) / sdt:.4f} fps (both after a warm-up)")
+    print(f"launches in the mesh encodes: {launches}")
+    _require(launches, MESH_KERNELS + ("deblock_cbf",), "mesh encodes")
+    return launches
+
+
+def profile_mesh(torch) -> None:
+    """`--profile-mesh`: each phase-16 case on the (2, 4) mesh, after a
+    warm-up, once unprofiled and once under torch.profiler (device
+    activity only).  The unprofiled run splits the host's time: each rank
+    thread's wall into its CPU time, its waits in the mesh's barriers and
+    the rest (ready but held off the CPU: the GIL, or a blocking call),
+    and K16's host time into describing its planes (outputs, descriptors)
+    and the launch call.  The profiled run gives the card's busy share of
+    the wall and its time by kernel, K16's own kernel time included."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fasthevc_tpu_torch.ops import halo
+    from fasthevc_tpu_torch.parallel import gop_tile_mesh, group, sharded
+
+    lock = threading.Lock()
+    k16 = dict(extend_s=0.0, launch_s=0.0, extend_n=0, launch_n=0)
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    k16[key + "_s"] += time.perf_counter() - t0
+                    k16[key + "_n"] += 1
+        return wrapper
+
+    # group.py calls halo_extend by its own name; halo_extend calls _launch
+    group.halo_extend = timed(halo.halo_extend, "extend")
+    halo._launch = timed(halo._launch, "launch")
+    mesh = gop_tile_mesh(MESH[0] * MESH[1], n_tile=MESH[1], device="cuda")
+    for name, (cfg, clip, driver) in _mesh_cases().items():
+        encode = getattr(sharded, driver)
+        encode(clip, cfg, mesh)          # warm-up
+        torch.cuda.synchronize()
+        mesh.rank_times.clear()
+        k16.update(extend_s=0.0, launch_s=0.0, extend_n=0, launch_n=0)
+        tm: dict = {}
+        t0 = time.perf_counter()
+        encode(clip, cfg, mesh, timing=tm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rt = mesh.rank_times
+        w = sum(v["wall_s"] for v in rt.values())
+        c = sum(v["cpu_s"] for v in rt.values())
+        b = sum(v["wait_s"] for v in rt.values())
+        print(f"--- mesh {MESH} {name}, {len(clip)} frames, unprofiled: wall "
+              f"{wall:.4f} s (ranks' programs {tm['run_s']:.4f}, fetch "
+              f"{tm['fetch_s']:.4f}, host CABAC and glue "
+              f"{tm['entropy_s']:.4f}); the {len(rt)} rank threads: wall "
+              f"{w:.4f} thread-s = CPU {c:.4f} + barrier waits {b:.4f} + "
+              f"held off the CPU {w - c - b:.4f}; K16 host: "
+              f"{k16['extend_n']} calls, {k16['extend_s'] * 1e3:.3f} ms "
+              f"= describing {(k16['extend_s'] - k16['launch_s']) * 1e3:.3f}"
+              f" + launching {k16['launch_s'] * 1e3:.3f} ms "
+              f"({k16['launch_n']} launches)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            encode(clip, cfg, mesh)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.time_range.elapsed_us() > 0]
+        if not events:
+            print("profiled: the profiler recorded no device time")
+            continue
+        busy = _device_busy_us(events)
+        by_name: dict = {}
+        for e in events:
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
+        total = sum(t for t, _ in by_name.values())
+        print(f"profiled: wall {pwall:.4f} s, device busy "
+              f"{busy / 1e3:.3f} ms, idle {100 * (1 - busy / 1e6 / pwall):.2f}"
+              f"%; device time summed over streams {total / 1e3:.3f} ms")
+        for kname, (t, k) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:14]:
+            print(f"  {t / 1e3:10.3f} ms {100 * t / total:5.1f}% {k:6d}x "
+                  f"{kname[:80]}")
+        t, k = next(((t, k) for n, (t, k) in by_name.items()
+                     if "halo_kernel" in n), (0.0, 0))
+        print(f"  K16 on the card: {k} launches, {t / 1e3:.3f} ms, "
+              f"{t / max(k, 1):.2f} us a launch")
+
+
+def phase_config5(torch) -> None:
+    """Phase 17: BASELINE config 5 through gop_parallel_encode_check: 4K,
+    16 frames, 2 processes on the card, tiles 2x2, intra period 8; the
+    concatenated stream must equal one process's byte for byte (its
+    hash-clean decode runs in the config5-decode job)."""
+    from fasthevc_tpu_torch.parallel.multiproc import (
+        gop_parallel_encode_check)
+
+    res = gop_parallel_encode_check(3840, 2160, 16, n_procs=2, tile_cols=2,
+                                    tile_rows=2, intra_period=8,
+                                    device="cuda", timeout=600, decode=False,
+                                    keep=_mesh_stream_path("config5"))
+    if not (res["byte_identical"] and all(rc == 0 for rc in res["rcs"])):
+        raise AssertionError(f"config 5: {res}")
+    print(f"config 5 (3840x2160, 16 frames, tiles 2x2, intra period 8): 2 "
+          f"processes == 1 process ({res['bytes']} bytes); 2 processes "
+          f"{16 / res['parallel_s']:.4f} fps, 1 process "
+          f"{16 / res['single_s']:.4f} fps (wall, process start and "
+          f"CUDA context included)")
+
+
+def job_mesh_decode(torch, names) -> dict:
+    """Phase 16-17's streams decode with matching hashes in SpecDecoder
+    (pictures [first, last) of each, IDR-led)."""
+    from fasthevc_tpu_torch.spec import bitstream as bs
+    from fasthevc_tpu_torch.spec.decoder import SpecDecoder
+
+    logs = []
+    for name, first, last in names:
+        t0 = time.perf_counter()
+        with open(_mesh_stream_path(name), "rb") as f:
+            stream = f.read()
+        nals = list(bs.split_annexb(stream))
+        # the parameter sets, then the access units of pictures
+        # [first, last): each picture is its slice NAL and hash SEI
+        head = [n for n in nals if n[0] in (bs.NAL_VPS, bs.NAL_SPS,
+                                            bs.NAL_PPS)]
+        pics, cur = [], []
+        for n in nals:
+            if n in head:
+                continue
+            cur.append(n)
+            if n[0] == bs.NAL_SUFFIX_SEI:
+                pics.append(cur)
+                cur = []
+        dec = SpecDecoder()
+        for nal_type, _, rbsp in head + [n for p in pics[first:last]
+                                          for n in p]:
+            dec._decode_nal(nal_type, rbsp)
+        if not (len(dec.pictures) == last - first
+                and all(p.hash_ok for p in dec.pictures)):
+            raise AssertionError(f"{name}: pictures {first}-{last - 1} do "
+                                 f"not decode hash-clean")
+        logs.append(f"{name} pictures {first}-{last - 1} hash_ok "
+                    f"({time.perf_counter() - t0:.1f} s)")
+    return {"log": "; ".join(logs)}
+
+
+def job_sharded_small(torch) -> dict:
+    """The dry run's two configurations on an in-process mesh of 8 ranks:
+    through the kernels on the card, the twins on the card and the twins
+    on the CPU (each equal to the single-device route and hash-clean);
+    all three streams must be identical."""
+    from fasthevc_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    runs = [dryrun_multichip(8, "cuda"), dryrun_multichip(8, "cuda",
+                                                          plain=True),
+            dryrun_multichip(8, "cpu")]
+    if not runs[0] == runs[1] == runs[2]:
+        raise AssertionError("sharded-small: kernel, card-twin and CPU-twin "
+                             "streams differ")
+    return {"log": "sharded-small (dry run, 8 ranks): kernels == card twins "
+            "== CPU twins, " + ", ".join(f"{k} {len(v)} bytes"
+                                         for k, v in runs[0].items())}
+
+
 # Checks that run the twins, each in its own process (the twins are bound
 # by the host's launches and Python, so they overlap): phase 2's K5
 # twins, 4, 5 and 6's 416x240 check, 8, 9, 11, and phase 13's config 4
@@ -1654,7 +2041,23 @@ JOBS = {
                 "weighted prediction on a fade", "lossless LDP",
                 "quality() two-pass search",
                 "rate-controlled all-intra device route"]),
+    # the multi-device layer: the dry run's streams three ways, and the
+    # hash-clean decodes of phase 16's and 17's streams, started as soon as
+    # each stream exists (EARLY_JOBS).  SpecDecoder is pure Python, slow
+    # at 1080p and slower at 4K: the IDR+P+B stream is decoded whole (I, P
+    # and B pictures of both gop rows); of the others, IDR-led spans: each
+    # gop row's first pictures, config 5's second process's IDR and P
+    "sharded-small": job_sharded_small,
+    "mesh-decode": lambda torch: job_mesh_decode(
+        torch, [("all-intra", 0, 2), ("low-delay P", 0, 2),
+                ("low-delay P", 4, 6)]),
+    "mesh-decode-ipb": lambda torch: job_mesh_decode(
+        torch, [("IDR+P+B", 0, 6)]),
+    "config5-decode": lambda torch: job_mesh_decode(
+        torch, [("config5", 8, 10)]),
 }
+# the jobs started before the others, each once its stream is written
+EARLY_JOBS = ("mesh-decode", "mesh-decode-ipb", "config5-decode")
 
 
 # The twin routes at 1080p set the length of the jobs' phase: every other
@@ -1662,17 +2065,24 @@ JOBS = {
 LONG_JOBS = ("ai-twin-route", "ldp-twin-route")
 
 
-def _run_jobs(t_start: float) -> dict:
-    """Every JOBS entry in its own process (`chip_smoke.py --job NAME`),
-    all at once, those outside LONG_JOBS at niceness 10; each prints its
-    log and, last, a JSON line of results.  Raises if one fails; stops
-    every process it started."""
+def _start_jobs(names) -> dict:
+    """JOBS entries in processes of their own (`chip_smoke.py --job
+    NAME`), those outside LONG_JOBS at niceness 10."""
     here = os.path.abspath(__file__)
-    procs = {name: subprocess.Popen(
+    return {name: subprocess.Popen(
         [sys.executable, here, "--job", name], cwd=os.path.dirname(here),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         preexec_fn=None if name in LONG_JOBS else lambda: os.nice(10))
-        for name in JOBS}
+        for name in names}
+
+
+def _run_jobs(t_start: float, early: dict) -> dict:
+    """Every JOBS entry not in `early` (the processes already started) in
+    its own process, all at once; each prints its log and, last, a JSON
+    line of results.  Raises if one fails; stops every process it
+    started."""
+    procs = dict(early)
+    procs.update(_start_jobs([n for n in JOBS if n not in early]))
     results, failed = {}, []
     try:
         for name, proc in procs.items():
@@ -1721,6 +2131,13 @@ def main() -> int:
     _build.lib()
     print(f"kernel build: {time.perf_counter() - t_start:.2f} s "
           f"({len(_build.sources())} sources)")
+    if "--profile-mesh" in argv:
+        profile_mesh(torch)
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--profile" in argv:
         clip = _ldp_clip()
         profile_route(torch, "low-delay P", clip, _ldp_cfg(len(clip)),
@@ -1747,6 +2164,8 @@ def main() -> int:
     phase_ctu64_kernels(torch)
     torch.cuda.empty_cache()
     phase_cnn_kernels(torch, errs, timed, work, lib_ms)
+    torch.cuda.empty_cache()
+    phase_mesh_kernels(torch, timed, work)
     _stamp(t_start, "phase 2 (kernels; K5's twins run in the jobs)")
     # the timed encodes first, alone on the card and the host
     torch.cuda.empty_cache()
@@ -1772,7 +2191,16 @@ def main() -> int:
     phase_rate_control(torch, full)
     _stamp(t_start, "phases 14 and 15 (the classic route, rate control)")
     torch.cuda.empty_cache()
-    jobs = _run_jobs(t_start)
+    got = phase_mesh(torch)
+    launches.update({k: v for k, v in got.items() if k in MESH_KERNELS})
+    early = _start_jobs(["mesh-decode", "mesh-decode-ipb"])
+    _stamp(t_start, "phase 16 (the (2, 4) mesh)")
+    torch.cuda.empty_cache()
+    phase_config5(torch)
+    early.update(_start_jobs(["config5-decode"]))
+    _stamp(t_start, "phase 17 (config 5, 2 processes)")
+    torch.cuda.empty_cache()
+    jobs = _run_jobs(t_start, early)
     if jobs["small-ra-card"]["sha"] != jobs["small-ra-cpu"]["sha"]:
         raise AssertionError("416x240 random-access: the kernel streams of "
                              "the two checks differ")
@@ -1800,7 +2228,12 @@ def main() -> int:
           f"at CTU 32, cnn_train, cnn_backward and adam on {CNN_BATCH} "
           "CTUs of 32; the K5 twins' times were taken beside the other "
           "twin jobs; cnn_depth's launches are phase 13's three timed "
-          "encodes', the training kernels' phase 12's)")
+          "encodes', the training kernels' phase 12's; phase 2f: an "
+          "interior rank of the 1080p (2, 4) mesh, halo on its source "
+          "exchange, deblock_window on its recon extended by 8 columns "
+          "with P maps, sao_halo with both neighbours; their launches are "
+          "phase 16's three mesh encodes'; deblock_cbf is timed in phase "
+          "2b on the whole 1080p P frame)")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fasthevc_tpu_torch/{src}", "replaces": rep,

@@ -10,8 +10,9 @@ Each C entry point launches on the stream it is given (PyTorch's current
 stream) and returns `cudaGetLastError()`; `check` raises if that is not 0.
 
 `LAUNCHES` counts kernel launches by kernel name.  Each wrapper adds one
-where it launches its kernel, and nowhere else, so a run can show that its
-path went through the kernels.
+(`launched`) where it launches its kernel, and nowhere else, so a run can
+show that its path went through the kernels.  The ranks of an in-process
+mesh launch from several threads, so the count is taken under a lock.
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
+
+
+def launched(name: str, n: int = 1) -> None:
+    """Count n launches of kernel `name` (thread-safe)."""
+    with _count_lock:
+        LAUNCHES[name] += n
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,15 +61,17 @@ _SIGNATURES = {
     # y/cb/cr, dct, scans, mode_tab, tiles, ntx, nty, ftab, itab, meta,
     # lams, qps, F, ph, pw, coded_w, coded_h, sdh, rdoq, bit_depth, stream
     "fhv_commit": [_P] * 19 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
-    # in y/cb/cr, out y/cb/cr, depth, dir, mv, ref, nz8, beta_tab,
-    # tc_tab, qps, F, H, W, log2_ctu, bit_depth, pass, stream
-    "fhv_deblock": [_P] * 14 + [_I] * 6 + [_P],
-    # lv_y, nz8, F, H, W, stream
-    "fhv_deblock_cbf": [_P, _P, _I, _I, _I, _P],
-    # src y/cb/cr, rec y/cb/cr, params, F, H, W, log2_ctu, bit_depth, stream
-    "fhv_sao_stats": [_P] * 7 + [_I] * 5 + [_P],
-    # rec y/cb/cr, out y/cb/cr, params, F, H, W, log2_ctu, bit_depth, stream
-    "fhv_sao_apply": [_P] * 7 + [_I] * 5 + [_P],
+    # in y/cb/cr, out y/cb/cr, depth, dir, mv, ref, cbf, beta_tab,
+    # tc_tab, qps, F, H, W, log2_ctu, bit_depth, pass, x0, pic_w, stream
+    "fhv_deblock": [_P] * 14 + [_I] * 8 + [_P],
+    # lv_y, depth, cbf, F, H, W, log2_ctu, stream
+    "fhv_deblock_cbf": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # src y/cb/cr, rec y/cb/cr, halo l/r y, cb, cr (or NULL), params, F, H,
+    # W, log2_ctu, bit_depth, l_avail, r_avail, stream
+    "fhv_sao_stats": [_P] * 13 + [_I] * 7 + [_P],
+    # rec y/cb/cr, out y/cb/cr, halo l/r y, cb, cr (or NULL), params, F, H,
+    # W, log2_ctu, bit_depth, l_avail, r_avail, stream
+    "fhv_sao_apply": [_P] * 13 + [_I] * 7 + [_P],
     # planes, out, F, H, W, stream
     "fhv_checksum": [_P, _P, _I, _I, _I, _P],
     # in, out, N, H, W, stream
@@ -86,6 +97,8 @@ _SIGNATURES = {
     "fhv_cnn_bwd": [_P] * 8 + [_I, _I, _F, _P],
     # theta, grad, m, v, P, lr, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2, stream
     "fhv_adam": [_P] * 4 + [_I] + [_F] * 8 + [_P],
+    # plane descriptors (int64), n planes, stream
+    "fhv_halo": [_P, _I, _P],
 }
 
 _lib = None

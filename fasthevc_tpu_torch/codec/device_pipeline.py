@@ -23,7 +23,7 @@ import torch
 
 from .. import _build
 from ..ops.commit import wavefront_commit_intra, wavefront_commit_mixed
-from ..ops.deblock import deblock
+from ..ops.deblock import deblock, tu_cbf
 from ..ops.me import inter_pred_planes
 from ..ops.sao import sao
 from .search import search_b_maps, search_intra_maps_batch, search_p_maps
@@ -75,7 +75,7 @@ def _checksum_cuda(planes: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(f, dtype=torch.int32, device=planes.device)
     rc = _build.lib().fhv_checksum(planes.data_ptr(), out.data_ptr(), f, h, w,
                                    _build.stream_handle(planes))
-    _build.LAUNCHES["checksum"] += 1
+    _build.launched("checksum")
     _build.check(rc, "checksum")
     return out.to(torch.int64) & 0xFFFFFFFF
 
@@ -100,7 +100,8 @@ def _filter_and_pack(sy, scb, scr, dm, packed, committed, qp_deblock,
         bs_kw = {}
         if inter_maps is not None:
             bs_kw = dict(dir_map=inter_maps[0], mv_map=inter_maps[1],
-                         ref_map=inter_maps[2], lv_y=lv_y)
+                         ref_map=inter_maps[2],
+                         cbf=tu_cbf(lv_y, dm, log2_ctu, plain=plain))
         ry, rcb, rcr = deblock(ry, rcb, rcr, dm, qp_deblock, qp_cb, qp_cr,
                                log2_ctu, plain=plain, **bs_kw)
     if sao_on:

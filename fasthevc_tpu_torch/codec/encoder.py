@@ -101,6 +101,12 @@ def inter_batch_cap(sp) -> int:
                               "4" if big else "8"))
 
 
+def lambda_sqrt(qp: int) -> float:
+    """sqrt of the RD lambda 0.57 * 2^((qp - 12) / 3), in f64 (the searches
+    round it to f32)."""
+    return float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
+
+
 class _NativeMotion:
     """MotionField-alike view over the C++ engine's 4x4 motion export
     (what spec.inter.col_arrays reads: .inter, .mv, .ref_idx)."""
@@ -174,10 +180,7 @@ class TorchEncoder:
         self.timing: dict = {}  # phase times of the last encode()
         self.spans: list = []   # each batch's span on the device
 
-    @staticmethod
-    def _lambda_sqrt(qp: int) -> float:
-        """sqrt of the RD lambda 0.57 * 2^((qp - 12) / 3), in f64."""
-        return float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
+    _lambda_sqrt = staticmethod(lambda_sqrt)
 
     def _rate_controller(self):
         """The R-lambda controller of `target_bitrate`, or None."""

@@ -53,14 +53,26 @@ def _blocks(planes: torch.Tensor, n: int) -> torch.Tensor:
             .reshape(-1, n, n))
 
 
-def _intra_mode_bits(best_mode: torch.Tensor, f: int, gy: int,
-                     gx: int) -> torch.Tensor:
+def _edge(edge_col: int, edge_on, gx: int) -> bool:
+    """Whether grid column edge_col is the picture's true left edge inside a
+    halo-extended tile shard (search.py:61-75): edge_on None or True on
+    the shard that holds the edge."""
+    return 0 < edge_col < gx and (edge_on is None or bool(edge_on))
+
+
+def _intra_mode_bits(best_mode: torch.Tensor, f: int, gy: int, gx: int,
+                     edge_col: int = 0, edge_on=None) -> torch.Tensor:
     """MPM-aware per-mode rate [B, 35] from the provisional (SATD-best)
     modes of the same-size left/above neighbours (DC when unavailable):
-    2 bits for MPM0, 3 for MPM1/2, 6 otherwise."""
+    2 bits for MPM0, 3 for MPM1/2, 6 otherwise.  edge_col, edge_on: the
+    picture's left edge at grid column edge_col of a halo-extended shard,
+    whose left neighbour is unavailable (DC) as at column 0 (search.py:77,
+    :86-100)."""
     m = best_mode.reshape(f, gy, gx)
     dc = torch.ones_like(m[:, :, :1])
     cand_a = torch.cat([dc, m[:, :, :-1]], dim=2)
+    if _edge(edge_col, edge_on, gx):
+        cand_a[:, :, edge_col] = 1
     cand_b = torch.cat([torch.ones_like(m[:, :1, :]), m[:, :-1, :]], dim=1)
     eq = cand_a == cand_b
     lt2 = cand_a < 2
@@ -94,7 +106,8 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
                         rd_cands: int = 3, plain: bool = False,
                         ref_y: torch.Tensor | None = None,
                         ref_cb: torch.Tensor | None = None,
-                        ref_cr: torch.Tensor | None = None) -> dict:
+                        ref_cr: torch.Tensor | None = None,
+                        mpm_edge_x: int = 0, mpm_edge_on=None) -> dict:
     """Decide the CU quadtree and luma mode of every CTU of F frames.
 
     y: [F, H, W] int32 luma (H, W multiples of the CTU); cb, cr: optional
@@ -102,7 +115,10 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
     ref_cr: optional reconstructions of the same shapes whose pixels feed
     the intra reference rows in place of the source's (the two-pass
     recon-reference search, search.py:117); SATD, SSE and the residuals
-    stay against the source.  Returns the JAX search's dict, every entry
+    stay against the source.  mpm_edge_x, mpm_edge_on: the luma column of
+    the picture's left edge inside a halo-extended tile shard, and whether
+    this shard holds it (search.py:117; 0 for a whole picture).  Returns
+    the JAX search's dict, every entry
     [F, B_n] in block raster order: mode{n}, cost{n} and split{n} (n above
     the min CU size), rawcost{n}.
     """
@@ -129,7 +145,8 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
         preds = predict(top, left, plg)                      # [B,35,pn,pn]
         d = satd(src, preds)                                 # [B,35]
         prov = torch.argmin(d, dim=1).to(torch.int32)
-        mode_bits = _intra_mode_bits(prov, f, h // n, w // n)
+        mode_bits = _intra_mode_bits(prov, f, h // n, w // n,
+                                     mpm_edge_x // n, mpm_edge_on)
         cost_rmd = d.to(torch.float32) + ls * mode_bits
         b = src.shape[0]
         # lower index first among equal costs, as jax.lax.top_k orders
@@ -195,36 +212,44 @@ def search_intra_frame(y_plane: torch.Tensor, lambda_sqrt: float,
                        log2_ctu: int = 5, log2_min_cu: int = 3,
                        cb_plane=None, cr_plane=None, rd_cands: int = 3,
                        plain: bool = False, ref_y=None, ref_cb=None,
-                       ref_cr=None) -> dict:
+                       ref_cr=None, mpm_edge_x: int = 0,
+                       mpm_edge_on=None) -> dict:
     """One frame ([H, W] planes) of `search_intra_frames`; entries [B_n]."""
     dec = search_intra_frames(
         y_plane[None], lambda_sqrt, log2_ctu, log2_min_cu, _one(cb_plane),
         _one(cr_plane), rd_cands, plain, _one(ref_y), _one(ref_cb),
-        _one(ref_cr))
+        _one(ref_cr), mpm_edge_x, mpm_edge_on)
     return {key: v[0] for key, v in dec.items()}
 
 
-def _neighbor_fields(field: torch.Tensor, gy: int,
-                     gx: int) -> tuple:
+def _neighbor_fields(field: torch.Tensor, gy: int, gx: int,
+                     edge_col: int = 0, edge_on=None) -> tuple:
     """The left and top same-size-grid neighbours of a [B, C] block field
     (zero at the frame edge): the search's stand-ins for the merge
-    candidates A1/B1 (search.py:54 `_neighbor_mvs`)."""
+    candidates A1/B1 (search.py:54 `_neighbor_mvs`).  edge_col, edge_on:
+    the picture's left edge inside a halo-extended shard, where the left
+    field is zero too (:61-75)."""
     c = field.shape[-1]
     m = field.reshape(gy, gx, c)
     left = torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
+    if _edge(edge_col, edge_on, gx):
+        left[:, edge_col] = 0
     top = torch.cat([torch.zeros_like(m[:1]), m[:-1]], dim=0)
     return left.reshape(-1, c), top.reshape(-1, c)
 
 
 def _with_merge_cands(st, src_b, ia: int, ib: int, mv, ridx, pred, cost_,
-                      rate_bits, n: int, ls, satd, plain: bool) -> tuple:
+                      rate_bits, n: int, ls, satd, plain: bool,
+                      edge_x: int = 0, edge_on=None) -> tuple:
     """Fold the left and top same-size neighbours' (MV, ref) into one
     list's candidate at the merge rate of 2 bits, chosen in the SATD
     domain (search.py:438 `with_merge_cands`; the P search's loop at
     :318-334 is the same with state refs 0 and R-1); a merge winner
-    adopts the neighbour's reference, ia or ib of the ME state."""
+    adopts the neighbour's reference, ia or ib of the ME state.  edge_x,
+    edge_on: the shard's picture edge (mpm_edge_x, mpm_edge_on)."""
     field = torch.cat([mv, ridx[:, None]], dim=1)
-    for cand in _neighbor_fields(field, st.h // n, st.w // n):
+    for cand in _neighbor_fields(field, st.h // n, st.w // n, edge_x // n,
+                                 edge_on):
         cmv, cref = cand[:, :2].contiguous(), cand[:, 2]
         raw_c, valid = me.mc_raw_from_state_sel(st, ia, ib, cref > 0, n, cmv,
                                                 plain=plain)
@@ -284,13 +309,18 @@ def _dp_step(out: dict, dp, leaf, n: int, h: int, w: int, lam):
 def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
                    log2_ctu: int = 5, log2_min_cu: int = 3,
                    search_range: int = 8, rd_cands: int = 3,
-                   nref: int | None = None, plain: bool = False) -> dict:
+                   nref: int | None = None, plain: bool = False,
+                   mpm_edge_x: int = 0, mpm_edge_on=None,
+                   me_decimated=None) -> dict:
     """P-frame search (search.py:244): intra and inter candidates for every
     block over up to two active L0 references, then the quadtree DP over
     the per-block minimum.
 
     y [H, W] int32; refs [R, H, W] (R = 1 or 2) edge-padded to y's size;
-    nref: the active references (default R).  Returns the B search's keys:
+    nref: the active references (default R).  mpm_edge_x, mpm_edge_on: the
+    shard's picture edge of search_intra_frames, for the MPM and the merge
+    candidates; me_decimated: a shard's decimated planes for me_state.
+    Returns the B search's keys:
     the intra outputs' mode{n} and split{n} plus inter{n} (inter chosen),
     dir{n} (1), mv0{n} ([B_n, 2] quarter-pel) and ref0{n} ([B_n] ref
     index), with list 1's mv1{n} and ref1{n} zero, each in block raster
@@ -308,9 +338,11 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     refs = refs[:max(1, min(refs.shape[0] if nref is None else nref, 2))]
     ib = refs.shape[0] - 1
     intra_dec = search_intra_frame(y, lambda_sqrt, log2_ctu, log2_min_cu,
-                                   rd_cands=rd_cands, plain=plain)
+                                   rd_cands=rd_cands, plain=plain,
+                                   mpm_edge_x=mpm_edge_x,
+                                   mpm_edge_on=mpm_edge_on)
     st = me.me_state(y, refs, search_range, max_size=1 << log2_ctu,
-                     plain=plain)
+                     plain=plain, decimated=me_decimated)
     sp = me.subpel_from_state(st, lambda_sqrt, plain=plain)
     out = {}
     dp = None
@@ -318,7 +350,8 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
         me_cost, mv, pred, sel = _pick_ref(sp[n], 0, ib)
         mv, ridx, pred, _, rate_bits = _with_merge_cands(
             st, _blocks(y[None], n), 0, ib, mv, sel.to(torch.int32), pred,
-            me_cost, me.mv_rate_bits(mv), n, ls, satd, plain)
+            me_cost, me.mv_rate_bits(mv), n, ls, satd, plain, mpm_edge_x,
+            mpm_edge_on)
         icost = _inter_leaf(y, n, pred, rate_bits, qp_i, lam, tq_roundtrip,
                             sse_rate)
         raw_intra = intra_dec[f"rawcost{n}"]
@@ -338,7 +371,8 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
                    lambda_sqrt: float, log2_ctu: int = 5, log2_min_cu: int = 3,
                    search_range: int = 8, rd_cands: int = 3,
                    nref0: int | None = None, nref1: int | None = None,
-                   plain: bool = False) -> dict:
+                   plain: bool = False, mpm_edge_x: int = 0,
+                   mpm_edge_on=None, me_decimated=None) -> dict:
     """B-frame search (search.py:359): intra, L0, L1 and BI candidates for
     every block over up to two active references per list, then the
     quadtree DP over the per-block minimum.
@@ -350,6 +384,7 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     changes nothing (cost inf, never chosen, no neighbour carries its
     index), so it is left out and list 1's state indices move with it.
     BI (K12) averages the two lists' exact predictions at their final MVs.
+    mpm_edge_x, mpm_edge_on, me_decimated: as search_p_frame's.
     Returns the intra outputs' mode{n} and split{n} plus inter{n}, dir{n}
     (1 L0, 2 L1, 3 BI; 1 for intra), mv0{n}, mv1{n} ([B_n, 2]
     quarter-pel), ref0{n} and ref1{n} ([B_n] ref index), each in block
@@ -369,9 +404,12 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     i1a = i0b + 1
     i1b = i1a + lists[1].shape[0] - 1
     intra_dec = search_intra_frame(y, lambda_sqrt, log2_ctu, log2_min_cu,
-                                   rd_cands=rd_cands, plain=plain)
+                                   rd_cands=rd_cands, plain=plain,
+                                   mpm_edge_x=mpm_edge_x,
+                                   mpm_edge_on=mpm_edge_on)
     st = me.me_state(y, torch.cat(lists), search_range,
-                     max_size=1 << log2_ctu, plain=plain)
+                     max_size=1 << log2_ctu, plain=plain,
+                     decimated=me_decimated)
     sp = me.subpel_from_state(st, lambda_sqrt, plain=plain)
     out = {}
     dp = None
@@ -382,7 +420,8 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
             c, mv, pred, sel = _pick_ref(sp[n], ia, ib)
             per_list.append(_with_merge_cands(
                 st, src_b, ia, ib, mv, sel.to(torch.int32), pred, c,
-                me.mv_rate_bits(mv), n, ls, satd, plain))
+                me.mv_rate_bits(mv), n, ls, satd, plain, mpm_edge_x,
+                mpm_edge_on))
         (mv0, r0idx, p0, c0, r0bits), (mv1, r1idx, p1, c1, r1bits) = per_list
         pbi, cbi = me.bi_cost(
             st.y, st.refs, mv0, torch.where(r0idx > 0, i0b, 0), mv1,
@@ -500,18 +539,20 @@ def search_intra_maps_batch(y_batch: torch.Tensor, lambda_sqrt: float,
                             coded_h: int, cb_batch=None, cr_batch=None,
                             rd_cands: int = 3, plain: bool = False,
                             cnn=None, qp=0, ref_y=None, ref_cb=None,
-                            ref_cr=None) -> torch.Tensor:
+                            ref_cr=None, mpm_edge_x: int = 0,
+                            mpm_edge_on=None) -> torch.Tensor:
     """Multi-frame intra search: [F, H, W] padded luma (uint8 or int32)
     -> [F, H/8, W/8, 9] int16 packed decision maps.  cnn: a
     models.PartitionCNN on the batch's device, whose depth maps at `qp`
     replace the DP's splits (the fast-partition path, search.py:622-624).
     ref_y, ref_cb, ref_cr: the recon-reference planes of
-    search_intra_frames, padded as the source is."""
+    search_intra_frames, padded as the source is.  mpm_edge_x, mpm_edge_on:
+    the picture edge inside a halo-extended tile shard (search.py:607)."""
     y = y_batch.to(torch.int32)
     dec = search_intra_frames(y, lambda_sqrt, log2_ctu, log2_min_cu,
                               _int32(cb_batch), _int32(cr_batch), rd_cands,
                               plain, _int32(ref_y), _int32(ref_cb),
-                              _int32(ref_cr))
+                              _int32(ref_cr), mpm_edge_x, mpm_edge_on)
     f, h, w = y.shape
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
                       _cnn_override(y_batch, cnn, qp, log2_ctu, plain))
@@ -536,19 +577,25 @@ def search_p_maps(y_batch: torch.Tensor, refs: torch.Tensor, lambda_sqrt,
                   log2_ctu: int, log2_min_cu: int, coded_w: int,
                   coded_h: int, search_range: int, nref=None,
                   rd_cands: int = 3, plain: bool = False, cnn=None,
-                  qp=0) -> torch.Tensor:
+                  qp=0, mpm_edge_x: int = 0, mpm_edge_on=None,
+                  me_decimated=None) -> torch.Tensor:
     """P search of F frames (search.py:682, one frame at a time): y_batch
     [F, H, W] padded luma, refs [F, R, H, W] its references edge-padded to
     the same size, lambda_sqrt and nref scalars or per-frame sequences.
     cnn, qp: the fast-partition override of search_intra_maps_batch (one
-    K13 launch for the batch, search.py:700-702).  Returns packed
+    K13 launch for the batch, search.py:700-702).  mpm_edge_x, mpm_edge_on:
+    the shard's picture edge (search.py:682); me_decimated: per frame the
+    shard's decimated [1 + R, H/4, W/4] planes (search_p_frame).  Returns
+    packed
     [F, H/8, W/8, 9] int16 maps."""
     f, h, w = y_batch.shape
     lams, nrefs = per_frame(lambda_sqrt, f), per_frame(nref, f)
     decs = [search_p_frame(y_batch[i].to(torch.int32),
                            refs[i].to(torch.int32), lams[i], log2_ctu,
                            log2_min_cu, search_range, rd_cands, nrefs[i],
-                           plain) for i in range(f)]
+                           plain, mpm_edge_x, mpm_edge_on,
+                           None if me_decimated is None
+                           else me_decimated[i]) for i in range(f)]
     dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
                       _cnn_override(y_batch, cnn, qp, log2_ctu, plain))
@@ -559,19 +606,23 @@ def search_b_maps(y_batch: torch.Tensor, refs0: torch.Tensor,
                   log2_min_cu: int, coded_w: int, coded_h: int,
                   search_range: int, nref0=None, nref1=None,
                   rd_cands: int = 3, plain: bool = False, cnn=None,
-                  qp=0) -> torch.Tensor:
+                  qp=0, mpm_edge_x: int = 0, mpm_edge_on=None,
+                  me_decimated=None) -> torch.Tensor:
     """B search of F frames (search.py:710, one frame at a time): y_batch
     [F, H, W] padded luma, refs0/refs1 [F, R, H, W] each list's references
     edge-padded to the same size, lambda_sqrt, nref0 and nref1 scalars or
     per-frame sequences.  cnn, qp: the fast-partition override of
-    search_intra_maps_batch (search.py:729-731).  Returns packed
+    search_intra_maps_batch (search.py:729-731).  mpm_edge_x, mpm_edge_on,
+    me_decimated: as search_p_maps' (search.py:710).  Returns packed
     [F, H/8, W/8, 9] int16 maps."""
     f, h, w = y_batch.shape
     lams, n0s, n1s = (per_frame(v, f) for v in (lambda_sqrt, nref0, nref1))
     decs = [search_b_frame(y_batch[i].to(torch.int32),
                            refs0[i].to(torch.int32), refs1[i].to(torch.int32),
                            lams[i], log2_ctu, log2_min_cu, search_range,
-                           rd_cands, n0s[i], n1s[i], plain)
+                           rd_cands, n0s[i], n1s[i], plain, mpm_edge_x,
+                           mpm_edge_on, None if me_decimated is None
+                           else me_decimated[i])
             for i in range(f)]
     dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,

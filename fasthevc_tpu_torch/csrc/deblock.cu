@@ -19,7 +19,17 @@
 // so each pass reads exactly what the reference's pass reads.
 // Same-direction edges are 8 luma samples apart, so no two segments touch
 // the same samples.  fhv_deblock_cbf, launched once before the two passes
-// of a P/B batch, marks the 8x8 granules with a nonzero luma level.
+// of a P/B batch, marks each 8x8 granule with its CU's luma cbf
+// (tu_cbf_map, :154), which the strengths read.
+//
+// The tile-column form (fasthevc_tpu/parallel/sharded.py
+// _deblock_sharded_cols, :67) runs the same kernel on a tile's planes
+// extended by 8 luma columns of each neighbour (K16), with the maps
+// extended by one granule column: x0 is the global luma column of the
+// plane's first column and pic_w the picture's coded width, so a vertical
+// edge is filtered iff its global column gx is inside (0, pic_w), on the
+// CU/TU grid and, for chroma, on the 16-luma grid (:94-101, :115).  The
+// caller keeps the tile's own columns.
 //
 // Bound on the H100: device-memory traffic, about 8 samples read per 6
 // written per segment over a ~66 MB int32 luma plane per 8 1080p frames.
@@ -30,11 +40,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// CU/TU edge on the left (vertical) or top (horizontal) of granule
-// coordinate g (8-sample units), CU size `size`, max TU 32
-__device__ __forceinline__ bool tu_edge(int g, int size) {
+// CU/TU edge at luma position pos (a multiple of 8) on the left
+// (vertical) or top (horizontal) of a granule, CU size `size`, max TU 32
+__device__ __forceinline__ bool tu_edge(int pos, int size) {
   const int max_tu = 32;
-  const int pos = g * 8;
   return (pos % size) == 0 ||
          ((pos % min(size, max_tu)) == 0 && size > max_tu);
 }
@@ -48,33 +57,18 @@ struct Maps {
   const int* dir;   // [F][gh][gw]
   const int* mv;    // [F][gh][gw][4]
   const int* ref;   // [F][gh][gw][2] or NULL (index 0)
-  const int* nz8;   // [F][gh][gw] nonzero luma level in the granule
+  const int* cbf;   // [F][gh][gw] the granule's CU's luma cbf
 };
-
-// Luma cbf of granule (gy, gx): any nonzero level in its CU; a CU that
-// overflows the granule grid reads 0, as the reference's pooling does.
-__device__ int cu_cbf(const int* nz8, const int* dm, int gh, int gw, int gy,
-                      int gx, int log2_ctu) {
-  const int r = ((1 << log2_ctu) >> dm[gy * gw + gx]) >> 3;
-  const int y0 = gy / r * r, x0 = gx / r * r;
-  if (y0 + r > gh || x0 + r > gw) return 0;
-  int any = 0;
-  for (int y = y0; y < y0 + r; ++y)
-    for (int x = x0; x < x0 + r; ++x) any |= nz8[y * gw + x];
-  return any != 0;
-}
 
 // Boundary strength between granules p and q (spec 8.7.2.4, as the
 // reference's inter_bs_maps); m's pointers are offset to the frame.
-__device__ int seg_bs(const Maps& m, const int* dm, int gh, int gw, int py,
-                      int px, int qy, int qx, int log2_ctu) {
+__device__ int seg_bs(const Maps& m, int gw, int py, int px, int qy,
+                      int qx) {
   if (m.dir == nullptr) return 2;
   const int gp = py * gw + px, gq = qy * gw + qx;
   const int dp = m.dir[gp], dq = m.dir[gq];
   if (dp == 0 || dq == 0) return 2;
-  if (cu_cbf(m.nz8, dm, gh, gw, py, px, log2_ctu) ||
-      cu_cbf(m.nz8, dm, gh, gw, qy, qx, log2_ctu))
-    return 1;
+  if (m.cbf[gp] || m.cbf[gq]) return 1;
   for (int l = 0; l < 2; ++l) {
     const int use_p = (dp >> l) & 1, use_q = (dq >> l) & 1;
     const int rp = use_p ? (m.ref ? m.ref[gp * 2 + l] : 0) : -1;
@@ -169,20 +163,29 @@ __device__ void chroma_segment(const int* in, int* out, size_t base, int ls,
   }
 }
 
+// Luma cbf of each granule: any nonzero level in its CU; a CU that
+// overflows the granule grid reads 0, as the reference's pooling does.
 __global__ void cbf_kernel(const short* __restrict__ lv,
-                           int* __restrict__ nz8, long long total, int H,
-                           int W) {
+                           const int* __restrict__ depth,
+                           int* __restrict__ cbf, long long total, int H,
+                           int W, int log2_ctu) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int gh = H >> 3, gw = W >> 3;
   const long long f = idx / ((long long)gh * gw);
   const int rem = (int)(idx - f * gh * gw);
   const int gy = rem / gw, gx = rem - gy * gw;
-  const short* p = lv + (size_t)f * H * W + (size_t)(8 * gy) * W + 8 * gx;
+  const int r = ((1 << log2_ctu) >> depth[idx]) >> 3;
+  const int y0 = gy / r * r, x0 = gx / r * r;
+  if (y0 + r > gh || x0 + r > gw) {
+    cbf[idx] = 0;
+    return;
+  }
+  const short* p = lv + (size_t)f * H * W + (size_t)(8 * y0) * W + 8 * x0;
   int any = 0;
-  for (int y = 0; y < 8; ++y)
-    for (int x = 0; x < 8; ++x) any |= p[y * W + x];
-  nz8[idx] = any != 0;
+  for (int y = 0; y < 8 * r; ++y)
+    for (int x = 0; x < 8 * r; ++x) any |= p[y * W + x];
+  cbf[idx] = any != 0;
 }
 
 __global__ void deblock_kernel(const int* __restrict__ in_y,
@@ -195,7 +198,8 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
                                const int* __restrict__ beta_tab,
                                const int* __restrict__ tc_tab,
                                const int* __restrict__ qps, int F, int H,
-                               int W, int log2_ctu, int bit_depth, int dir) {
+                               int W, int log2_ctu, int bit_depth, int dir,
+                               int x0, int pic_w) {
   const int gh = H >> 3, gw = W >> 3;
   const int hc = H >> 1, wc = W >> 1;
   // segments per frame: luma (4-line segments x edge positions), chroma
@@ -215,21 +219,22 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
     m.dir += fg;
     m.mv += fg * 4;
     if (m.ref != nullptr) m.ref += fg * 2;
-    m.nz8 += fg;
+    m.cbf += fg;
   }
   const int qp = qps[3 * f], qp_cb = qps[3 * f + 1], qp_cr = qps[3 * f + 2];
   if (j < n_luma) {
     // segment r of 4 lines along the edge, edge c (8-sample units)
     const int n_edges = dir == 0 ? gw : gh;
     const int r = (int)(j / n_edges), c = (int)(j - (long long)r * n_edges);
-    if (c == 0) return;  // picture boundary
+    if (c == 0) return;  // the plane's first column or row
+    // the edge's global luma position: inside the picture, on the CU/TU grid
+    const int pos = dir == 0 ? x0 + 8 * c : 8 * c;
+    if (dir == 0 && (pos <= 0 || pos >= pic_w)) return;
     const int gy = dir == 0 ? r >> 1 : c, gx = dir == 0 ? c : r >> 1;
     const int size = (1 << log2_ctu) >> dm[gy * gw + gx];
-    if (!tu_edge(c, size)) return;
-    const int bs = dir == 0 ? seg_bs(m, dm, gh, gw, gy, gx - 1, gy, gx,
-                                     log2_ctu)
-                            : seg_bs(m, dm, gh, gw, gy - 1, gx, gy, gx,
-                                     log2_ctu);
+    if (!tu_edge(pos, size)) return;
+    const int bs = dir == 0 ? seg_bs(m, gw, gy, gx - 1, gy, gx)
+                            : seg_bs(m, gw, gy - 1, gx, gy, gx);
     if (bs == 0) return;
     const int beta = beta_tab[min(max(qp, 0), 51)];
     const int tc = tc_tab[min(max(qp + 2 * (bs - 1), 0), 53)];
@@ -249,13 +254,15 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
   // filtered on the 16-luma grid only
   const int n_edges = dir == 0 ? gw : gh;
   const int r = (int)(j / n_edges), c = (int)(j - (long long)r * n_edges);
-  if (c == 0 || (c & 1)) return;
+  if (c == 0) return;
+  const int pos = dir == 0 ? x0 + 8 * c : 8 * c;
+  if ((pos & 15) || (dir == 0 && (pos <= 0 || pos >= pic_w))) return;
   const int gy = dir == 0 ? r : c, gx = dir == 0 ? c : r;
   const int size = (1 << log2_ctu) >> dm[gy * gw + gx];
-  if (!tu_edge(c, size)) return;
+  if (!tu_edge(pos, size)) return;
   if (m.dir != nullptr &&
-      (dir == 0 ? seg_bs(m, dm, gh, gw, gy, gx - 1, gy, gx, log2_ctu)
-                : seg_bs(m, dm, gh, gw, gy - 1, gx, gy, gx, log2_ctu)) != 2)
+      (dir == 0 ? seg_bs(m, gw, gy, gx - 1, gy, gx)
+                : seg_bs(m, gw, gy - 1, gx, gy, gx)) != 2)
     return;
   const int qpc = plane == 1 ? qp_cb : qp_cr;
   const int tc = tc_tab[min(max(qpc + 2, 0), 53)];
@@ -272,33 +279,38 @@ __global__ void deblock_kernel(const int* __restrict__ in_y,
 
 }  // namespace
 
-// lv [F, H, W] int16 luma levels -> nz8 [F, H/8, W/8].
-extern "C" int fhv_deblock_cbf(const short* lv, int* nz8, int F, int H,
-                               int W, cudaStream_t stream) {
+// lv [F, H, W] int16 luma levels, depth [F, H/8, W/8] -> cbf [F, H/8,
+// W/8]: the luma cbf of each granule's CU.
+extern "C" int fhv_deblock_cbf(const short* lv, const int* depth, int* cbf,
+                               int F, int H, int W, int log2_ctu,
+                               cudaStream_t stream) {
   const long long total = (long long)F * (H >> 3) * (W >> 3);
   if (total <= 0) return 0;
   cbf_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
-               stream>>>(lv, nz8, total, H, W);
+               stream>>>(lv, depth, cbf, total, H, W, log2_ctu);
   return (int)cudaGetLastError();
 }
 
-// dir_map/mv/ref/nz8: the P/B maps, all NULL on intra pictures (ref may be
-// NULL alone); qps [F][3]: deblocking QP, Cb QP, Cr QP.
+// dir_map/mv/ref/cbf: the P/B maps, all NULL on intra pictures (ref may be
+// NULL alone), cbf from fhv_deblock_cbf; qps [F][3]: deblocking
+// QP, Cb QP, Cr QP; x0: global luma column of the planes' first column,
+// pic_w: the picture's coded width (0 and W for a whole picture).
 extern "C" int fhv_deblock(const int* in_y, const int* in_cb,
                            const int* in_cr, int* out_y, int* out_cb,
                            int* out_cr, const int* depth, const int* dir_map,
-                           const int* mv, const int* ref, const int* nz8,
+                           const int* mv, const int* ref, const int* cbf,
                            const int* beta_tab, const int* tc_tab,
                            const int* qps, int F, int H, int W, int log2_ctu,
-                           int bit_depth, int dir, cudaStream_t stream) {
+                           int bit_depth, int dir, int x0, int pic_w,
+                           cudaStream_t stream) {
   if (F <= 0) return 0;
   const long long gh = H >> 3, gw = W >> 3;
   const long long n_luma = dir == 0 ? (H >> 2) * gw : (W >> 2) * gh;
   const long long total = (n_luma + 2 * gh * gw) * F;
   const long long grid = (total + kThreads - 1) / kThreads;
-  Maps maps{dir_map, mv, ref, nz8};
+  Maps maps{dir_map, mv, ref, cbf};
   deblock_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
       in_y, in_cb, in_cr, out_y, out_cb, out_cr, depth, maps, beta_tab,
-      tc_tab, qps, F, H, W, log2_ctu, bit_depth, dir);
+      tc_tab, qps, F, H, W, log2_ctu, bit_depth, dir, x0, pic_w);
   return (int)cudaGetLastError();
 }

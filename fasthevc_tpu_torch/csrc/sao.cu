@@ -17,6 +17,15 @@
 // fhv_sao_apply: one thread per sample; classifies against the coded
 // bounds and writes a new plane.
 //
+// The halo form (sao_device(has_halo=True), :264-300, of the sharded
+// pipelines): both launches also take each plane's deblocked neighbour
+// columns, one to the left and one to the right of a tile ([F, H] each),
+// and l_avail / r_avail.  Where a side is available, a sample in the edge
+// column classifies against the neighbour column instead of being
+// category 0 (_edge_cats, :47-79).  The columns read as the reference pads
+// them: zeros below the coded height in the estimate's CTB-padded plane
+// (:126-129), their first and last rows repeated above and below (:51-56).
+//
 // Bound on the H100: the stats pass is bound by shared-memory atomics on
 // a few dozen counters per CTB; the apply pass by device-memory traffic.
 
@@ -36,33 +45,58 @@ struct Stats {
 
 __device__ __forceinline__ int sgn(int v) { return (v > 0) - (v < 0); }
 
+// A plane's neighbour columns (frame-offset, NULL without the halo form)
+// and whether each side is available.
+struct Halo {
+  const int* l;
+  const int* r;
+  int la, ra;
+};
+
+// sample (ya, xa) of the plane as the classification reads it: rows at or
+// beyond hv read 0, columns -1 and wb the neighbour columns (padded to hb
+// rows with zeros, their end rows repeated)
+__device__ __forceinline__ int sample_at(const int* rec, int W, int ya,
+                                         int xa, int hb, int wb, int hv,
+                                         int wv, const Halo& h) {
+  if (xa < 0 || xa >= wb) {
+    const int* col = xa < 0 ? h.l : h.r;
+    const int yc = min(max(ya, 0), hb - 1);
+    return yc < hv ? col[yc] : 0;
+  }
+  return (ya < hv && xa < wv) ? rec[ya * W + xa] : 0;
+}
+
 // category 0..4 of sample (y, x) for EO class c; a neighbour outside
-// [0, hb) x [0, wb) gives 0; samples at or beyond (hv, wv) read as 0
+// [0, hb) x [0, wb) gives 0 unless it is an available neighbour column;
+// samples at or beyond (hv, wv) read as 0
 __device__ __forceinline__ int edge_cat(const int* rec, int W, int y, int x,
                                         int c, int hb, int wb, int hv,
-                                        int wv) {
+                                        int wv, const Halo& h) {
   const int y0 = kEo[c][0], x0 = kEo[c][1], y1 = kEo[c][2], x1 = kEo[c][3];
   const int ty = max(0, max(-y0, -y1)), by = max(0, max(y0, y1));
   const int lx = max(0, max(-x0, -x1)), rx = max(0, max(x0, x1));
-  if (y < ty || y >= hb - by || x < lx || x >= wb - rx) return 0;
+  if (y < ty || y >= hb - by) return 0;
+  if (x < lx && !(x == 0 && h.l != nullptr && h.la)) return 0;
+  if (x >= wb - rx && !(x == wb - 1 && h.r != nullptr && h.ra)) return 0;
   const int ya = y + y0, xa = x + x0, yb = y + y1, xb = x + x1;
   const int v = rec[y * W + x];
-  const int a = (ya < hv && xa < wv) ? rec[ya * W + xa] : 0;
-  const int b = (yb < hv && xb < wv) ? rec[yb * W + xb] : 0;
+  const int a = sample_at(rec, W, ya, xa, hb, wb, hv, wv, h);
+  const int b = sample_at(rec, W, yb, xb, hb, wb, hv, wv, h);
   const int raw = 2 + sgn(v - a) + sgn(v - b);
   return raw == 2 ? 0 : (raw < 2 ? raw + 1 : raw);
 }
 
 __device__ void gather_stats(Stats& st, const int* src, const int* rec,
                              int H, int W, int ctb, int by, int bx,
-                             int bit_depth) {
+                             int bit_depth, const Halo& h) {
   const int hb = (H + ctb - 1) / ctb * ctb, wb = (W + ctb - 1) / ctb * ctb;
   for (int i = threadIdx.x; i < ctb * ctb; i += blockDim.x) {
     const int y = by * ctb + i / ctb, x = bx * ctb + i % ctb;
     if (y >= H || x >= W) continue;
     const int diff = src[y * W + x] - rec[y * W + x];
     for (int c = 0; c < 4; ++c) {
-      const int cat = edge_cat(rec, W, y, x, c, hb, wb, H, W);
+      const int cat = edge_cat(rec, W, y, x, c, hb, wb, H, W, h);
       if (cat > 0) {
         atomicAdd(&st.cnt_e[c][cat - 1], 1);
         atomicAdd(&st.sum_e[c][cat - 1], diff);
@@ -134,6 +168,14 @@ __device__ void decide(const Stats& st, int* params, int inherit_type,
                               : (type == 2 ? off_e[cls][i] : 0);
 }
 
+// the halo columns of frame f, each of h rows
+__device__ __forceinline__ Halo frame_halo(const Halo& h, int f, int rows) {
+  Halo o = h;
+  if (o.l != nullptr) o.l += (size_t)f * rows;
+  if (o.r != nullptr) o.r += (size_t)f * rows;
+  return o;
+}
+
 __device__ void clear_stats(Stats* st, int n) {
   int* p = reinterpret_cast<int*>(st);
   for (int i = threadIdx.x; i < n * (int)(sizeof(Stats) / sizeof(int));
@@ -148,6 +190,8 @@ __global__ void sao_stats_kernel(const int* __restrict__ src_y,
                                  const int* __restrict__ rec_y,
                                  const int* __restrict__ rec_cb,
                                  const int* __restrict__ rec_cr,
+                                 const Halo hy, const Halo hcb,
+                                 const Halo hcr,
                                  int* __restrict__ params, int H, int W,
                                  int log2_ctu, int bit_depth) {
   __shared__ Stats st[2];
@@ -162,16 +206,16 @@ __global__ void sao_stats_kernel(const int* __restrict__ src_y,
   if (blockIdx.z == 0) {
     const size_t fb = (size_t)f * H * W;
     gather_stats(st[0], src_y + fb, rec_y + fb, H, W, ctb, by, bx,
-                 bit_depth);
+                 bit_depth, frame_halo(hy, f, H));
     __syncthreads();
     if (threadIdx.x == 0) decide(st[0], out, -1, 0);
   } else {
     const int hc = H >> 1, wc = W >> 1;
     const size_t fb = (size_t)f * hc * wc;
     gather_stats(st[0], src_cb + fb, rec_cb + fb, hc, wc, ctb >> 1, by, bx,
-                 bit_depth);
+                 bit_depth, frame_halo(hcb, f, hc));
     gather_stats(st[1], src_cr + fb, rec_cr + fb, hc, wc, ctb >> 1, by, bx,
-                 bit_depth);
+                 bit_depth, frame_halo(hcr, f, hc));
     __syncthreads();
     if (threadIdx.x == 0) {
       decide(st[0], out + 7, -1, 0);
@@ -186,6 +230,8 @@ __global__ void sao_apply_kernel(const int* __restrict__ rec_y,
                                  int* __restrict__ out_y,
                                  int* __restrict__ out_cb,
                                  int* __restrict__ out_cr,
+                                 const Halo hy, const Halo hcb,
+                                 const Halo hcr,
                                  const int* __restrict__ params, int F, int H,
                                  int W, int log2_ctu, int bit_depth) {
   const long long luma = (long long)H * W, chroma = luma >> 2;
@@ -217,7 +263,9 @@ __global__ void sao_apply_kernel(const int* __restrict__ rec_y,
   const int v = rec[y * w + x];
   int add = 0;
   if (pr[0] == 2) {
-    const int cat = edge_cat(rec, w, y, x, pr[1], h, w, h, w);
+    const Halo hh = frame_halo(plane == 0 ? hy : (plane == 1 ? hcb : hcr), f,
+                               h);
+    const int cat = edge_cat(rec, w, y, x, pr[1], h, w, h, w, hh);
     if (cat > 0) add = pr[2 + cat];
   } else if (pr[0] == 1) {
     const int band = v >> (bit_depth - 5);
@@ -229,31 +277,45 @@ __global__ void sao_apply_kernel(const int* __restrict__ rec_y,
 
 }  // namespace
 
+// halo: the left and right neighbour columns of luma [F, H], Cb and Cr
+// [F, H/2], all NULL without the halo form; l_avail, r_avail: whether each
+// side classifies against them.
 extern "C" int fhv_sao_stats(const int* src_y, const int* src_cb,
                              const int* src_cr, const int* rec_y,
                              const int* rec_cb, const int* rec_cr,
+                             const int* hl_y, const int* hr_y,
+                             const int* hl_cb, const int* hr_cb,
+                             const int* hl_cr, const int* hr_cr,
                              int* params, int F, int H, int W, int log2_ctu,
-                             int bit_depth, cudaStream_t stream) {
+                             int bit_depth, int l_avail, int r_avail,
+                             cudaStream_t stream) {
   if (F <= 0) return 0;
   const int ctb = 1 << log2_ctu;
   const int nx = (W + ctb - 1) / ctb, ny = (H + ctb - 1) / ctb;
   dim3 grid(ny * nx, F, 2);
   sao_stats_kernel<<<grid, kThreads, 0, stream>>>(
-      src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, params, H, W, log2_ctu,
+      src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr,
+      Halo{hl_y, hr_y, l_avail, r_avail}, Halo{hl_cb, hr_cb, l_avail, r_avail},
+      Halo{hl_cr, hr_cr, l_avail, r_avail}, params, H, W, log2_ctu,
       bit_depth);
   return (int)cudaGetLastError();
 }
 
 extern "C" int fhv_sao_apply(const int* rec_y, const int* rec_cb,
                              const int* rec_cr, int* out_y, int* out_cb,
-                             int* out_cr, const int* params, int F, int H,
-                             int W, int log2_ctu, int bit_depth,
-                             cudaStream_t stream) {
+                             int* out_cr, const int* hl_y, const int* hr_y,
+                             const int* hl_cb, const int* hr_cb,
+                             const int* hl_cr, const int* hr_cr,
+                             const int* params, int F, int H, int W,
+                             int log2_ctu, int bit_depth, int l_avail,
+                             int r_avail, cudaStream_t stream) {
   if (F <= 0) return 0;
   const long long total = ((long long)H * W + 2 * ((long long)H * W >> 2)) * F;
   const long long grid = (total + kThreads - 1) / kThreads;
   sao_apply_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
-      rec_y, rec_cb, rec_cr, out_y, out_cb, out_cr, params, F, H, W, log2_ctu,
+      rec_y, rec_cb, rec_cr, out_y, out_cb, out_cr,
+      Halo{hl_y, hr_y, l_avail, r_avail}, Halo{hl_cb, hr_cb, l_avail, r_avail},
+      Halo{hl_cr, hr_cr, l_avail, r_avail}, params, F, H, W, log2_ctu,
       bit_depth);
   return (int)cudaGetLastError();
 }

@@ -169,7 +169,7 @@ def cnn_depth(planes: torch.Tensor, theta: torch.Tensor, qp, log2_ctu: int,
         planes.data_ptr(), _plane_dtype(planes), None, float(qp),
         theta.data_ptr(), depth.data_ptr(), None, None, f, h, w, log2_ctu,
         _build.stream_handle(planes))
-    _build.LAUNCHES["cnn_depth"] += 1
+    _build.launched("cnn_depth")
     _build.check(rc, "cnn_depth")
     return depth
 
@@ -199,7 +199,7 @@ def cnn_train_forward(x: torch.Tensor, q: torch.Tensor,
         x.data_ptr(), 2, q.data_ptr(), 0.0, theta.data_ptr(), None,
         logits.data_ptr(), acts.data_ptr(), bsz, s, s, s.bit_length() - 1,
         _build.stream_handle(x))
-    _build.LAUNCHES["cnn_train"] += 1
+    _build.launched("cnn_train")
     _build.check(rc, "cnn_train")
     return logits, acts
 
@@ -227,7 +227,7 @@ def cnn_backward(x, q, labels, theta, acts, logits) -> torch.Tensor:
         acts.data_ptr(), logits.data_ptr(), partial.data_ptr(),
         grad.data_ptr(), bsz, s.bit_length() - 1, inv_n,
         _build.stream_handle(x))
-    _build.LAUNCHES["cnn_backward"] += 1
+    _build.launched("cnn_backward")
     _build.check(rc, "cnn_backward")
     return grad
 
@@ -314,5 +314,5 @@ def adam_update(theta, grad, m, v, step: int, lr: float,
         theta.numel(), float(lr), ADAM_B1, float(np.float32(1 - ADAM_B1)),
         ADAM_B2, float(np.float32(1 - ADAM_B2)), ADAM_EPS, bc1, bc2,
         _build.stream_handle(theta))
-    _build.LAUNCHES["adam"] += 1
+    _build.launched("adam")
     _build.check(rc, "adam")

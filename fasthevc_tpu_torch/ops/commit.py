@@ -607,7 +607,7 @@ def _commit_cuda(src_y, src_cb, src_cr, depth, mode, dir_map, pred, qp_y,
         len(tby), *(ptr(t) for t in rd), lam_t.data_ptr(), qps.data_ptr(),
         nf, ph, pw, coded_w, coded_h, int(bool(sdh)), int(bool(rdoq)),
         bit_depth, _build.stream_handle(sy))
-    _build.LAUNCHES[name] += n_waves
+    _build.launched(name, n_waves)
     _build.check(rc, name)
     ch, cw = coded_h // 2, coded_w // 2
     return (rec_y[:, :coded_h, :coded_w], rec_cb[:, :ch, :cw],

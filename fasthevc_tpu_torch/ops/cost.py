@@ -97,7 +97,7 @@ def satd(src: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     rc = _build.lib().fhv_satd(src.data_ptr(), preds.data_ptr(),
                                out.data_ptr(), b, m, n,
                                _build.stream_handle(src))
-    _build.LAUNCHES["satd"] += 1
+    _build.launched("satd")
     _build.check(rc, "satd")
     return out
 
@@ -146,6 +146,6 @@ def sse_rate(res: torch.Tensor, rq: torch.Tensor, levels: torch.Tensor):
         res.data_ptr(), rq.data_ptr(), levels.data_ptr(), dist.data_ptr(),
         rate.data_ptr(), b, n, n.bit_length() - 1, *_rate_weights(n),
         _build.stream_handle(res))
-    _build.LAUNCHES["sse_rate"] += 1
+    _build.launched("sse_rate")
     _build.check(rc, "sse_rate")
     return dist, rate

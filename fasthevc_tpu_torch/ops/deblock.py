@@ -5,12 +5,19 @@ Counterpart of fasthevc_tpu/ops/deblock.py `deblock_device`, with
 pictures (intra pictures have BS 2 on every CU/TU edge).  `deblock` goes
 through kernel K6 (csrc/deblock.cu: all vertical edges, then all
 horizontal edges, one thread per 4-sample segment, the strength of a P/B
-segment worked out in the kernel from the granule maps and the luma cbf)
-for CUDA tensors; `deblock_plain` is its PyTorch twin, the JAX package's
-dense masked form: every possible segment is filtered and masked, since
-same-direction edges are at least 8 samples apart and no two segments
-touch the same samples.  All arithmetic is integer.  QPs may be given per
+segment worked out in the kernel from the granule maps and the CU luma
+cbf of `tu_cbf`, K6's cbf pass) for CUDA tensors; `deblock_plain` is its
+PyTorch twin, the JAX package's dense masked form: every possible segment
+is filtered and masked, since same-direction edges are at least 8 samples
+apart and no two segments touch the same samples.  All arithmetic is integer.  QPs may be given per
 frame.
+
+The tile-column form of the sharded pipelines (fasthevc_tpu/parallel/
+sharded.py `_deblock_sharded_cols`) is the same call on a tile's planes
+extended by its neighbours' columns: `x0` is the global luma column of the
+planes' first column and `pic_w` the picture's coded width, so the edge
+tests run on global columns, and `cbf` is the halo-extended per-granule
+CU cbf.
 """
 
 from __future__ import annotations
@@ -36,51 +43,59 @@ def _tables(device) -> tuple:
     return _TABLES[key]
 
 
-def edge_masks(depth: torch.Tensor, log2_ctu: int):
+def _global_cols(gw: int, x0: int, device) -> torch.Tensor:
+    """The global luma column of each granule column of a plane whose first
+    column is the picture's column x0, [1, gw]."""
+    return (x0 + torch.arange(gw, device=device) * 8)[None, :]
+
+
+def edge_masks(depth: torch.Tensor, log2_ctu: int, x0: int = 0,
+               pic_w: int | None = None):
     """(vert, horz) bool edge maps on the 8x8 luma grid of depth maps
     [..., gh, gw], TUs of at most 32 (twin of deblock.py:25
-    edge_masks_device)."""
+    edge_masks_device).  x0, pic_w: the global column of the maps' first
+    granule and the picture's coded width (sharded.py:94-101): a vertical
+    edge lies strictly inside the picture and past the plane's first
+    column."""
     gh, gw = depth.shape[-2:]
     dev = depth.device
+    pic_w = gw * 8 + x0 if pic_w is None else pic_w
     size = (1 << log2_ctu) >> depth.to(torch.int64)
-    gx = (torch.arange(gw, device=dev) * 8)[None, :]
+    gx = _global_cols(gw, x0, dev)
     gy = (torch.arange(gh, device=dev) * 8)[:, None]
     max_tu = 32
     tu_size = size.clamp_max(max_tu)
     tu_left = ((gx % size) == 0) | (((gx % tu_size) == 0) & (size > max_tu))
     tu_top = ((gy % size) == 0) | (((gy % tu_size) == 0) & (size > max_tu))
-    vert = tu_left & (torch.arange(gw, device=dev) > 0)[None, :]
+    vert = tu_left & ((torch.arange(gw, device=dev) > 0)[None, :]
+                      & (gx > 0) & (gx < pic_w))
     horz = tu_top & (torch.arange(gh, device=dev) > 0)[:, None]
     return vert, horz
 
 
-def granule_nz_plain(lv_y: torch.Tensor) -> torch.Tensor:
-    """K6 cbf pass twin: 1 where the 8x8 granule of [F, H, W] levels holds
-    a nonzero level, [F, H/8, W/8] int32 (the first step of deblock.py:154
-    `tu_cbf_map`)."""
-    f, h, w = lv_y.shape
-    nz = (lv_y != 0).reshape(f, h // 8, 8, w // 8, 8).any(dim=4).any(dim=2)
-    return nz.to(torch.int32)
-
-
-def granule_nz(lv_y: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """The per-granule nonzero map of `granule_nz_plain` from int16 levels
-    [F, H, W].  CUDA tensors go through K6's cbf pass unless `plain`."""
+def tu_cbf(lv_y: torch.Tensor, depth: torch.Tensor, log2_ctu: int,
+           plain: bool = False) -> torch.Tensor:
+    """`tu_cbf_map` as int32 [F, H/8, W/8], the `cbf` argument of
+    `deblock` on P/B pictures: CUDA tensors go through K6's cbf pass
+    unless `plain`."""
     if plain or not lv_y.is_cuda:
-        return granule_nz_plain(lv_y)
+        return tu_cbf_map(lv_y, depth, log2_ctu).to(torch.int32)
     lv = lv_y.to(torch.int16).contiguous()
+    dm = depth.to(torch.int32).contiguous()
     _build.require_cuda("deblock_cbf", lv, dtype=torch.int16)
+    _build.require_cuda("deblock_cbf", dm, dtype=torch.int32)
     f, h, w = lv.shape
-    if h % 8 or w % 8:
-        raise ValueError("deblock_cbf: levels [F, H, W], H and W multiples "
-                         "of 8")
-    nz8 = torch.empty((f, h // 8, w // 8), dtype=torch.int32,
+    if h % 8 or w % 8 or dm.shape != (f, h // 8, w // 8):
+        raise ValueError("deblock_cbf: levels [F, H, W] and depth "
+                         "[F, H/8, W/8], H and W multiples of 8")
+    cbf = torch.empty((f, h // 8, w // 8), dtype=torch.int32,
                       device=lv.device)
-    rc = _build.lib().fhv_deblock_cbf(lv.data_ptr(), nz8.data_ptr(), f, h, w,
+    rc = _build.lib().fhv_deblock_cbf(lv.data_ptr(), dm.data_ptr(),
+                                      cbf.data_ptr(), f, h, w, log2_ctu,
                                       _build.stream_handle(lv))
-    _build.LAUNCHES["deblock_cbf"] += 1
+    _build.launched("deblock_cbf")
     _build.check(rc, "deblock_cbf")
-    return nz8
+    return cbf
 
 
 def tu_cbf_map(lv_y: torch.Tensor, depth: torch.Tensor,
@@ -90,7 +105,7 @@ def tu_cbf_map(lv_y: torch.Tensor, depth: torch.Tensor,
     granule grid reads False, as in the reference (deblock.py:154)."""
     f, h, w = lv_y.shape
     gh, gw = h // 8, w // 8
-    nz8 = granule_nz_plain(lv_y).bool()
+    nz8 = (lv_y != 0).reshape(f, gh, 8, gw, 8).any(dim=4).any(dim=2)
     size = (1 << log2_ctu) >> depth.to(torch.int64)
     cbf = nz8
     n = 16
@@ -256,15 +271,16 @@ def _filter_vert_chroma(plane, seg_mask, qp_c, bit_depth: int):
 
 def deblock_plain(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
                   log2_ctu: int, bit_depth: int = 8, bs_vert=None,
-                  bs_horz=None):
+                  bs_horz=None, x0: int = 0, pic_w: int | None = None):
     """K6's twin: deblock [F, H, W] planes (int32 out) on the CU/TU edges
     of the depth maps [F, H/8, W/8]: BS 2 everywhere, or the strengths
     bs_vert [F, H/4, W/8] / bs_horz [F, W/4, H/8] of P/B pictures, where a
-    chroma edge is filtered only where the luma BS is 2."""
+    chroma edge is filtered only where the luma BS is 2.  x0, pic_w: the
+    tile-column form's global position of the planes (`edge_masks`)."""
     f = rec_y.shape[0]
     dev = rec_y.device
     qy, qcb, qcr = (_frame_qps(v, f, dev) for v in (qp, qp_cb, qp_cr))
-    vert, horz = edge_masks(depth, log2_ctu)
+    vert, horz = edge_masks(depth, log2_ctu, x0, pic_w)
     vseg = vert.repeat_interleave(2, 1)
     hseg = horz.repeat_interleave(2, 2).transpose(1, 2)
     bsv = bs_vert if bs_vert is not None else torch.where(vseg, 2, 0)
@@ -273,7 +289,7 @@ def deblock_plain(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
     y = _filter_vert_luma(y.transpose(1, 2), hseg, bsh, qy,
                           bit_depth).transpose(1, 2)
     gh, gw = depth.shape[-2:]
-    even_x = (torch.arange(gw, device=dev) % 2 == 0)[None, :]
+    even_x = _global_cols(gw, x0, dev) % 16 == 0
     even_y = (torch.arange(gh, device=dev) % 2 == 0)[:, None]
     cvert, chorz = vert & even_x, horz & even_y
     if bs_vert is not None:
@@ -291,27 +307,31 @@ def deblock_plain(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
 
 def deblock(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu: int,
             bit_depth: int = 8, plain: bool = False, dir_map=None,
-            mv_map=None, ref_map=None, lv_y=None):
+            mv_map=None, ref_map=None, cbf=None, x0: int = 0,
+            pic_w: int | None = None):
     """Deblock F pictures: rec_* [F, H, W] (chroma halved; H, W multiples
     of 8), depth [F, H/8, W/8] CU depths, QPs scalar or per frame.  Intra
     pictures have BS 2 on every CU/TU edge; P/B pictures give dir_map [F,
     H/8, W/8], mv_map [F, H/8, W/8, 4], ref_map [F, H/8, W/8, 2] (or None)
-    and their luma levels lv_y [F, H, W], from which the strengths follow
-    (deblock.py:283-289).  Returns int32 (y, cb, cr).  CUDA tensors go
-    through K6 unless `plain`."""
+    and the per-granule CU luma cbf `cbf` [F, H/8, W/8] (`tu_cbf` of their
+    levels), from which the strengths follow (deblock.py:283-289).  x0,
+    pic_w: the global luma column
+    of the planes' first column and the picture's coded width (the
+    tile-column form; defaults 0 and W).  Returns int32 (y, cb, cr) of the
+    planes given.  CUDA tensors go through K6 unless `plain`."""
     if plain or not rec_y.is_cuda:
         bsv = bsh = None
         if dir_map is not None:
-            cbf = tu_cbf_map(lv_y, depth, log2_ctu)
             bsv, bsh = inter_bs_maps(depth, dir_map, mv_map, cbf, ref_map)
         return deblock_plain(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
-                             log2_ctu, bit_depth, bsv, bsh)
+                             log2_ctu, bit_depth, bsv, bsh, x0, pic_w)
     return _deblock_cuda(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
-                         log2_ctu, bit_depth, dir_map, mv_map, ref_map, lv_y)
+                         log2_ctu, bit_depth, dir_map, mv_map, ref_map, cbf,
+                         x0, pic_w)
 
 
 def _deblock_cuda(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu,
-                  bit_depth, dir_map, mv_map, ref_map, lv_y):
+                  bit_depth, dir_map, mv_map, ref_map, cbf, x0, pic_w):
     planes = [p.to(torch.int32).contiguous() for p in (rec_y, rec_cb,
                                                        rec_cr)]
     dm = depth.to(torch.int32).contiguous()
@@ -334,18 +354,22 @@ def _deblock_cuda(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu,
         mv = mv_map.to(torch.int32).contiguous()
         rm = (None if ref_map is None
               else ref_map.to(torch.int32).contiguous())
-        lv = lv_y.to(torch.int16).contiguous()
         _build.require_cuda("deblock", im, mv, *([] if rm is None else [rm]),
                             dtype=torch.int32)
-        _build.require_cuda("deblock", lv, dtype=torch.int16)
-        if im.shape != dm.shape or mv.shape != dm.shape + (4,) or (
-                lv.shape != (f, h, w)):
+        if im.shape != dm.shape or mv.shape != dm.shape + (4,):
             raise ValueError("deblock: dir [F, H/8, W/8], mv [F, H/8, W/8, "
-                             "4] and lv_y [F, H, W]")
-        maps = (im, mv, rm, granule_nz(lv))
+                             "4]")
+        nz = cbf.to(torch.int32).contiguous()
+        _build.require_cuda("deblock", nz, dtype=torch.int32)
+        if nz.shape != dm.shape:
+            raise ValueError("deblock: cbf [F, H/8, W/8]")
+        maps = (im, mv, rm, nz)
+    pic_w = w + x0 if pic_w is None else pic_w
+    window = (x0, pic_w) != (0, w)
     # the passes of P/B pictures, whose strengths the kernel works out,
-    # count apart from the intra ones
-    name = "deblock" if dir_map is None else "deblock_bs"
+    # and those of the tile-column form count apart from the intra ones
+    name = ("deblock_window" if window
+            else "deblock" if dir_map is None else "deblock_bs")
     src = planes
     for direction in (0, 1):       # vertical edges, then horizontal
         # the kernel writes only filtered samples: start from a copy, so
@@ -356,8 +380,8 @@ def _deblock_cuda(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu,
             dm.data_ptr(), *(None if t is None else t.data_ptr()
                              for t in maps),
             beta_t.data_ptr(), tc_t.data_ptr(), qps.data_ptr(), f, h, w,
-            log2_ctu, bit_depth, direction, stream)
-        _build.LAUNCHES[name] += 1
+            log2_ctu, bit_depth, direction, x0, pic_w, stream)
+        _build.launched(name)
         _build.check(rc, name)
         src = dst
     return tuple(src)

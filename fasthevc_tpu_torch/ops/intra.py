@@ -197,7 +197,7 @@ def predict(top: torch.Tensor, left: torch.Tensor, log2_size: int,
         None if modes is None else modes.data_ptr(), tab.data_ptr(),
         out.data_ptr(), b, n, log2_size, m, int(is_luma and n < 32),
         (1 << bit_depth) - 1, _build.stream_handle(top))
-    _build.LAUNCHES["intra_pred"] += 1
+    _build.launched("intra_pred")
     _build.check(rc, "intra_pred")
     return out
 

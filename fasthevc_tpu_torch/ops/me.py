@@ -218,7 +218,7 @@ def downsample4(planes: torch.Tensor, plain: bool = False) -> torch.Tensor:
                       device=planes.device)
     rc = _build.lib().fhv_downsample4(planes.data_ptr(), out.data_ptr(), nn_,
                                       h, w, _build.stream_handle(planes))
-    _build.LAUNCHES["me_downsample4"] += 1
+    _build.launched("me_downsample4")
     _build.check(rc, "me_downsample4")
     return out
 
@@ -296,7 +296,7 @@ def sad_search(src, refs, center, n: int, rng: int, base_n: int, scale: int,
         src.data_ptr(), refs.data_ptr(),
         None if center is None else center.data_ptr(), out.data_ptr(), r, h,
         w, n, rng, base_n, scale, clip, _build.stream_handle(src))
-    _build.LAUNCHES[name] += 1
+    _build.launched(name)
     _build.check(rc, name)
     return out
 
@@ -318,10 +318,14 @@ class MEState:
 
 
 def me_state(y_plane, ref_planes, search_range: int, max_size: int = 32,
-             plain: bool = False) -> MEState:
+             plain: bool = False, decimated=None) -> MEState:
     """Coarse bases per tier, then the +-3 refinement of every tier around
     its base and of the 8-blocks around their 16-parent's base (me.py:220).
-    y_plane [H, W]; ref_planes [R, H, W] or a list of [H, W]."""
+    y_plane [H, W]; ref_planes [R, H, W] or a list of [H, W].  decimated:
+    the 4x4-decimated [source, refs...] [1 + R, H/4, W/4] to search above
+    SR 8 in place of decimating y_plane and the refs here (a tile shard's,
+    halo-exchanged after decimation, so that the picture's bounds clamp
+    the coarse windows as the whole picture's do)."""
     if search_range > MAX_SEARCH_RANGE:
         raise ValueError(f"search_range {search_range} > "
                          f"{MAX_SEARCH_RANGE}: the reference's windows end "
@@ -338,7 +342,8 @@ def me_state(y_plane, ref_planes, search_range: int, max_size: int = 32,
             st.base[n] = sad_search(y, refs, None, n, sr, n, 1, sr,
                                     plain=plain)
     else:
-        ds = downsample4(torch.cat([y[None], refs]), plain=plain)
+        ds = (downsample4(torch.cat([y[None], refs]), plain=plain)
+              if decimated is None else decimated.to(torch.int32))
         sr4 = -(-sr // 4)
         for n in st.tiers:
             st.base[n] = sad_search(ds[0], ds[1:], None, n // 4, sr4, n // 4,
@@ -431,7 +436,7 @@ def subpel(src, refs, mv_int, n: int, lambda_sqrt: float,
         src.data_ptr(), refs.data_ptr(), mv_int.data_ptr(), tab.data_ptr(),
         tab.shape[0], ls, out_c.data_ptr(), out_mv.data_ptr(),
         out_p.data_ptr(), r, h, w, n, _build.stream_handle(src))
-    _build.LAUNCHES["subpel"] += 1
+    _build.launched("subpel")
     _build.check(rc, "subpel")
     return out_c, out_mv, out_p
 
@@ -492,7 +497,7 @@ def mc_sel(refs, base, mvq, sel, n: int, tier: int, plain: bool = False):
         refs.data_ptr(), base.data_ptr(), mvq.data_ptr(), sel.data_ptr(),
         raw.data_ptr(), valid.data_ptr(), r, h, w, n, tier, TIER_W[tier],
         _build.stream_handle(refs))
-    _build.LAUNCHES["mc_sel"] += 1
+    _build.launched("mc_sel")
     _build.check(rc, "mc_sel")
     return raw, valid.bool()
 
@@ -560,7 +565,7 @@ def bi_cost(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits,
         mv1.data_ptr(), sel1.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
         ls, pbi.data_ptr(), cbi.data_ptr(), r, h, w, n,
         _build.stream_handle(src))
-    _build.LAUNCHES["bi_cost"] += 1
+    _build.launched("bi_cost")
     _build.check(rc, "bi_cost")
     return pbi, cbi
 
@@ -638,7 +643,7 @@ def _inter_comp_cuda(ref0, ref1, d, mv, rmap, chroma: bool,
         _build.stream_handle(ref0))
     # the bi-predicting form of B pictures counts apart from P's
     name = "inter_pred" if ref1 is None else "inter_pred_bi"
-    _build.LAUNCHES[name] += 1
+    _build.launched(name)
     _build.check(rc, name)
     return out
 

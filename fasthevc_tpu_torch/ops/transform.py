@@ -134,6 +134,6 @@ def tq_roundtrip(res: torch.Tensor, qp: int, log2_size: int,
         res.data_ptr(), mat.data_ptr(), levels.data_ptr(), recon.data_ptr(),
         b, n, log2_size, int(qp), bit_depth, 171 if is_intra else 85,
         _build.stream_handle(res))
-    _build.LAUNCHES["tq_roundtrip"] += 1
+    _build.launched("tq_roundtrip")
     _build.check(rc, "tq_roundtrip")
     return levels, recon

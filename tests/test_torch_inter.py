@@ -138,7 +138,9 @@ def test_deblock_with_strengths_matches_jax(qp):
                           [qp + 2], 5, dir_map=torch.from_numpy(d)[None],
                           mv_map=torch.from_numpy(mv)[None],
                           ref_map=torch.from_numpy(rm)[None],
-                          lv_y=torch.from_numpy(lv)[None])
+                          cbf=deblock.tu_cbf(torch.from_numpy(lv)[None],
+                                             torch.from_numpy(depth)[None],
+                                             5))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b[0].numpy())
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K15 of fasthevc_tpu_torch against their plain twins.
+"""The CUDA kernels K1-K16 of fasthevc_tpu_torch against their plain twins.
 
 Tests marked `cuda` need an NVIDIA card: the `cuda_device` fixture skips
 them elsewhere (the decision is made inside the fixture, never at import
@@ -22,8 +22,8 @@ from fasthevc_tpu_torch.codec.search import (search_b_maps,
                                              search_intra_maps_batch,
                                              search_p_maps)
 from fasthevc_tpu_torch.models import init_params
-from fasthevc_tpu_torch.ops import (cnn, commit, cost, deblock, intra, me,
-                                    sao, transform)
+from fasthevc_tpu_torch.ops import (cnn, commit, cost, deblock, halo,
+                                    intra, me, sao, transform)
 from fasthevc_tpu_torch.utils import synthesize_yuv
 from fasthevc_tpu_torch.utils.video import pad_plane
 
@@ -114,11 +114,11 @@ def test_library_is_keyed_by_the_sources():
         "intra_pred.cu", "satd.cu", "tq_roundtrip.cu", "sse_rate.cu",
         "commit.cu", "deblock.cu", "sao.cu", "checksum.cu", "me_int.cu",
         "subpel.cu", "mc.cu", "intra_common.cuh", "tq_common.cuh",
-        "satd_common.cuh", "cnn.cu"}
+        "satd_common.cuh", "cnn.cu", "halo.cu"}
     assert set(_build._SIGNATURES) >= {
         "fhv_downsample4", "fhv_sad_search", "fhv_subpel", "fhv_mc_sel",
         "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf",
-        "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam"}
+        "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam", "fhv_halo"}
 
 
 @pytest.mark.cuda
@@ -343,11 +343,11 @@ def test_mixed_commit_and_bs_deblock_match_twins(cuda_device, rdoq):
     assert _build.LAUNCHES["commit_mixed"] > before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert torch.equal(deblock.granule_nz(got[3]),
-                       deblock.granule_nz(got[3], plain=True))
-    dargs = (*got[:3], dm, [32], [33], [33], 5)
-    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, lv_y=got[3])
     before = _build.LAUNCHES["deblock_bs"], _build.LAUNCHES["deblock_cbf"]
+    cbf = deblock.tu_cbf(got[3], dm, 5)
+    assert torch.equal(cbf, deblock.tu_cbf(got[3], dm, 5, plain=True))
+    dargs = (*got[:3], dm, [32], [33], [33], 5)
+    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, cbf=cbf)
     dk = deblock.deblock(*dargs, **kw)
     for a, b in zip(dk, deblock.deblock(*dargs, plain=True, **kw)):
         assert torch.equal(a, b)
@@ -559,3 +559,114 @@ def test_cnn_on_the_cpu_runs_the_twins_and_counts_no_launch():
     assert logits.shape == (6, 4, 4, 3)
     with pytest.raises(ValueError):
         cnn.cnn_depth(y, theta, 30, 6)   # a CTU-32 network on CTU 64
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer: K16, K6's tile-column form, K7's halo form
+# ---------------------------------------------------------------------------
+
+def _halo_planes(seed, dev):
+    rng = np.random.default_rng(seed)
+    shapes = [((1, 64, 96), np.uint8), ((1, 32, 48), np.int32),
+              ((2, 8, 12), np.int16), ((1, 8, 48), np.int32)]
+    return [[torch.from_numpy(rng.integers(0, 200, s).astype(t)).to(dev)
+             for s, t in shapes] for _ in range(3)]
+
+
+@pytest.mark.cuda
+def test_halo_kernel_matches_twin(cuda_device):
+    """K16: every edge case of a row (both neighbours, each bound alone)
+    and the packed send buffers, element sizes 1, 2 and 4."""
+    own, left, right = _halo_planes(80, cuda_device)
+    wl, wr = [8, 4, 1, 4], [16, 8, 1, 4]
+    before = _build.LAUNCHES["halo"]
+    for lt, rt in ((left, right), ([None] * 4, right), (left, [None] * 4)):
+        got = halo.halo_extend(own, lt, rt, wl, wr)
+        want = halo.halo_extend(own, lt, rt, wl, wr, plain=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    for a, b in zip(halo.halo_pack(own, wl, wr),
+                    halo.halo_pack(own, wl, wr, plain=True)):
+        assert torch.equal(a, b)
+    assert _build.LAUNCHES["halo"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inter", [False, True])
+def test_deblock_window_kernel_matches_twin(cuda_device, inter):
+    """K6's tile-column form on a tile extended by 8 columns each side
+    (x0 = 56 of a 256-wide picture; and the last tile, whose right edge is
+    the picture's), with P strengths from the CU cbf pass."""
+    rng = np.random.default_rng(81 + inter)
+    h, w = 64, 80
+    gh, gw = h // 8, w // 8
+    dev = cuda_device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32))[None].to(
+            dev)
+
+    planes = [t(rng.integers(60, 200, (h >> (c > 0), w >> (c > 0))))
+              for c in range(3)]
+    # a valid CTU-32 quadtree: each CTU whole (depth 0) or in 16s and 8s
+    depth = np.zeros((gh, gw), np.int32)
+    for cy in range(0, gh, 4):
+        for cx in range(0, gw, 4):
+            if rng.random() < 0.7:
+                for q in range(4):
+                    y0, x0 = cy + 2 * (q // 2), cx + 2 * (q % 2)
+                    depth[y0:y0 + 2, x0:x0 + 2] = 1 + (rng.random() < 0.5)
+    dm = t(depth)
+    kw = {}
+    if inter:
+        lv = torch.from_numpy((rng.random((h, w)) < 0.02).astype(np.int16)
+                              )[None].to(dev)
+        cbf = deblock.tu_cbf(lv, dm, 5)
+        assert torch.equal(cbf, deblock.tu_cbf(lv, dm, 5, plain=True))
+        kw = dict(dir_map=t(rng.integers(0, 4, (gh, gw))),
+                  mv_map=t(rng.integers(-9, 9, (gh, gw, 4))), cbf=cbf)
+    before = _build.LAUNCHES["deblock_window"]
+    for x0 in (56, 184):
+        args = (*planes, dm, 35, 34, 34, 5)
+        got = deblock.deblock(*args, x0=x0, pic_w=256, **kw)
+        want = deblock.deblock(*args, plain=True, x0=x0, pic_w=256, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert _build.LAUNCHES["deblock_window"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_av,r_av", [(False, False), (True, False),
+                                       (False, True), (True, True)])
+def test_sao_halo_kernel_matches_twin(cuda_device, l_av, r_av):
+    rng = np.random.default_rng(90 + 2 * l_av + r_av)
+    h, w = 48, 64
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32))[None].to(
+            cuda_device)
+
+    src = [rng.integers(0, 256, (h >> (c > 0), w >> (c > 0)))
+           for c in range(3)]
+    rec = [np.clip(a + rng.integers(-6, 7, a.shape), 0, 255) for a in src]
+    cols = [tuple(t(rng.integers(0, 256, h >> (c > 0))) for _ in range(2))
+            for c in range(3)]
+    kw = dict(halo_y=cols[0], halo_cb=cols[1], halo_cr=cols[2],
+              l_avail=l_av, r_avail=r_av)
+    before = _build.LAUNCHES["sao_halo"]
+    got = sao.sao(*(t(a) for a in src + rec), 5, **kw)
+    want = sao.sao(*(t(a) for a in src + rec), 5, plain=True, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert _build.LAUNCHES["sao_halo"] == before + 2
+
+
+def test_mesh_kernels_on_the_cpu_run_the_twins_and_count_no_launch():
+    own, left, right = _halo_planes(82, "cpu")
+    _build.LAUNCHES.clear()
+    ext = halo.halo_extend(own, left, right, 4, 4)
+    assert [e.shape[-1] for e in ext] == [p.shape[-1] + 8 for p in own]
+    halo.halo_pack(own, 4, 4)
+    lv = torch.zeros((1, 32, 32), dtype=torch.int16)
+    deblock.tu_cbf(lv, torch.zeros((1, 4, 4), dtype=torch.int32), 5)
+    assert sum(_build.LAUNCHES.values()) == 0
