@@ -18,13 +18,16 @@ Phases (any failure raises, and the script exits non-zero):
      a. K1-K4 (the search) on a group of 8 frames, exactly (K4's rate
         within 1e-5 relative); then, on the decision maps of one search of
         that group, K5 (the wavefront commit with the RDOQ trellis; its
-        twin on the first 2 frames), K6 (deblock), K7 (SAO) and K8
-        (checksum), exactly;
+        twin on the first 2 frames; its time on 1, 2 and 8 frames and per
+        dependent CTU step, and its latency bound: the steps times the
+        least CTU step), K6 (deblock), K7 (SAO) and K8 (checksum),
+        exactly;
      b. the P kernels on one P frame of phase 7's clip with two
         references at SR 64: K9 (decimation, coarse full search, +-3
         refinement), K10 (sub-pel), K11 (merge-candidate MC and the
-        commit's MC planes), K5's mixed form (RDOQ on) and K6 with
-        boundary strengths, exactly;
+        commit's MC planes), K5's mixed form (RDOQ on; its time per
+        dependent step beside the frame's share of intra granules and
+        CTUs) and K6 with boundary strengths, exactly;
      c. the B kernels on POC 4 of phase 10's clip with two references per
         list (0, 8 and 8, 16) at SR 64: K12 (the bi-prediction cost) for
         the 8-, 16- and 32-blocks, each with its time, twin time and bound,
@@ -37,8 +40,9 @@ Phases (any failure raises, and the script exits non-zero):
      d. the partition CNN with seeded random weights: K13 on a 1080p group
         of 8 at CTU 32 (and one 1080p frame at CTU 64), its training-mode
         logits within CNN_TOL of the conv2d chain's and its depth maps
-        equal wherever the chain's top-two margin exceeds 2 CNN_TOL; K13's
-        training mode and K14 on one training batch of 64 CTUs against
+        equal wherever the chain's top-two margin exceeds 2 CNN_TOL (the
+        flips inside the margin counted), each of its tiles T (CTUs a
+        CTA) timed; K13's training mode and K14 on one training batch of 64 CTUs against
         autograd through the chain (gradients within 1e-4 of each
         tensor's largest); K15 on the flat parameters, bit for bit; each
         with its time, twin time, bound and the library call's time (the
@@ -93,8 +97,11 @@ Phases (any failure raises, and the script exits non-zero):
  13. the fast-partition path with those parameters: phases 3, 7 and 10
      again (the same frames) with fast_partition, fps, kbit/frame and
      Y-PSNR printed beside the full search's, each requiring K13 and its
-     route's kernels; then config 4 itself (416x240, 4 frames, QP 22, 27,
-     32 and 37, full vs fast, every stream hash-clean) and its BD-rate by
+     route's kernels; one 1080p all-intra fast-partition stream of 8
+     frames with K13 and with the conv2d chain in its place, compared
+     byte for byte, with K13's depth flips on those frames; then config 4
+     itself (416x240, 4 frames, QP 22, 27, 32 and 37, full vs fast,
+     every stream hash-clean) and its BD-rate by
      the port's utils.bd_rate, printed against the 2% gate as a
      measurement; and 416x240 fast-partition streams (all-intra and random
      access with the trained CNN, the CTU-64 pipelined route with a seeded
@@ -248,6 +255,16 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _with_k13_tile(cnn, t: int, fn):
+    """fn() with K13 launched at tile t in place of `cnn_tile`'s choice."""
+    chosen = cnn.cnn_tile
+    cnn.cnn_tile = lambda *_: t
+    try:
+        return fn()
+    finally:
+        cnn.cnn_tile = chosen
 
 
 def _median_ms(fn, reps: int = 7) -> float:
@@ -425,8 +442,8 @@ def _intra_commit(torch, y, c, sp):
              scb=cb[:, :HEIGHT // 2].contiguous(),
              scr=cr[:, :HEIGHT // 2].contiguous())
     qy, qcb, qcr = tu_qps(sp, QP)
-    d.update(qcb=qcb, qcr=qcr)
     lam = float(torch.tensor(ls, dtype=torch.float32) ** 2)
+    d.update(qy=qy, qcb=qcb, qcr=qcr, lam=lam)
     tbx = tuple(int(b) * 32 for b in sp.tile_col_bounds()[1:-1])
     tby = tuple(int(b) * 32 for b in sp.tile_row_bounds()[1:-1])
 
@@ -437,6 +454,34 @@ def _intra_commit(torch, y, c, sp):
             True, tbx, tby, rdoq=True, lam=lam, plain=plain)
 
     return run_commit, d
+
+
+def _k5_steps() -> int:
+    """K5's dependent CTU steps at 1080p: nctux + 2 (nctuy - 1)."""
+    return WIDTH // 32 + 2 * (-(-HEIGHT // 32) - 1)
+
+
+def _k5_least_step(torch, d) -> float:
+    """The least time of one of K5's dependent CTU steps: over rows 8, 16
+    and 24 of the first frame, the slope between one-row pictures of 60
+    and 4 CTUs (each a chain of that many steps, one launch a call)."""
+    from fasthevc_tpu_torch.ops import commit
+    qy, qcb, qcr, lam = d["qy"], d["qcb"], d["qcr"], d["lam"]
+    best = float("inf")
+    for row in (8, 16, 24):
+        ms = {}
+        for k in (4, WIDTH // 32):
+            y0, w = row * 32, k * 32
+            args = (d["sy"][:1, y0:y0 + 32, :w],
+                    d["scb"][:1, y0 // 2:y0 // 2 + 16, :w // 2],
+                    d["scr"][:1, y0 // 2:y0 // 2 + 16, :w // 2],
+                    d["dm"][:1, y0 // 8:y0 // 8 + 4, :w // 8],
+                    d["mm"][:1, y0 // 8:y0 // 8 + 4, :w // 8],
+                    qy, qcb, qcr, w, 32, True, (), ())
+            ms[k] = _median_ms(lambda: commit.wavefront_commit_intra(
+                *args, rdoq=True, lam=lam), reps=9)
+        best = min(best, (ms[WIDTH // 32] - ms[4]) / (WIDTH // 32 - 4))
+    return best
 
 
 def phase_pixel_kernels(torch, y, c, sp, timed, work):
@@ -450,15 +495,23 @@ def phase_pixel_kernels(torch, y, c, sp, timed, work):
     qcb, qcr = d["qcb"], d["qcr"]
     gh, gw = HEIGHT // 8, WIDTH // 8
     rec = run_commit(GROUP, False)
-    k5_group_ms = _median_ms(lambda: run_commit(GROUP, False), reps=3)
-    timed["commit_intra"] = (
-        _median_ms(lambda: run_commit(TWIN_FRAMES, False), reps=3), None)
+    steps = _k5_steps()
+    k5_ms = {f: _median_ms(lambda: run_commit(f, False), reps=3)
+             for f in (1, TWIN_FRAMES, GROUP)}
+    timed["commit_intra"] = (k5_ms[TWIN_FRAMES], None)
     # source in, recon out (int32), levels out (int16), 1.5 planes each
     px = TWIN_FRAMES * HEIGHT * WIDTH * 1.5
     work["commit_intra"] = (px * (4 + 4 + 2),
                             _transform_ops(dm[:TWIN_FRAMES]))
-    print(f"kernel commit_intra: {k5_group_ms:.4f} ms for the group of "
-          f"{GROUP} frames (1080p, RDOQ on)")
+    for f, ms in k5_ms.items():
+        print(f"kernel commit_intra, {f} 1080p frame(s), RDOQ on: "
+              f"{ms:.4f} ms, {ms / steps:.4f} ms per dependent step "
+              f"({steps} steps)")
+    step = _k5_least_step(torch, d)
+    print(f"kernel commit_intra: least CTU step {step:.4f} ms (the slope "
+          f"of one-row pictures of 4 and {WIDTH // 32} CTUs, the least of 3 "
+          f"rows); latency bound {steps} x {step:.4f} = {steps * step:.4f} "
+          f"ms a 1080p call")
 
     ry, rcb, rcr = rec[:3]
     dargs = (ry, rcb, rcr, dm, QP, qcb, qcr, 5)
@@ -638,6 +691,15 @@ def phase_inter_kernels(torch, timed, work):
     rec = _run_mixed(torch, d, False)
     timed["commit_mixed"] = (
         _median_ms(lambda: _run_mixed(torch, d, False), reps=3), None)
+    ph8 = -(-HEIGHT // 32) * 4
+    ctu_intra = torch.nn.functional.pad(
+        (im[0] == 0).float(), (0, 0, 0, ph8 - gh)).reshape(
+        ph8 // 4, 4, gw // 4, 4).amax(dim=(1, 3))
+    ms = timed["commit_mixed"][0]
+    print(f"kernel commit_mixed, 1 1080p P frame, RDOQ on: {ms:.4f} ms, "
+          f"{ms / _k5_steps():.4f} ms per dependent step ({_k5_steps()} "
+          f"steps); {1 - inter:.4f} of the granules intra, "
+          f"{ctu_intra.mean().item():.4f} of the CTUs holding an intra CU")
     work["commit_mixed"] = (fpx * 1.5 * (4 + 4 + 4 + 2),
                             _transform_ops(dm))
 
@@ -886,6 +948,18 @@ def phase_cnn_kernels(torch, errs, timed, work, lib_ms):
         if not torch.equal(got[sure], want[sure]):
             raise AssertionError(f"K13 CTU {ctu}: depth differs from the "
                                  f"twin's beyond the margin")
+        near = int((~sure).sum().item())
+        flips = int((got != want)[~sure].sum().item())
+        print(f"K13 CTU {ctu}: {flips} depth flip(s) against the twin in the "
+              f"{near} granule(s) within 2 CNN_TOL of a tie "
+              f"({got.numel()} granules)")
+        tile = cnn.cnn_tile(x.shape[0], lg, cnn._sm_count(y))
+        alts = {t: _with_k13_tile(cnn, t, lambda: _median_ms(
+            lambda: cnn.cnn_depth(y, theta, QP, lg)))
+            for t in cnn.CNN_TILES[lg]}
+        print(f"K13 CTU {ctu}, {x.shape[0]} CTUs: the wrapper's T {tile}; "
+              f"ms by T: "
+              + ", ".join(f"{t} {v:.4f}" for t, v in alts.items()))
         ms = _median_ms(lambda: cnn.cnn_depth(y, theta, QP, lg))
         plain_ms = _median_ms(lambda: cnn.cnn_depth(y, theta, QP, lg,
                                                     plain=True))
@@ -928,6 +1002,12 @@ def phase_cnn_kernels(torch, errs, timed, work, lib_ms):
         _median_ms(lambda: cnn.cnn_train_forward(x, q, theta)),
         _median_ms(lambda: cnn.logits_plain(x[:, None], q, layers)))
     lib_ms["cnn_train"] = timed["cnn_train"][1]
+    alts = {t: _with_k13_tile(cnn, t, lambda: _median_ms(
+        lambda: cnn.cnn_train_forward(x, q, theta)))
+        for t in cnn.CNN_TILES[5]}
+    print(f"K13 training mode, {nb} CTUs of 32: the wrapper's T "
+          f"{cnn.cnn_tile(nb, 5, cnn._sm_count(x))}; ms by T: "
+          + ", ".join(f"{t} {v:.4f}" for t, v in alts.items()))
     fwd, bwd = _cnn_macs(32, 3)
     work["cnn_train"] = (4 * (x.numel() + nb + p_ + lk.numel()
                               + acts.numel()),
@@ -1486,6 +1566,37 @@ def phase_fast_routes(torch, params, full: dict) -> dict:
               f"vs {ref['kbit']:.2f} kbit/frame, Y-PSNR {st['psnr']:.3f} vs "
               f"{ref['psnr']:.3f} dB")
     return launches
+
+
+def phase_cnn_stream(torch, params) -> None:
+    """Phase 13: one 1080p all-intra fast-partition stream (phase 3's
+    first GROUP frames) with K13 and with cnn_depth(..., plain=True) (the
+    conv2d chain on the card), every other kernel the same: byte identity,
+    and K13's depth flips against the chain on those frames."""
+    from fasthevc_tpu_torch.codec import search
+    from fasthevc_tpu_torch.ops import cnn
+    from fasthevc_tpu_torch.utils.video import pad_plane
+
+    clip = _ai_clip()[:GROUP]
+    cfg = _fast(_ai_cfg(GROUP), params)
+    got = _encode(torch, cfg, clip, params=params)[0]
+    kernel = search.cnn_depth
+    search.cnn_depth = lambda *a, **kw: kernel(*a, **{**kw, "plain": True})
+    try:
+        want = _encode(torch, cfg, clip, params=params)[0]
+    finally:
+        search.cnn_depth = kernel
+    y = torch.from_numpy(np.stack([
+        pad_plane(np.asarray(f[0], np.int32), -(-HEIGHT // 32) * 32,
+                  WIDTH).astype(np.uint8) for f in clip])).to("cuda")
+    from fasthevc_tpu_torch.models.partition_cnn import as_partition_cnn
+    theta = as_partition_cnn(params, "cuda", 5).flat_params()
+    flips = int((cnn.cnn_depth(y, theta, QP, 5)
+                 != cnn.cnn_depth(y, theta, QP, 5, plain=True)).sum().item())
+    print(f"1080p all-intra fast-partition stream, {GROUP} frames, K13 vs "
+          f"the conv2d chain: {'byte-identical' if got == want else 'DIFFERENT'}"
+          f" ({len(got)} vs {len(want)} bytes); {flips} depth flip(s) of "
+          f"{y.numel() // 64} granules on those frames")
 
 
 def job_config4(torch) -> dict:
@@ -2185,6 +2296,7 @@ def main() -> int:
     _stamp(t_start, "phase 12 (training)")
     got = phase_fast_routes(torch, params, full)
     launches["cnn_depth"] = got["cnn_depth"]
+    phase_cnn_stream(torch, params)
     _stamp(t_start, "phase 13's timed fast-partition encodes")
     torch.cuda.empty_cache()
     phase_classic_route(torch)

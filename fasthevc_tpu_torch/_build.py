@@ -59,8 +59,9 @@ _SIGNATURES = {
                      _F, _P],
     # src y/cb/cr, depth, mode, dir, ipred y/cb/cr, rec y/cb/cr, lv
     # y/cb/cr, dct, scans, mode_tab, tiles, ntx, nty, ftab, itab, meta,
-    # lams, qps, F, ph, pw, coded_w, coded_h, sdh, rdoq, bit_depth, stream
-    "fhv_commit": [_P] * 19 + [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+    # lams, qps, flags, order, F, ph, pw, coded_w, coded_h, sdh, rdoq,
+    # bit_depth, stream
+    "fhv_commit": [_P] * 19 + [_I, _I] + [_P] * 7 + [_I] * 8 + [_P],
     # in y/cb/cr, out y/cb/cr, depth, dir, mv, ref, cbf, beta_tab,
     # tc_tab, qps, F, H, W, log2_ctu, bit_depth, pass, x0, pic_w, stream
     "fhv_deblock": [_P] * 14 + [_I] * 8 + [_P],
@@ -90,8 +91,8 @@ _SIGNATURES = {
     # W, n, stream
     "fhv_bi_cost": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],
     # plane, dtype, qv, qp, theta, depth, logits, acts, F, PH, PW, log2_ctu,
-    # stream
-    "fhv_cnn_fwd": [_P, _I, _P, _F, _P, _P, _P, _P] + [_I] * 4 + [_P],
+    # T, smem bytes, stream
+    "fhv_cnn_fwd": [_P, _I, _P, _F, _P, _P, _P, _P] + [_I] * 6 + [_P],
     # x, qv, labels, theta, acts, logits, partial, grad, B, log2_ctu, inv_n,
     # stream
     "fhv_cnn_bwd": [_P] * 8 + [_I, _I, _F, _P],

@@ -29,15 +29,29 @@
 // 32-CTU for the forward: 1.23 M multiply-adds, 1,200 a byte of luma read;
 // about twice that for the backward), over the CUDA cores' 67 TFLOP/s: no
 // tensor core, since TF32 would flip near-tied logits.  K15 by bytes (four
-// buffers read, three written).  Design: one CTA of 256 threads per
-// CTU (per (frame, CTU) over the whole batch, one launch per search call);
-// the activations ping-pong between two shared buffers of 2 S^2 and 4 S^2
-// floats (24 KB at CTU 32, 96 KB at CTU 64, which needs the dynamic shared
-// memory opt-in, set once at the first launch); each thread computes
-// outputs in a block-stride loop, reading the 60,995 weights (244 KB, too
-// many for shared memory) from global memory through the read-only cache.
-// The backward keeps the gradient planes in the same two shared buffers
-// and reads the saved activations from global memory.
+// buffers read, three written).
+//
+// K13's first design (one CTA of 256 threads per CTU, one scalar FMA
+// chain per output, every weight read through __ldg for every output)
+// ran 15x its bound at the 1080p group: the 60,995 weights (244 KB) went
+// through L2 again for each of the 16,320 CTAs (about 4 GB), two loads
+// fed each FMA, and Conv_3 (half the multiply-adds, 150 KB of weights)
+// served 16 positions a CTU.  This design runs each conv as an implicit
+// GEMM: M = the output positions of T CTUs, N = the output channels, K =
+// cin x 9 in (ic, ky, kx) order.  The weights stream through two shared
+// stages in K-chunks (cp.async, the next chunk in flight while the
+// current one is multiplied), so each chunk is read once per CTA; each
+// thread keeps a register tile of up to 4 positions x 4 channels (a
+// float4 of weights and 4 activations feed 16 FMAs); activations stay in
+// shared memory, zero-padded, so a padded tap adds an exact 0 and every
+// output's FMA chain runs in the first design's order.  Conv_0 and Conv_1
+// run two CTUs at a time (one at CTU 64), Conv_2 and Conv_3 over all T
+// CTUs of the CTA (at T = 4, Conv_3's 150 KB of weights serve 64
+// positions).  The wrapper picks T from the batch: the largest T that
+// still gives every SM its CTAs, T = 1 for a small batch (a training batch
+// of 64 CTUs: 64 CTAs).
+// The backward keeps the gradient planes in two shared buffers of 2 S^2
+// and 4 S^2 floats and reads the saved activations from global memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,128 +86,332 @@ __host__ __device__ inline Layout layout_of(int D) {
 // logits or their gradient (at most 64 granules x 4 depths)
 __host__ __device__ inline int smem_floats(int S) { return 6 * S * S + 256; }
 
-// conv3x3 stride 2, padding (0, 1): out[oc][oy][ox] = relu(b[oc] +
-// sum_{ic,ky,kx} w[oc][ic][ky][kx] in[ic][2oy+ky][2ox+kx]), the row and
-// column past the input reading 0; stored in shared memory and, when gout
-// is given, in global memory too (K13's training mode)
-__device__ void conv_s2(const float* in, int cin, int hin, float* out,
-                        int cout, const float* __restrict__ w,
-                        const float* __restrict__ b, float* gout) {
-  const int ho = hin >> 1, hw = ho * ho;
-  for (int o = threadIdx.x; o < cout * hw; o += blockDim.x) {
-    const int oc = o / hw, p = o - oc * hw;
-    const int oy = p / ho, ox = p - oy * ho;
-    float acc = 0.f;
-    for (int ic = 0; ic < cin; ++ic) {
-      const float* src = in + ic * hin * hin;
-      const float* wk = w + (oc * cin + ic) * 9;
-      for (int ky = 0; ky < 3; ++ky) {
-        const int iy = 2 * oy + ky;
-        if (iy >= hin) continue;
-        for (int kx = 0; kx < 3; ++kx) {
-          const int ix = 2 * ox + kx;
-          if (ix >= hin) continue;
-          acc = __fmaf_rn(__ldg(wk + ky * 3 + kx), src[iy * hin + ix], acc);
-        }
-      }
-    }
-    const float v = fmaxf(__fadd_rn(acc, __ldg(b + oc)), 0.f);
-    out[o] = v;
-    if (gout) gout[o] = v;
+// ---------------------------------------------------------------------------
+// K13: the forward as tiled implicit GEMMs
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 2304;  // floats of one weight stage: 36 K x 64 N
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The shared-memory plan (floats) of a CTA of T CTUs of 2^LG.  Every
+// activation plane is kept zero-padded as its consumer reads it: the
+// input and the stride-2 outputs one row and column past the end (flax's
+// (0, 1) padding), Conv_2's output one sample all round (the stride-1
+// conv's (1, 1)), with the qp / 51 plane as its 65th channel.  R1 holds
+// the inputs and Conv_0's outputs of the TA CTUs in flight (two at a time
+// at CTU 32, which costs no more room than Conv_2's outputs there), then
+// Conv_2's output of the T CTUs; R2 the T Conv_1 outputs, then the T
+// Conv_3 outputs.  ops/cnn.py `cnn_smem_bytes` mirrors this.
+template <int LG, int T>
+struct Plan {
+  static constexpr int S = 1 << LG, H1 = S / 2, H2 = S / 4, G = S / 8;
+  static constexpr int D = LG - 2;
+  static constexpr int IN = (S + 1) * (S + 1);
+  static constexpr int P0 = (H1 + 1) * (H1 + 1);
+  static constexpr int P1 = (H2 + 1) * (H2 + 1);
+  static constexpr int P2 = (G + 2) * (G + 2);
+  static constexpr int P3 = G * G;
+  static constexpr int A0 = 16 * P0, A1 = 32 * P1, A2 = 65 * P2;
+  static constexpr int A3 = 64 * P3;
+  static constexpr int TA = LG == 5 && T >= 2 ? 2 : 1;
+  static constexpr int R1 = cmax(TA * (IN + A0), T * A2);
+  static constexpr int R2 = cmax(T * A1, T * A3);
+  static constexpr int BIAS = 2 * kChunk;  // the two weight stages first
+  static constexpr int R1_AT = BIAS + 192;
+  static constexpr int R2_AT = R1_AT + R1;
+  static constexpr int LOG_AT = R2_AT + R2;
+  static constexpr int TOTAL = LOG_AT + T * P3 * D;
+};
+
+// The register tile of a layer of M output positions and NS output
+// channels: (PM positions along a row) x (PN channels), the largest that
+// still gives every thread a tile (the tiles T of ops/cnn.py CNN_TILES all
+// reach one).
+__host__ __device__ constexpr int tile_kind(int m, int ns) {
+  return (m / 4) * (ns / 4) >= kThreads   ? 0
+         : (m / 2) * (ns / 4) >= kThreads ? 1
+         : m * (ns / 4) >= kThreads       ? 2
+                                          : 3;
+}
+__host__ __device__ constexpr int tile_pm(int k) {
+  return k == 0 ? 4 : (k == 1 ? 2 : 1);
+}
+__host__ __device__ constexpr int tile_pn(int k) { return k <= 2 ? 4 : 2; }
+
+// Conv_l's weights (OIHW) in the flat buffer: offset, K = cin * 9, input
+// channels per K-chunk, input channels
+struct LayerW {
+  int w, K, icc, cin, cout;
+};
+__device__ __forceinline__ LayerW layer_w(const Layout& L, int l) {
+  switch (l) {
+    case 0: return {L.w0, 9, 1, 1, 16};
+    case 1: return {L.w1, 144, 8, 16, 32};
+    case 2: return {L.w2, 288, 4, 32, 64};
+    default: return {L.w3, 585, 4, 65, 64};
   }
 }
 
-// conv3x3 stride 1, padding (1, 1), over the 64 channels of in [64][g][g]
-// and a 65th channel that holds q inside the picture and 0 in the padding
-__device__ void conv_s1q(const float* in, int g, float q, float* out,
-                         const float* __restrict__ w,
-                         const float* __restrict__ b, float* gout) {
-  const int gg = g * g;
-  for (int o = threadIdx.x; o < 64 * gg; o += blockDim.x) {
-    const int oc = o / gg, p = o - oc * gg;
-    const int oy = p / g, ox = p - oy * g;
-    float acc = 0.f;
-    for (int ic = 0; ic < 65; ++ic) {
-      const float* wk = w + (oc * 65 + ic) * 9;
+// Start the cp.async copy of weight chunk i of the CTA's sequence (for each
+// of its na steps of Conv_0 and Conv_1, Conv_0's one chunk and Conv_1's
+// two, then Conv_2's 8 and Conv_3's 17) into stage i & 1, laid out [k][n].
+__device__ void issue_chunk(float* wst, const float* __restrict__ theta,
+                            const Layout& L, int i, int na) {
+  if (i >= 3 * na + 25) return;
+  int l, c;
+  if (i < 3 * na) {
+    const int r = i % 3;
+    l = r ? 1 : 0;
+    c = r ? r - 1 : 0;
+  } else {
+    const int j = i - 3 * na;
+    l = j < 8 ? 2 : 3;
+    c = j < 8 ? j : j - 8;
+  }
+  const LayerW lw = layer_w(L, l);
+  const int ns = lw.cout;
+  const int kc = min(lw.icc, lw.cin - c * lw.icc) * 9;
+  float* dst = wst + (i & 1) * kChunk;
+  const float* src = theta + lw.w + c * lw.icc * 9;
+  for (int e = threadIdx.x; e < kc * ns; e += blockDim.x) {
+    const int n = e / kc, kk = e - n * kc;
+    cp_async4(dst + kk * ns + n, src + (size_t)n * lw.K + kk);
+  }
+  cp_async_commit();
+}
+
+// One 3x3 conv as an implicit GEMM over CT CTUs: M = CT WO^2 output
+// positions, N = NS channels, K = CIN * 9 walked as (ic, ky,
+// kx) in chunks of ICC input channels that stream through the two weight
+// stages (ci counts the CTA's chunks).  Each output's FMA chain runs in
+// that order over the zero-padded input, so a padded tap adds an exact 0.
+// Epilogue: relu(acc + bias) into the padded output planes and, where
+// gact is given, into the saved activations (CTUs t < tv).  na: the CTA's
+// steps of Conv_0 and Conv_1 (issue_chunk's sequence).
+template <int CIN, int STRIDE, int WO, int CT, int NS, int ICC>
+__device__ void conv_layer(float* wst, const float* __restrict__ theta,
+                           const Layout& L, int& ci, int na, int tv,
+                           const float* in, int in_ctu, int in_plane,
+                           int in_rw, float* out, int out_ctu, int out_plane,
+                           int out_rw, int opad, const float* bias,
+                           float* gact, int gact_ctu) {
+  constexpr int M = CT * WO * WO;
+  constexpr int KIND = tile_kind(M, NS);
+  constexpr int PM = tile_pm(KIND), PN = tile_pn(KIND);
+  constexpr int NT = NS / PN;
+  constexpr int TILES = (M / PM) * NT;
+  constexpr int TPT = (TILES + kThreads - 1) / kThreads;
+  float acc[TPT][PM][PN];
+  int base[TPT], nof[TPT];
+#pragma unroll
+  for (int j = 0; j < TPT; ++j) {
+    int tile = threadIdx.x + j * kThreads;
+    if (tile >= TILES) tile = 0;  // computes a spare tile, never stored
+    const int m0 = (tile / NT) * PM;
+    const int t = m0 / (WO * WO), p = m0 - t * WO * WO;
+    const int oy = p / WO, ox = p - oy * WO;
+    base[j] = t * in_ctu + STRIDE * (oy * in_rw + ox);
+    nof[j] = (tile % NT) * PN;
+#pragma unroll
+    for (int a = 0; a < PM; ++a)
+#pragma unroll
+      for (int b = 0; b < PN; ++b) acc[j][a][b] = 0.f;
+  }
+  constexpr int NCH = (CIN + ICC - 1) / ICC;
+  for (int c = 0; c < NCH; ++c, ++ci) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; every thread is done with ci - 1
+    issue_chunk(wst, theta, L, ci + 1, na);
+    const float* w = wst + (ci & 1) * kChunk;
+    const int icn = min(ICC, CIN - c * ICC);
+    for (int icl = 0; icl < icn; ++icl) {
+      const float* src = in + (c * ICC + icl) * in_plane;
+      const float* wk = w + icl * 9 * NS;
+#pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
-        const int iy = oy + ky - 1;
-        if (iy < 0 || iy >= g) continue;
+#pragma unroll
         for (int kx = 0; kx < 3; ++kx) {
-          const int ix = ox + kx - 1;
-          if (ix < 0 || ix >= g) continue;
-          const float v = ic < 64 ? in[ic * gg + iy * g + ix] : q;
-          acc = __fmaf_rn(__ldg(wk + ky * 3 + kx), v, acc);
+          const float* s = src + ky * in_rw + kx;
+          const float* wr = wk + (ky * 3 + kx) * NS;
+#pragma unroll
+          for (int j = 0; j < TPT; ++j) {
+            float wv[PN], av[PM];
+            if constexpr (PN == 4) {
+              const float4 w4 = *reinterpret_cast<const float4*>(wr + nof[j]);
+              wv[0] = w4.x;
+              wv[1] = w4.y;
+              wv[2] = w4.z;
+              wv[3] = w4.w;
+            } else {
+#pragma unroll
+              for (int b = 0; b < PN; ++b) wv[b] = wr[nof[j] + b];
+            }
+#pragma unroll
+            for (int a = 0; a < PM; ++a) av[a] = s[base[j] + STRIDE * a];
+#pragma unroll
+            for (int a = 0; a < PM; ++a)
+#pragma unroll
+              for (int b = 0; b < PN; ++b)
+                acc[j][a][b] = __fmaf_rn(wv[b], av[a], acc[j][a][b]);
+          }
         }
       }
     }
-    const float v = fmaxf(__fadd_rn(acc, __ldg(b + oc)), 0.f);
-    out[o] = v;
-    if (gout) gout[o] = v;
+  }
+#pragma unroll
+  for (int j = 0; j < TPT; ++j) {
+    const int tile = threadIdx.x + j * kThreads;
+    if (tile >= TILES) continue;
+    const int m0 = (tile / NT) * PM;
+    const int t = m0 / (WO * WO), p = m0 - t * WO * WO;
+    const int oy = p / WO, ox = p - oy * WO;
+#pragma unroll
+    for (int b = 0; b < PN; ++b) {
+      const int n = nof[j] + b;
+#pragma unroll
+      for (int a = 0; a < PM; ++a) {
+        const float v = fmaxf(__fadd_rn(acc[j][a][b], bias[n]), 0.f);
+        out[t * out_ctu + n * out_plane + (oy + opad) * out_rw + ox + a +
+            opad] = v;
+        if (gact && t < tv)
+          gact[(size_t)t * gact_ctu + n * WO * WO + oy * WO + ox + a] = v;
+      }
+    }
   }
 }
 
-// K13.  grid (CTUs of a frame, F).  plane [F][PH][PW] of T (inference:
-// uint8 or int32 luma, normalised here; training: f32 CTUs with PH = PW =
-// S, taken as they are).  qv: one qp per frame, or null for the scalar qp.
-// depth (inference) or logits [F][g][g][D] and acts [F][8 S^2] (training)
-// may be null.
-template <typename T>
+// K13.  grid: ceil(CTUs / T) CTAs, CTUs in frame, then raster order.  plane [F][PH][PW] of dtype 0 uint8 or 1
+// int32 (luma, normalised here) or 2 f32 (training CTUs, PH = PW = S).
+// qv: one qp per frame, or null for the scalar qp.  depth (inference) or
+// logits [CTUs][g][g][D] and acts [CTUs][8 S^2] (training) may be null.
+template <int LG, int T>
 __global__ void __launch_bounds__(kThreads)
-    cnn_fwd_kernel(const T* __restrict__ plane, int normalise,
+    cnn_fwd_kernel(const void* __restrict__ plane, int dtype,
                    const float* __restrict__ qv, float qp,
                    const float* __restrict__ theta,
                    int16_t* __restrict__ depth, float* __restrict__ logits,
-                   float* __restrict__ acts, int PH, int PW, int lg) {
-  extern __shared__ float smem[];
-  const int S = 1 << lg, S2 = S * S, g = S >> 3, gg = g * g, D = lg - 2;
-  const int nx = PW >> lg, ny = PH >> lg;
-  const int f = blockIdx.y, c = blockIdx.x;
-  const int cy = c / nx, cx = c - cy * nx;
-  const size_t ctu = (size_t)f * ny * nx + c;
+                   float* __restrict__ acts, int F, int PH, int PW) {
+  using P = Plan<LG, T>;
+  constexpr int S = P::S, G = P::G, GG = G * G, D = P::D;
+  extern __shared__ __align__(16) float smem[];
+  const int nx = PW >> LG, ny = PH >> LG, per_frame = nx * ny;
+  const int b0 = (int)blockIdx.x * T;
+  const int ta = min(T, F * per_frame - b0);
   const Layout L = layout_of(D);
-  float* bufA = smem;
-  float* bufB = smem + 2 * S2;
-  float* lgt = smem + 6 * S2;
-  const T* src = plane + ((size_t)f * PH + (size_t)cy * S) * PW
-                 + (size_t)cx * S;
-  for (int i = threadIdx.x; i < S2; i += blockDim.x) {
-    const float v = (float)src[(size_t)(i >> lg) * PW + (i & (S - 1))];
-    // (v - 128) / 128, exact in f32
-    bufA[i] = normalise ? __fmul_rn(__fsub_rn(v, 128.f), 0.0078125f) : v;
+  float* wst = smem;
+  float* bias = smem + P::BIAS;
+  constexpr int TA = P::TA;
+  const int na = (ta + TA - 1) / TA;
+  float* in = smem + P::R1_AT;  // TA inputs, then TA Conv_0 outputs
+  float* a0 = in + TA * P::IN;
+  float* a2 = smem + P::R1_AT;
+  float* a1 = smem + P::R2_AT;
+  float* a3 = smem + P::R2_AT;
+  float* lgt = smem + P::LOG_AT;
+  float* act = acts ? acts + (size_t)b0 * 8 * S * S : nullptr;
+  int ci = 0;
+  issue_chunk(wst, theta, L, 0, na);
+  const int boff[5] = {L.b0, L.b1, L.b2, L.b3, L.b4};
+  const int bat[6] = {0, 16, 48, 112, 176, 176 + D};
+  for (int i = threadIdx.x; i < bat[5]; i += blockDim.x) {
+    int l = 0;
+    while (i >= bat[l + 1]) ++l;
+    bias[i] = theta[boff[l] + i - bat[l]];
   }
+  for (int i = threadIdx.x; i < TA * P::A0; i += blockDim.x) a0[i] = 0.f;
+  for (int i = threadIdx.x; i < T * P::A1; i += blockDim.x) a1[i] = 0.f;
+  for (int st = 0; st < na; ++st) {
+    const int t0 = st * TA, tv = min(TA, ta - t0);
+    for (int i = threadIdx.x; i < TA * P::IN; i += blockDim.x) {
+      const int u = i / P::IN, r = i - u * P::IN;
+      const int y = r / (S + 1), x = r - y * (S + 1);
+      float v = 0.f;
+      if (u < tv && y < S && x < S) {
+        const int b = b0 + t0 + u, f = b / per_frame, c = b - f * per_frame;
+        const int cy = c / nx, cx = c - cy * nx;
+        const size_t k = ((size_t)f * PH + (size_t)cy * S + y) * PW +
+                         (size_t)cx * S + x;
+        if (dtype == 2) {
+          v = ((const float*)plane)[k];
+        } else {
+          v = dtype ? (float)((const int32_t*)plane)[k]
+                    : (float)((const uint8_t*)plane)[k];
+          // (v - 128) / 128, exact in f32
+          v = __fmul_rn(__fsub_rn(v, 128.f), 0.0078125f);
+        }
+      }
+      in[i] = v;
+    }
+    float* g = act ? act + (size_t)t0 * 8 * S * S : nullptr;
+    conv_layer<1, 2, S / 2, TA, 16, 1>(wst, theta, L, ci, na, tv, in, P::IN,
+                                       0, S + 1, a0, P::A0, P::P0, S / 2 + 1,
+                                       0, bias, g, 8 * S * S);
+    conv_layer<16, 2, S / 4, TA, 32, 8>(
+        wst, theta, L, ci, na, tv, a0, P::A0, P::P0, S / 2 + 1,
+        a1 + t0 * P::A1, P::A1, P::P1, S / 4 + 1, 0, bias + 16,
+        g ? g + 4 * S * S : nullptr, 8 * S * S);
+  }
+  __syncthreads();  // Conv_1 done: R1 becomes Conv_2's output
+  // Conv_2's output padding and the qp / 51 planes, per CTU
+  for (int i = threadIdx.x; i < T * P::A2; i += blockDim.x) {
+    const int t = i / P::A2, r = i - t * P::A2;
+    const int ch = r / P::P2, pos = r - ch * P::P2;
+    const int y = pos / (G + 2), x = pos - y * (G + 2);
+    const bool inside = y >= 1 && y <= G && x >= 1 && x <= G;
+    if (ch < 64) {
+      if (!inside) a2[i] = 0.f;
+    } else {
+      const int f = min(b0 + t, F * per_frame - 1) / per_frame;
+      a2[i] = inside ? __fdiv_rn(qv ? qv[f] : qp, 51.f) : 0.f;
+    }
+  }
+  conv_layer<32, 2, G, T, 64, 4>(wst, theta, L, ci, na, ta, a1, P::A1, P::P1,
+                                 S / 4 + 1, a2, P::A2, P::P2, G + 2, 1,
+                                 bias + 48, act ? act + 6 * S * S : nullptr,
+                                 8 * S * S);
+  conv_layer<65, 1, G, T, 64, 4>(wst, theta, L, ci, na, ta, a2, P::A2, P::P2,
+                                 G + 2, a3, P::A3, P::P3, G, 0, bias + 112,
+                                 act ? act + 7 * S * S : nullptr, 8 * S * S);
   __syncthreads();
-  float* act = acts ? acts + ctu * 8 * S2 : nullptr;
-  conv_s2(bufA, 1, S, bufB, 16, theta + L.w0, theta + L.b0, act);
-  __syncthreads();
-  conv_s2(bufB, 16, S >> 1, bufA, 32, theta + L.w1, theta + L.b1,
-          act ? act + 4 * S2 : nullptr);
-  __syncthreads();
-  conv_s2(bufA, 32, S >> 2, bufB, 64, theta + L.w2, theta + L.b2,
-          act ? act + 6 * S2 : nullptr);
-  __syncthreads();
-  const float q = __fdiv_rn(qv ? qv[f] : qp, 51.f);
-  conv_s1q(bufB, g, q, bufA, theta + L.w3, theta + L.b3,
-           act ? act + 7 * S2 : nullptr);
-  __syncthreads();
-  for (int o = threadIdx.x; o < gg * D; o += blockDim.x) {
-    const int p = o / D, d = o - p * D;
+  // Conv_4 (1x1, 64 -> D), channel order as the conv2d chain's
+  for (int o = threadIdx.x; o < T * GG * D; o += blockDim.x) {
+    const int t = o / (GG * D), r = o - t * GG * D;
+    const int p = r / D, d = r - p * D;
     const float* wk = theta + L.w4 + d * 64;
+    const float* a = a3 + t * P::A3 + p;
     float acc = 0.f;
     for (int ch = 0; ch < 64; ++ch)
-      acc = __fmaf_rn(__ldg(wk + ch), bufA[ch * gg + p], acc);
-    const float v = __fadd_rn(acc, __ldg(theta + L.b4 + d));
+      acc = __fmaf_rn(__ldg(wk + ch), a[ch * GG], acc);
+    const float v = __fadd_rn(acc, bias[176 + d]);
     lgt[o] = v;
-    if (logits) logits[ctu * gg * D + o] = v;
+    if (logits && t < ta) logits[(size_t)(b0 + t) * GG * D + r] = v;
   }
   __syncthreads();
-  if (!depth) return;
-  for (int p = threadIdx.x; p < gg; p += blockDim.x) {
-    int best = 0;
-    for (int d = 1; d < D; ++d)
-      if (lgt[p * D + d] > lgt[p * D + best]) best = d;
-    const int gy = p / g, gx = p - gy * g;
-    depth[((size_t)f * (PH >> 3) + cy * g + gy) * (PW >> 3) + cx * g + gx] =
-        (int16_t)best;
+  if (depth) {
+    for (int o = threadIdx.x; o < ta * GG; o += blockDim.x) {
+      const int t = o / GG, p = o - t * GG;
+      int best = 0;
+      for (int d = 1; d < D; ++d)
+        if (lgt[o * D + d] > lgt[o * D + best]) best = d;
+      const int b = b0 + t, f = b / per_frame, c = b - f * per_frame;
+      const int cy = c / nx, cx = c - cy * nx;
+      const int gy = p / G, gx = p - gy * G;
+      depth[((size_t)f * (PH >> 3) + cy * G + gy) * (PW >> 3) + cx * G +
+            gx] = (int16_t)best;
+    }
   }
 }
 
@@ -415,49 +633,49 @@ __global__ void adam_kernel(float* __restrict__ theta,
   theta[j] = __fadd_rn(theta[j], __fmul_rn(u, -lr));
 }
 
-template <typename T>
-int launch_fwd(const void* plane, int normalise, const float* qv, float qp,
+template <int LG, int T>
+int launch_fwd(const void* plane, int dtype, const float* qv, float qp,
                const float* theta, int16_t* depth, float* logits,
-               float* acts, int F, int PH, int PW, int lg,
+               float* acts, int F, int PH, int PW, int smem_bytes,
                cudaStream_t stream) {
-  // above 48 KB (CTU 64) only after the opt-in, set once per instantiation
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cnn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_floats(64) * (int)sizeof(float));
-    if (e != cudaSuccess) return (int)e;
-    opted = true;
-  }
-  const dim3 grid((PH >> lg) * (PW >> lg), F);
-  cnn_fwd_kernel<T><<<grid, kThreads, smem_floats(1 << lg) * sizeof(float),
-                      stream>>>((const T*)plane, normalise, qv, qp, theta,
-                                depth, logits, acts, PH, PW, lg);
+  constexpr int kSmem = Plan<LG, T>::TOTAL * (int)sizeof(float);
+  // the wrapper computes the same plan (ops/cnn.py cnn_smem_bytes)
+  if (smem_bytes != kSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = cnn_fwd_kernel<LG, T>;
+  // above 48 KB only after the opt-in, which each device holds apart:
+  // set on every launch, on the caller's current device
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int ctus = F * (PH >> LG) * (PW >> LG);
+  kernel<<<(ctus + T - 1) / T, kThreads, kSmem, stream>>>(
+      plane, dtype, qv, qp, theta, depth, logits, acts, F, PH, PW);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // plane dtype: 0 uint8, 1 int32 (luma, normalised here), 2 f32 (training
-// CTUs, PH = PW = the CTU size)
+// CTUs, PH = PW = the CTU size).  T: CTUs a CTA (ops/cnn.py `cnn_tile` and
+// its CNN_TILES); smem_bytes: the wrapper's plan of the shared memory,
+// checked against the kernel's.
 extern "C" int fhv_cnn_fwd(const void* plane, int dtype, const float* qv,
                            float qp, const float* theta, int16_t* depth,
                            float* logits, float* acts, int F, int PH, int PW,
-                           int log2_ctu, cudaStream_t stream) {
+                           int log2_ctu, int T, int smem_bytes,
+                           cudaStream_t stream) {
   if (F <= 0 || PH <= 0 || PW <= 0) return 0;
-  switch (dtype) {
-    case 0:
-      return launch_fwd<uint8_t>(plane, 1, qv, qp, theta, depth, logits,
-                                 acts, F, PH, PW, log2_ctu, stream);
-    case 1:
-      return launch_fwd<int32_t>(plane, 1, qv, qp, theta, depth, logits,
-                                 acts, F, PH, PW, log2_ctu, stream);
-    case 2:
-      return launch_fwd<float>(plane, 0, qv, qp, theta, depth, logits, acts,
-                               F, PH, PW, log2_ctu, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+#define FHV_CNN_TILE(lg, t)                                                \
+  if (log2_ctu == lg && T == t)                                            \
+    return launch_fwd<lg, t>(plane, dtype, qv, qp, theta, depth, logits,   \
+                             acts, F, PH, PW, smem_bytes, stream);
+  FHV_CNN_TILE(5, 1)
+  FHV_CNN_TILE(5, 4)
+  FHV_CNN_TILE(6, 1)
+  FHV_CNN_TILE(6, 2)
+#undef FHV_CNN_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fhv_cnn_bwd(const float* x, const float* qv, const int* labels,
@@ -466,18 +684,15 @@ extern "C" int fhv_cnn_bwd(const float* x, const float* qv, const int* labels,
                            int B, int log2_ctu, float inv_n,
                            cudaStream_t stream) {
   if (B <= 0) return 0;
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cnn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_floats(64) * (int)sizeof(float));
-    if (e != cudaSuccess) return (int)e;
-    opted = true;
-  }
+  // the opt-in above 48 KB is per device: set on every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      cnn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_floats(64) * (int)sizeof(float));
+  if (e != cudaSuccess) return (int)e;
   cnn_bwd_kernel<<<B, kThreads, smem_floats(1 << log2_ctu) * sizeof(float),
                    stream>>>(x, qv, labels, theta, acts, logits, partial,
                              log2_ctu, inv_n);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int P = layout_of(log2_ctu - 2).total;
   grad_reduce_kernel<<<(P + kThreads - 1) / kThreads, kThreads, 0, stream>>>(

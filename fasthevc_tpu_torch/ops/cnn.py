@@ -13,10 +13,11 @@ on even sizes is (0, 1), of the stride-1 conv (1, 1).
 The parameters travel as one flat f32 buffer `theta`: Conv_0 kernel
 (OIHW), Conv_0 bias, ..., Conv_4 kernel, Conv_4 bias (`layout`).
 
-  * `cnn_depth` (K13, csrc/cnn.cu): one CTA per (frame, CTU) over a whole
-    batch of padded luma planes, the five layers out of shared memory,
-    the argmax straight into the int16 granule depth map;
-    `cnn_depth_plain` is its twin, the conv2d chain.
+  * `cnn_depth` (K13, csrc/cnn.cu): one launch over a whole batch of
+    padded luma planes, each conv an implicit GEMM over a tile of T CTUs
+    with its weights streamed through shared memory (`cnn_tile` picks T
+    from the batch), the argmax straight into the int16 granule depth
+    map; `cnn_depth_plain` is its twin, the conv2d chain.
   * `cnn_loss` (K13's training mode + K14): the mean softmax
     cross-entropy of a batch of CTUs, a `torch.autograd.Function` whose
     forward is K13 writing the logits and activations, and whose backward
@@ -33,6 +34,8 @@ tensor cores: TF32 would flip near-tied logits.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -56,16 +59,21 @@ def layout(n_depths: int) -> list:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def n_params(n_depths: int) -> int:
     return sum(int(np.prod(s)) for _, s in layout(n_depths))
 
 
-def unflatten(theta: torch.Tensor, n_depths: int) -> list:
-    """[(kernel, bias)] views of the flat buffer, one per layer."""
+def _check_flat(theta: torch.Tensor, n_depths: int) -> None:
     if theta.dim() != 1 or theta.numel() != n_params(n_depths):
         raise ValueError(f"partition CNN: {theta.numel()} parameters do not "
                          f"make a network of {n_depths} depths "
                          f"({n_params(n_depths)} expected)")
+
+
+def unflatten(theta: torch.Tensor, n_depths: int) -> list:
+    """[(kernel, bias)] views of the flat buffer, one per layer."""
+    _check_flat(theta, n_depths)
     views, at = [], 0
     for _, shp in layout(n_depths):
         size = int(np.prod(shp))
@@ -81,7 +89,7 @@ def _depths(theta: torch.Tensor, log2_ctu: int) -> int:
     if log2_ctu not in (5, 6):
         raise ValueError("partition CNN: CTU 32 or 64")
     d = log2_ctu - 2
-    unflatten(theta, d)
+    _check_flat(theta, d)
     return d
 
 
@@ -139,6 +147,71 @@ def cnn_depth_plain(planes: torch.Tensor, theta: torch.Tensor, qp,
                         w, ctu)
 
 
+# K13's tiles T (CTUs a CTA) by CTU size: the ones csrc/cnn.cu instantiates
+CNN_TILES = {5: (1, 4), 6: (1, 2)}
+SMEM_LIMIT = 232448      # bytes of shared memory a CTA may use on the H100
+SMEM_PER_SM = 233472     # and an SM holds (each CTA reserves 1 KB more)
+_CHUNK = 2304            # floats of one of K13's two weight stages
+
+
+def cnn_smem_bytes(log2_ctu: int, t: int) -> int:
+    """Shared memory of a K13 CTA of t CTUs (csrc/cnn.cu `Plan`): two
+    weight stages, the biases, and the zero-padded activation planes of
+    the CTUs in flight (input and Conv_0; two at a time at CTU 32 when
+    t > 1) or of all t CTUs (Conv_1, then Conv_3; Conv_2 with the qp
+    plane), and the logits."""
+    s = 1 << log2_ctu
+    h1, h2, g, d = s // 2, s // 4, s // 8, log2_ctu - 2
+    ta = 2 if log2_ctu == 5 and t >= 2 else 1
+    r1 = max(ta * ((s + 1) ** 2 + 16 * (h1 + 1) ** 2),
+             t * 65 * (g + 2) ** 2)
+    r2 = max(t * 32 * (h2 + 1) ** 2, t * 64 * g * g)
+    return 4 * (2 * _CHUNK + 192 + r1 + r2 + t * g * g * d)
+
+
+def _per_sm(log2_ctu: int, t: int) -> int:
+    """K13 CTAs of t CTUs that fit on one SM at once (shared memory)."""
+    return SMEM_PER_SM // (cnn_smem_bytes(log2_ctu, t) + 1024)
+
+
+def cnn_tile(n_ctus: int, log2_ctu: int, sms: int = 132) -> int:
+    """K13's T for a batch of n_ctus CTUs on a card of `sms` SMs: the
+    largest that still fills every SM with CTAs at least once, so the
+    weights each CTA streams serve T CTUs; 1 for a small batch (a
+    training batch of 64 CTUs)."""
+    for t in sorted(CNN_TILES[log2_ctu], reverse=True):
+        if t == 1 or n_ctus >= sms * _per_sm(log2_ctu, t) * t:
+            return t
+    raise AssertionError("unreachable: 1 is always a tile")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    return _sm_count_of(t.device.index)
+
+
+def _launch_fwd(plane, dtype: int, qv, qp: float, theta, depth, logits,
+                acts, f: int, ph: int, pw: int, log2_ctu: int) -> None:
+    """One K13 launch, at `cnn_tile`'s T for the batch."""
+    n = f * (ph >> log2_ctu) * (pw >> log2_ctu)
+    t = cnn_tile(n, log2_ctu, _sm_count(plane))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    rc = _build.lib().fhv_cnn_fwd(
+        plane.data_ptr(), dtype, ptr(qv), float(qp), theta.data_ptr(),
+        ptr(depth), ptr(logits), ptr(acts), f, ph, pw, log2_ctu, t,
+        cnn_smem_bytes(log2_ctu, t), _build.stream_handle(plane))
+    name = "cnn_depth" if depth is not None else "cnn_train"
+    _build.launched(name)
+    _build.check(rc, name)
+
+
 def _plane_dtype(planes: torch.Tensor) -> int:
     """K13's code of a luma plane's type (its training mode takes f32)."""
     codes = {torch.uint8: 0, torch.int32: 1}
@@ -165,12 +238,8 @@ def cnn_depth(planes: torch.Tensor, theta: torch.Tensor, qp, log2_ctu: int,
         raise ValueError("cnn_depth: planes padded to the CTU grid")
     depth = torch.empty((f, h >> 3, w >> 3), dtype=torch.int16,
                         device=planes.device)
-    rc = _build.lib().fhv_cnn_fwd(
-        planes.data_ptr(), _plane_dtype(planes), None, float(qp),
-        theta.data_ptr(), depth.data_ptr(), None, None, f, h, w, log2_ctu,
-        _build.stream_handle(planes))
-    _build.launched("cnn_depth")
-    _build.check(rc, "cnn_depth")
+    _launch_fwd(planes, _plane_dtype(planes), None, qp, theta, depth, None,
+                None, f, h, w, log2_ctu)
     return depth
 
 
@@ -195,12 +264,8 @@ def cnn_train_forward(x: torch.Tensor, q: torch.Tensor,
                          device=x.device)
     acts = torch.empty((bsz, acts_per_ctu(s)), dtype=torch.float32,
                        device=x.device)
-    rc = _build.lib().fhv_cnn_fwd(
-        x.data_ptr(), 2, q.data_ptr(), 0.0, theta.data_ptr(), None,
-        logits.data_ptr(), acts.data_ptr(), bsz, s, s, s.bit_length() - 1,
-        _build.stream_handle(x))
-    _build.launched("cnn_train")
-    _build.check(rc, "cnn_train")
+    _launch_fwd(x, 2, q, 0.0, theta, None, logits, acts, bsz, s, s,
+                s.bit_length() - 1)
     return logits, acts
 
 

@@ -15,10 +15,13 @@ prediction from the MC planes (ops/me.py `inter_pred_planes`), the inter
 dead-zone offset and the diagonal scan; intra CUs read reconstructed inter
 neighbours as any others, and the trellis tables are those of init_type 1.
 
-Both go through kernel K5 (csrc/commit.cu, one launch per wave, one CTA
-per CTU and frame) for CUDA tensors; `wavefront_commit_plain` is its
-PyTorch twin, which runs the waves in the same order, batched over each
-wave's CTUs and frames, and reads its references from the recon planes it
+Both go through kernel K5 (csrc/commit.cu) for CUDA tensors: one launch
+per call, whose CTAs take CTUs in the wave order of `ticket_order` and wait
+only on the flags of the left, top-left, top and top-right CTUs; a CTU
+commits its inter CUs before it waits.  `wavefront_commit_plain` is its PyTorch twin: it commits every
+inter CU of the call in one batch first (the furthest ahead any order of
+the kernel moves them), then the intra CUs wave by wave, batched over each
+wave's CTUs and frames, reading its references from the recon planes it
 writes.  The JAX package's one-hot boundary buffers, permutation matmuls
 and scan-out reassembly (commit.py:16-39) are TPU workarounds and are not
 carried over.
@@ -30,6 +33,8 @@ for the signature's sake).
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -74,6 +79,14 @@ def wave_tables(nctux: int, nctuy: int):
             ctu_y[w, a] = cy
             valid[w, a] = True
     return ctu_x, ctu_y, valid
+
+
+def ticket_order(nctux: int, nctuy: int) -> np.ndarray:
+    """K5's schedule: the CTU (cy * nctux + cx) of each (wave, cy) slot,
+    waves in order, cy rising inside a wave; ticket k of a call of F
+    frames is frame k % F of slot k // F."""
+    wx, wy, valid = wave_tables(nctux, nctuy)
+    return (wy * nctux + wx)[valid].astype(np.int32)
 
 
 def _np_tile_idx(coord, bounds):
@@ -375,9 +388,12 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
                if rdoq else None)
     half = 1 << (bit_depth - 1)
     fr = torch.arange(nf, device=dev)
-    for cx, cy, takes in _precompute_takes(nctux, nctuy, coded_w, coded_h,
-                                           tuple(tile_bounds_x),
-                                           tuple(tile_bounds_y)):
+    waves = _precompute_takes(nctux, nctuy, coded_w, coded_h,
+                              tuple(tile_bounds_x), tuple(tile_bounds_y))
+
+    def commit(cx, cy, takes, inter_pass):
+        """The blocks of the CTUs (cx, cy) of every frame: the inter CUs
+        (inter_pass, prediction from the MC planes) or the intra CUs."""
         cx, cy = cx.to(dev), cy.to(dev)
         a_w = cx.shape[0]
         f = fr.repeat(a_w)                         # [A_w * F], CTU-major
@@ -390,29 +406,32 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
             inside = ((bcx * CTU + gx * 8 < coded_w)
                       & (bcy * CTU + gy * 8 < coded_h))
             act = inside & ((d >= 2) if dcond == 2 else (d == dcond))
+            if mixed:
+                act = act & (inter if inter_pass else ~inter)
             if not bool(act.any()):
                 continue
-            take = takes[gi].to(dev).repeat_interleave(nf, 0)
             lg = n.bit_length() - 1
             names = ("l",) if kind == "l" else ("cb", "cr")
             for name in names:
                 p = planes[name]
                 x0, y0 = bcx * p["s"] + lx, bcy * p["s"] + ly
                 rec_flat = p["rec"].view(-1)
-                raw = rec_flat[_ref_index(f, y0, x0, n, p["h"], p["w"])]
-                raw = torch.cat([raw, torch.full_like(raw[:, :1], half)], 1)
-                refs = torch.take_along_dim(raw, take, dim=1)
-                top = refs[:, 2 * n:]
-                left = torch.flip(refs[:, :2 * n + 1], [1])
-                # inter CUs carry mode -1; their intra prediction is unused
-                blk = intra.predict_plain(top, left, lg,
-                                          modes.clamp_min(0)[:, None],
-                                          kind == "l", bit_depth)[:, 0]
-                blk = blk.to(torch.int64)
                 idx = _block_index(f, y0, x0, n, p["h"], p["w"])
-                if mixed:
-                    blk = torch.where(inter[:, None, None],
-                                      p["ipred"].view(-1)[idx], blk)
+                if inter_pass:
+                    blk = p["ipred"].view(-1)[idx]
+                else:
+                    take = takes[gi].to(dev).repeat_interleave(nf, 0)
+                    raw = rec_flat[_ref_index(f, y0, x0, n, p["h"], p["w"])]
+                    raw = torch.cat([raw, torch.full_like(raw[:, :1], half)],
+                                    1)
+                    refs = torch.take_along_dim(raw, take, dim=1)
+                    top = refs[:, 2 * n:]
+                    left = torch.flip(refs[:, :2 * n + 1], [1])
+                    # inter CUs carry mode -1 (inactive in this pass)
+                    blk = intra.predict_plain(top, left, lg,
+                                              modes.clamp_min(0)[:, None],
+                                              kind == "l", bit_depth)[:, 0]
+                    blk = blk.to(torch.int64)
                 src = p["src"].view(-1)[idx]
                 c_idx = 0 if kind == "l" else 1
                 qp = qp_y if kind == "l" else qp_cb
@@ -424,6 +443,13 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
                 rec_flat[idx] = torch.where(am, recon, rec_flat[idx])
                 lv_flat = p["lv"].view(-1)
                 lv_flat[idx] = torch.where(am, levels, lv_flat[idx])
+
+    if mixed:
+        # every inter CU of the call first, in one batch
+        commit(torch.cat([cx for cx, _, _ in waves]),
+               torch.cat([cy for _, cy, _ in waves]), None, True)
+    for cx, cy, takes in waves:
+        commit(cx, cy, takes, False)
     ch, cw = coded_h // 2, coded_w // 2
     return (planes["l"]["rec"][:, :coded_h, :coded_w].to(torch.int32),
             planes["cb"]["rec"][:, :ch, :cw].to(torch.int32),
@@ -519,11 +545,18 @@ def _kernel_static(device) -> tuple:
 
 def _rdoq_kernel_tables(rd_tabs: list, device) -> tuple:
     """Flatten build_rdoq_tables' output of each frame into K5's (ftab
-    f32, itab int32, meta int32 [F, 2, 6, len(RD_FIELDS)]) on `device`."""
+    f32, itab int32, meta int32 [F, 2, 6, len(RD_FIELDS)]) on `device`,
+    each distinct table once (frames that share one point at it).  The
+    copies finish before this returns, so any stream may read them."""
     fparts, iparts = [], []
     meta = np.zeros((len(rd_tabs), 2, 6, len(RD_FIELDS)), np.int32)
     fo = io = 0
+    first: dict = {}
     for fi, tabs in enumerate(rd_tabs):
+        if id(tabs) in first:
+            meta[fi] = meta[first[id(tabs)]]
+            continue
+        first[id(tabs)] = fi
         for c_idx, lgs in ((0, rdoq_ops.LUMA_LGS), (1, rdoq_ops.CHROMA_LGS)):
             for lg in lgs:
                 t = tabs[(c_idx, lg)]
@@ -545,9 +578,47 @@ def _rdoq_kernel_tables(rd_tabs: list, device) -> tuple:
                 row[RD_FIELDS.index("qbits")] = t["qbits"]
                 row[RD_FIELDS.index("q_scale")] = t["q_scale"]
                 row[RD_FIELDS.index("n_scans")] = t["sig"].shape[0]
-    return tuple(_build.upload(t, device) for t in
+    return tuple(t.to(device) for t in
                  (torch.cat(fparts), torch.cat(iparts),
                   torch.from_numpy(meta)))
+
+
+_RD_CACHE: dict = {}
+_RD_CACHE_SIZE = 64
+_rd_lock = threading.Lock()
+
+
+def _rdoq_tables_for(qys, qcs, lams, init_type: int, bit_depth: int,
+                     device) -> tuple:
+    """K5's trellis tables for a call's frames on `device`: built on the
+    host once per distinct (QP, chroma QP, lambda) and kept per call
+    pattern (a group's frames share theirs; the last _RD_CACHE_SIZE
+    patterns stay), since building them took longer than the kernel."""
+    key = (tuple(zip(qys, qcs, lams)), init_type, bit_depth, str(device))
+    with _rd_lock:
+        hit = _RD_CACHE.get(key)
+    if hit is not None:
+        return hit
+    built: dict = {}
+    for k in key[0]:
+        if k not in built:
+            built[k] = rdoq_ops.build_rdoq_tables(k[0], k[0], k[1], k[2],
+                                                  init_type, bit_depth)
+    tabs = _rdoq_kernel_tables([built[k] for k in key[0]], device)
+    with _rd_lock:
+        if len(_RD_CACHE) >= _RD_CACHE_SIZE:
+            _RD_CACHE.pop(next(iter(_RD_CACHE)))
+        _RD_CACHE[key] = tabs
+    return tabs
+
+
+def _order_table(nctux: int, nctuy: int, device) -> torch.Tensor:
+    """`ticket_order` on `device`, cached per geometry."""
+    key = ("order", nctux, nctuy, str(device))
+    if key not in _KERNEL_TABLES:
+        _KERNEL_TABLES[key] = torch.from_numpy(
+            ticket_order(nctux, nctuy)).to(device)
+    return _KERNEL_TABLES[key]
 
 
 def _commit_cuda(src_y, src_cb, src_cr, depth, mode, dir_map, pred, qp_y,
@@ -589,11 +660,11 @@ def _commit_cuda(src_y, src_cb, src_cr, depth, mode, dir_map, pred, qp_y,
     lam_t = _build.upload(torch.tensor(lams, dtype=torch.float32), dev)
     rd = (None, None, None)
     if rdoq:
-        rd = _rdoq_kernel_tables(
-            [rdoq_ops.build_rdoq_tables(y, y, c, lm, 1 if mixed else 0,
-                                        bit_depth)
-             for y, c, lm in zip(qys, qcs, lams)], dev)
-    n_waves = nctux + 2 * (nctuy - 1)
+        rd = _rdoq_tables_for(qys, qcs, lams, 1 if mixed else 0, bit_depth,
+                              dev)
+    # the CTU flags, then the ticket counter: zero, as the kernel needs them
+    flags = torch.zeros(nf * nctux * nctuy + 1, dtype=i32, device=dev)
+    order = _order_table(nctux, nctuy, dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -605,9 +676,9 @@ def _commit_cuda(src_y, src_cb, src_cr, depth, mode, dir_map, pred, qp_y,
         lv_y.data_ptr(), lv_cb.data_ptr(), lv_cr.data_ptr(), dct.data_ptr(),
         scans.data_ptr(), mode_tab.data_ptr(), tiles.data_ptr(), len(tbx),
         len(tby), *(ptr(t) for t in rd), lam_t.data_ptr(), qps.data_ptr(),
-        nf, ph, pw, coded_w, coded_h, int(bool(sdh)), int(bool(rdoq)),
-        bit_depth, _build.stream_handle(sy))
-    _build.launched(name, n_waves)
+        flags.data_ptr(), order.data_ptr(), nf, ph, pw, coded_w, coded_h,
+        int(bool(sdh)), int(bool(rdoq)), bit_depth, _build.stream_handle(sy))
+    _build.launched(name)
     _build.check(rc, name)
     ch, cw = coded_h // 2, coded_w // 2
     return (rec_y[:, :coded_h, :coded_w], rec_cb[:, :ch, :cw],

@@ -189,6 +189,57 @@ def test_commit_kernel_matches_twin(cuda_device, rdoq, w, h, qp, tiles):
         assert torch.equal(a, b)
 
 
+def _dir_map(form, shape, seed):
+    """A direction map [F, gh, gw]: all intra (0), all inter (1) or a
+    seeded mix of 0-3 (K5 reads it at each CU's top-left granule)."""
+    if form == "intra":
+        return torch.zeros(shape, dtype=torch.int32)
+    if form == "inter":
+        return torch.ones(shape, dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random(shape) < 0.6)
+                            * rng.integers(1, 4, shape)).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rdoq", [False, True])
+@pytest.mark.parametrize("form", ["intra", "inter", "mixed"])
+@pytest.mark.parametrize("frames", [1, 3])
+def test_one_launch_commit_matches_twin(cuda_device, rdoq, form, frames):
+    """K5's one dependency-driven launch against its twin, bit for bit, on
+    a coded size off the CTU grid with two tile columns and two tile rows,
+    per-frame QPs, all-intra, all-inter and mixed direction maps."""
+    w, h, tiles = 136, 104, ((64,), (64,))
+    y, cb, cr, depth, mode, ls = _group(w, h, frames, 7 + frames, 30,
+                                        cuda_device)
+    rng = np.random.default_rng(frames)
+    pred = [torch.from_numpy(rng.integers(0, 256, (frames, hh, ww))
+                             .astype(np.int32)).to(cuda_device)
+            for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    dm = _dir_map(form, depth.shape, 90 + frames).to(cuda_device)
+    qps = [30 + 2 * i for i in range(frames)]
+    lam = [float(torch.tensor(ls, dtype=torch.float32) ** 2)] * frames
+    args = (y[:, :h, :w], cb[:, :h // 2, :w // 2], cr[:, :h // 2, :w // 2],
+            depth, mode, dm, *pred, qps, qps, qps, w, h, True, *tiles)
+    before = _build.LAUNCHES["commit_mixed"]
+    got = commit.wavefront_commit_mixed(*args, rdoq=rdoq, lam=lam)
+    assert _build.LAUNCHES["commit_mixed"] == before + 1
+    want = commit.wavefront_commit_mixed(*args, rdoq=rdoq, lam=lam,
+                                         plain=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if form == "intra":
+        # the intra form (its trellis on init_type 0, the mixed form's on 1)
+        iargs = (*args[:5], qps, qps, qps, w, h, True, *tiles)
+        before = _build.LAUNCHES["commit_intra"]
+        got = commit.wavefront_commit_intra(*iargs, rdoq=rdoq, lam=lam)
+        assert _build.LAUNCHES["commit_intra"] == before + 1
+        want = commit.wavefront_commit_intra(*iargs, rdoq=rdoq, lam=lam,
+                                             plain=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_deblock_kernel_matches_twin(cuda_device):
     rng = np.random.default_rng(50)
@@ -538,6 +589,63 @@ def test_adam_kernel_matches_twin(cuda_device):
         for a, b in zip((theta, m, v), twin):
             assert torch.equal(a, b)
     assert _build.LAUNCHES["adam"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg", [5, 6])
+@pytest.mark.parametrize("n_ctus", [1, 64, 320])
+def test_cnn_configurations_agree_and_match_twin(cuda_device, monkeypatch,
+                                                 lg, n_ctus):
+    """Every tile T of K13 (forced in place of `cnn_tile`'s choice) runs
+    each output's FMA chain in one order, so their logits are equal bit
+    for bit; they lie within CNN_TOL of the conv2d chain's, and the depth
+    map of the tile the wrapper picks equals the twin's wherever the
+    top-two margin exceeds 2 CNN_TOL."""
+    ctu = 1 << lg
+    rng = np.random.default_rng(70 + n_ctus)
+    # n_ctus CTUs as frames of 4 x (n_ctus / 4) CTUs, or one 1 x 1 frame
+    fy = 1 if n_ctus == 1 else 4
+    fx = max(n_ctus // (fy * 4), 1)
+    frames = n_ctus // (fy * fx)
+    y = torch.from_numpy(rng.integers(0, 256, (frames, fy * ctu, fx * ctu))
+                         .astype(np.uint8)).to(cuda_device)
+    theta = init_params(torch.Generator().manual_seed(lg), lg,
+                        cuda_device).flat_params()
+    x = cnn.ctu_batch(y, ctu)
+    assert x.shape[0] == n_ctus
+    q = torch.from_numpy(rng.integers(22, 38, n_ctus).astype(np.float32)).to(
+        cuda_device)
+    logits = []
+    for t in cnn.CNN_TILES[lg]:
+        monkeypatch.setattr(cnn, "cnn_tile", lambda *_, t=t: t)
+        logits.append(cnn.cnn_train_forward(x[:, 0], q, theta)[0])
+    monkeypatch.undo()
+    for other in logits[1:]:
+        assert torch.equal(other, logits[0])
+    lp = cnn.logits_plain(x, q, cnn.unflatten(theta, lg - 2))
+    assert (logits[0] - lp).abs().max().item() <= CNN_TOL
+    before = _build.LAUNCHES["cnn_depth"]
+    got = cnn.cnn_depth(y, theta, 32, lg)
+    assert _build.LAUNCHES["cnn_depth"] == before + 1
+    want = cnn.cnn_depth(y, theta, 32, lg, plain=True)
+    top2 = torch.topk(cnn.logits_plain(x, 32, cnn.unflatten(theta, lg - 2)),
+                      2, dim=-1).values
+    sure = cnn._granule_map(top2[..., 0] - top2[..., 1] > 2 * CNN_TOL,
+                            frames, y.shape[1], y.shape[2], ctu)
+    assert torch.equal(got[sure], want[sure])
+
+
+def test_cnn_configurations_fit_shared_memory():
+    """Every K13 tile, and the wrapper's choice for any batch, fits a
+    CTA's 227 KB of shared memory at CTU 32 and 64; small batches take one
+    CTU a CTA, large ones share each CTA's weights over T CTUs."""
+    for lg, tiles in cnn.CNN_TILES.items():
+        for t in tiles:
+            assert cnn.cnn_smem_bytes(lg, t) <= cnn.SMEM_LIMIT == 232448
+        for n in list(range(1, 300)) + [510, 1056, 2040, 4000, 16320]:
+            assert cnn.cnn_tile(n, lg) in tiles
+    assert cnn.cnn_tile(64, 5) == 1 and cnn.cnn_tile(64, 6) == 1
+    assert cnn.cnn_tile(8 * 34 * 60, 5) > 1
 
 
 def test_cnn_on_the_cpu_runs_the_twins_and_counts_no_launch():
