@@ -5,6 +5,12 @@
     python3 chip_smoke.py --profile    # only the profiled 1080p LDP and RA
                                        # encodes
     python3 chip_smoke.py --profile-mesh   # only phase 16's cases, profiled
+    python3 chip_smoke.py --bench-kernels [--root DIR]
+                                       # K10, K1 + K2 and K1's fused form,
+                                       # then phases 3, 7 and 10's encodes,
+                                       # no twins (DIR: another checkout's
+                                       # package; --root is refused in any
+                                       # other mode)
 
 Phases (any failure raises, and the script exits non-zero):
   0. the card: requires torch.cuda.is_available(); prints nvidia-smi's
@@ -16,16 +22,23 @@ Phases (any failure raises, and the script exits non-zero):
      prints each median time (CUDA events) beside the twin's, its bound
      and what sets the bound:
      a. K1-K4 (the search) on a group of 8 frames, exactly (K4's rate
-        within 1e-5 relative); then, on the decision maps of one search of
-        that group, K5 (the wavefront commit with the RDOQ trellis; its
-        twin on the first 2 frames; its time on 1, 2 and 8 frames and per
-        dependent CTU step, and its latency bound: the steps times the
-        least CTU step), K6 (deblock), K7 (SAO) and K8 (checksum),
-        exactly;
+        within 1e-5 relative), and K1's fused form (the intra search's
+        35-mode SATDs) against its twin and against K1 + K2 at n = 8, 16
+        and 32, each timed beside K1 + K2, and K1's selected form on each
+        block's 3 least-SATD modes against the gather of the 35 (K2 is
+        timed here at [B, 35] only beside K1 + K2: no route launches that
+        form); then, on
+        the decision maps of one search of that group, K5 (the wavefront
+        commit with the RDOQ trellis; its twin on the first 2 frames; its
+        time on 1, 2 and 8 frames and per dependent CTU step, and its
+        latency bound: the steps times the least CTU step), K6 (deblock),
+        K7 (SAO) and K8 (checksum), exactly;
      b. the P kernels on one P frame of phase 7's clip with two
         references at SR 64: K9 (decimation, coarse full search, +-3
-        refinement), K10 (sub-pel), K11 (merge-candidate MC and the
-        commit's MC planes), K5's mixed form (RDOQ on; its time per
+        refinement), K10 (sub-pel, at n = 8, 16 and 32, each timed with
+        its bound), K11 (merge-candidate MC and the
+        commit's MC planes), K2 on the merge candidates' predictions (one
+        a block, as the P search launches it), K5's mixed form (RDOQ on; its time per
         dependent step beside the frame's share of intra granules and
         CTUs) and K6 with boundary strengths, exactly;
      c. the B kernels on POC 4 of phase 10's clip with two references per
@@ -44,7 +57,9 @@ Phases (any failure raises, and the script exits non-zero):
         flips inside the margin counted), each of its tiles T (CTUs a
         CTA) timed; K13's training mode and K14 on one training batch of 64 CTUs against
         autograd through the chain (gradients within 1e-4 of each
-        tensor's largest); K15 on the flat parameters, bit for bit; each
+        tensor's largest; K14 and autograd timed in turns, 41 pairs after
+        a warm-up, medians and interquartile ranges printed); K15 on the
+        flat parameters, bit for bit; each
         with its time, twin time, bound and the library call's time (the
         conv2d chain, its backward, torch.optim.Adam);
      f. the multi-device layer's kernels at the shapes of an interior rank
@@ -66,7 +81,8 @@ Phases (any failure raises, and the script exits non-zero):
      matching picture hashes in SpecDecoder;
   6. the pipelined route (CTU 64: device search, host C++ commit): the
      same 416x240 check, then 8 timed 1080p frames after a warm-up, fps
-     printed beside phase 3's, requiring K1-K4 to have been launched;
+     printed beside phase 3's, requiring the intra search's kernels (K1's
+     fused and selected forms, K3, K4) to have been launched;
   7. the low-delay P device route: low_delay_p(1920, 1080, qp=32,
      hash_type=2) on synthesized frames, a warm-up, then one I frame and 8
      P frames timed;
@@ -92,8 +108,8 @@ Phases (any failure raises, and the script exits non-zero):
  12. trains the partition CNN on the card with
      train_self_distilled(qps=(27, 37), steps=400), the recipe of the
      reference's BASELINE config 4, printing its loss, accuracy and wall
-     time, and requires K1-K4, K13's training mode, K14 and K15 to have
-     been launched;
+     time, and requires the intra search's kernels, K13's training mode,
+     K14 and K15 to have been launched;
  13. the fast-partition path with those parameters: phases 3, 7 and 10
      again (the same frames) with fast_partition, fps, kbit/frame and
      Y-PSNR printed beside the full search's, each requiring K13 and its
@@ -187,20 +203,26 @@ TWIN_FRAMES = 2          # K5's twin at 1080p: the first frames of the group
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 33.5e12
 PEAK_F32_FLOPS_S = 67e12     # the partition CNN's f32 work, no tensor core
-SEARCH_KERNELS = ("intra_pred", "satd", "tq_roundtrip", "sse_rate")
+# the intra search: K1's fused form (all 35 modes' SATDs), K1's selected
+# form (the rd candidates, chroma DM), K3, K4; K2 is launched by the inter
+# searches' merge candidates (and CTU 64's 64-blocks) only
+SEARCH_KERNELS = ("intra_pred_selected", "intra_satd", "tq_roundtrip",
+                  "sse_rate")
 INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
 P_KERNELS = ("me_downsample4", "me_full_search", "me_refine", "subpel",
-             "mc_sel", "inter_pred", "commit_mixed", "deblock_bs",
+             "mc_sel", "satd", "inter_pred", "commit_mixed", "deblock_bs",
              "deblock_cbf")
 LDP_ROUTE = INTRA_ROUTE + P_KERNELS
 RA_FRAMES = 17           # random access: the IDR and one GOP-16
 B_KERNELS = ("bi_cost", "inter_pred_bi")
 RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
             + B_KERNELS)
-# the classic per-frame route's P search: K1-K4, K9, K10 and K11's merge
-# candidates (the C++ engine commits and compensates on the host)
+# the classic per-frame route's P search: K1 (fused and selected forms),
+# K2-K4, K9, K10
+# and K11's merge candidates (the C++ engine commits and compensates on the
+# host)
 CLASSIC_ROUTE = SEARCH_KERNELS + ("me_downsample4", "me_full_search",
-                                  "me_refine", "subpel", "mc_sel")
+                                  "me_refine", "subpel", "mc_sel", "satd")
 CLASSIC_TIMED_P = 4      # P frames of the timed classic-route encode
 RC_SHARE = 0.8           # phase 15's targets: this share of phases 3 and 7's
 TRAIN_KERNELS = ("cnn_train", "cnn_backward", "adam")
@@ -210,9 +232,13 @@ CNN_KERNELS = ("cnn_depth",) + TRAIN_KERNELS
 # within 2 CNN_TOL may go either way
 CNN_TOL = 1e-4
 CNN_BATCH = 64           # train_self_distilled's batch of CTUs
+K14_PAIRS = 41           # phase 2d: K14 and autograd through the chain
+BENCH_ENCODES = 5        # --bench-kernels: timed encodes of each route
 CNN_QPS = (22, 27, 32, 37)   # config 4's rate points (cli/evaluate.py QPS)
 META = {
-    "intra_pred": ("csrc/intra_pred.cu", "fasthevc_tpu/ops/intra.py:171"),
+    "intra_pred_selected": ("csrc/intra_pred.cu",
+                            "fasthevc_tpu/ops/intra.py:239"),
+    "intra_satd": ("csrc/intra_pred.cu", "fasthevc_tpu/codec/search.py:163"),
     "satd": ("csrc/satd.cu", "fasthevc_tpu/ops/cost.py:26"),
     "tq_roundtrip": ("csrc/tq_roundtrip.cu",
                      "fasthevc_tpu/ops/transform.py:151"),
@@ -281,6 +307,20 @@ def _median_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _interleaved_ms(fa, fb, pairs: int = K14_PAIRS, warm: int = 5) -> tuple:
+    """fa and fb timed in turns (a, b, a, b, ...) after `warm` turns of
+    each, every call in its own CUDA-event window: ([ms of fa], [ms of
+    fb]), one value a turn."""
+    for _ in range(warm):
+        fa()
+        fb()
+    out: tuple = ([], [])
+    for _ in range(pairs):
+        for fn, acc in zip((fa, fb), out):
+            acc.append(_timed_once(fn)[1])
+    return out
 
 
 def _timed_once(fn):
@@ -375,6 +415,33 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
         _same(torch, f"K1 n={n}", pk, intra.predict_plain(top, left, lg))
         sk = cost.satd(src, pk)
         _same(torch, f"K2 n={n}", sk, cost.satd_plain(src, pk))
+        fk = intra.predict_satd(top, left, lg, src)
+        _same(torch, f"K1 fused n={n}", fk,
+              intra.predict_satd_plain(top, left, lg, src))
+        _same(torch, f"K1 fused against K1 + K2 n={n}", fk, sk)
+        b = src.shape[0]
+        fused = (_median_ms(lambda: intra.predict_satd(top, left, lg, src)),
+                 _median_ms(lambda: intra.predict_satd_plain(top, left, lg,
+                                                             src)))
+        k12 = (_median_ms(lambda: intra.predict_all_modes(top, left, lg)),
+               _median_ms(lambda: cost.satd(src, pk)))
+        # the references, the source and [B, 35] cross device memory; the
+        # operations are K1's and K2's per predicted sample
+        w = (4 * (2 * b * (2 * n + 1) + b * n * n + b * 35),
+             15 * b * 35 * n * n)
+        b_ms, b_by = _bound(*w)
+        print(f"kernel intra_satd n={n} ({b} blocks of the 1080p group): "
+              f"{fused[0]:.4f} ms, plain twin {fused[1]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / fused[0]:.1f}% of the "
+              f"bound; K1 all-mode + K2 {k12[0]:.4f} + {k12[1]:.4f} = "
+              f"{sum(k12):.4f} ms")
+        # the rd candidates: K1's selected form on the 3 least SATDs
+        take = torch.sort(fk, dim=1, stable=True).indices[:, :3]
+        ck = intra.predict(top, left, lg, take)
+        _same(torch, f"K1 selected n={n}", ck,
+              intra.predict_plain(top, left, lg, take))
+        _same(torch, f"K1 selected against the gather n={n}", ck,
+              torch.take_along_dim(pk, take[:, :, None, None], dim=1))
         res = (src[:, None] - pk[:, :3]).reshape(-1, n, n).contiguous()
         lk, rk = transform.tq_roundtrip(res, qp, lg)
         lp, rp = transform.tq_roundtrip_plain(res, qp, lg)
@@ -383,16 +450,30 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
         k4_check(f"n={n}", cost.sse_rate(res, rk, lk),
                  cost.sse_rate_plain(res, rk, lk))
         if n == 8:  # the largest batch: B = 8 * 136 * 240 blocks
-            b, bt = src.shape[0], res.shape[0]
-            timed["intra_pred"] = (
-                _median_ms(lambda: intra.predict_all_modes(top, left, lg)),
-                _median_ms(lambda: intra.predict_plain(top, left, lg)))
-            work["intra_pred"] = (4 * (2 * b * (2 * n + 1) + b * 35 * n * n),
-                                  6 * b * 35 * n * n)
-            timed["satd"] = (_median_ms(lambda: cost.satd(src, pk)),
-                             _median_ms(lambda: cost.satd_plain(src, pk)))
-            work["satd"] = (4 * (b * n * n + b * 35 * n * n + b * 35),
-                            9 * b * 35 * n * n)
+            bt = res.shape[0]
+            timed["intra_satd"], work["intra_satd"] = fused, w
+            # the kernels line has K1's selected form, the only one the
+            # routes launch; the all-mode form and K2 at [B, 35] (phase
+            # 2b has K2's entry) are printed beside it
+            timed["intra_pred_selected"] = (
+                _median_ms(lambda: intra.predict(top, left, lg, take)),
+                _median_ms(lambda: intra.predict_plain(top, left, lg, take)))
+            work["intra_pred_selected"] = (
+                4 * (2 * b * (2 * n + 1) + b * 3 + b * 3 * n * n),
+                6 * b * 3 * n * n)
+            for name, ms, plain_fn, wb in (
+                    ("intra_pred all-mode form", k12[0],
+                     lambda: intra.predict_plain(top, left, lg),
+                     (4 * (2 * b * (2 * n + 1) + b * 35 * n * n),
+                      6 * b * 35 * n * n)),
+                    ("satd at [B, 35]", k12[1],
+                     lambda: cost.satd_plain(src, pk),
+                     (4 * (b * n * n + b * 35 * n * n + b * 35),
+                      9 * b * 35 * n * n))):
+                b_ms, b_by = _bound(*wb)
+                print(f"kernel {name} n={n} (no route launches it): "
+                      f"{ms:.4f} ms, plain twin {_median_ms(plain_fn):.4f} "
+                      f"ms, bound {b_ms:.4f} ms ({b_by})")
             timed["tq_roundtrip"] = (
                 _median_ms(lambda: transform.tq_roundtrip(res, qp, lg)),
                 _median_ms(lambda: transform.tq_roundtrip_plain(res, qp, lg)))
@@ -403,7 +484,7 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
                 _median_ms(lambda: cost.sse_rate_plain(res, rk, lk)))
             work["sse_rate"] = (4 * 3 * bt * n * n + 8 * bt,
                                 12 * bt * n * n)
-        del pk, sk, res, lk, rk, lp, rp
+        del pk, sk, fk, ck, res, lk, rk, lp, rp
     # chroma DM: one selected mode per block
     gen = torch.Generator(device="cpu").manual_seed(7)
     for cn in (4, 8, 16):
@@ -596,11 +677,35 @@ def _run_mixed(torch, d, plain):
         plain=plain)
 
 
+def _subpel_ops(n: int, blocks: int, per_candidate_h: bool = False
+                ) -> int:
+    """K10's operations on `blocks` (reference, n-block) pairs, a
+    multiply-add counted as two: the four horizontal 8-tap phases of a
+    block's window ((n + 8) rows of n + 1 columns) once a block, then each
+    of the 17 candidates' vertical 8-tap pass and SATD (~12 per sample).
+    per_candidate_h: the earlier count, in which every candidate paid its
+    own (n + 7) x n horizontal pass (printed for comparison only)."""
+    if per_candidate_h:
+        return blocks * 17 * ((n + 7) * n * 16 + n * n * 28)
+    return blocks * (4 * (n + 8) * (n + 1) * 16 + 17 * n * n * 28)
+
+
+def _subpel_bound_text(n: int, blocks: int, w: tuple, ms: float) -> str:
+    """K10's bound and share of it, beside its share of the earlier
+    per-candidate count."""
+    b_ms, b_by = _bound(*w)
+    old_ms = _bound(w[0], _subpel_ops(n, blocks, per_candidate_h=True))[0]
+    return (f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the "
+            f"bound (against the earlier count, a horizontal pass per "
+            f"candidate: {old_ms:.4f} ms, {100 * old_ms / ms:.1f}%)")
+
+
 def phase_inter_kernels(torch, timed, work):
     """K9-K11, K5's mixed form and K6 with strengths on one 1080p P frame
     (SR 64, two references), against their twins (K5's in the job
     k5-mixed)."""
-    from fasthevc_tpu_torch.ops import deblock, me
+    from fasthevc_tpu_torch.codec.search import _blocks
+    from fasthevc_tpu_torch.ops import cost, deblock, me
 
     dev = torch.device("cuda")
     d = _p_commit_inputs(torch)
@@ -637,16 +742,26 @@ def phase_inter_kernels(torch, timed, work):
     b8 = hw // 64
     work["me_refine"] = (4 * (3 * hw + rr * b8 * 2), 3 * rr * b8 * 49 * 64)
 
-    # K10 on the 8-blocks, the largest batch
-    sk = me.subpel(y, r, mv8, 8, ls)
-    sp = me.subpel(y, r, mv8, 8, ls, plain=True)
-    for name, a, b in zip(("cost", "mvq", "pred"), sk, sp):
-        _same(torch, f"K10 {name}", a, b)
-    timed["subpel"] = (
-        _median_ms(lambda: me.subpel(y, r, mv8, 8, ls)),
-        _median_ms(lambda: me.subpel(y, r, mv8, 8, ls, plain=True), reps=1))
-    work["subpel"] = (4 * (3 * hw + rr * b8 * (3 + 64)),
-                      rr * b8 * 17 * (15 * 8 * 16 + 64 * 16 + 64 * 12))
+    # K10 on the 8-blocks (the largest batch, the kernels line's entry),
+    # the 16- and 32-blocks on me_state's tier MVs
+    st = me.me_state(y, r, SR)
+    for n in (8, 16, 32):
+        mvn = mv8 if n == 8 else st.mv_int[n]
+        got = me.subpel(y, r, mvn, n, ls)
+        for name, a, b in zip(("cost", "mvq", "pred"), got,
+                              me.subpel(y, r, mvn, n, ls, plain=True)):
+            _same(torch, f"K10 n={n} {name}", a, b)
+        ms = (_median_ms(lambda: me.subpel(y, r, mvn, n, ls)),
+              _median_ms(lambda: me.subpel(y, r, mvn, n, ls, plain=True),
+                         reps=1))
+        b = hw // (n * n)
+        w = (4 * (3 * hw + rr * b * (3 + n * n)), _subpel_ops(n, rr * b))
+        print(f"kernel subpel n={n} (1080p P frame, {rr} refs, {b} blocks): "
+              f"{ms[0]:.4f} ms, plain twin {ms[1]:.4f} ms, "
+              + _subpel_bound_text(n, rr * b, w, ms[0]))
+        if n == 8:
+            sk = got
+            timed["subpel"], work["subpel"] = ms, w
 
     # K11: the merge candidates' MC (left neighbours' MVs, mixed refs)
     mvq = sk[1][0].reshape(ph // 8, WIDTH // 8, 2)
@@ -663,6 +778,17 @@ def phase_inter_kernels(torch, timed, work):
                        _median_ms(lambda: me.mc_sel(*margs, plain=True)))
     work["mc_sel"] = (4 * (rr * hw + b8 * (64 + 4)),
                       b8 * _interp_ops(8, 8))
+
+    # K2 as the P search launches it: the SATD of each 8-block's merge
+    # candidate, one prediction a block (codec/search.py _with_merge_cands)
+    srcb = _blocks(y[None], 8).contiguous()
+    predc = ((mk[0] + 32) >> 6).clamp(0, 255).reshape(b8, 1, 8, 8)
+    predc = predc.contiguous()
+    _same(torch, "K2 merge candidates n=8", cost.satd(srcb, predc),
+          cost.satd_plain(srcb, predc))
+    timed["satd"] = (_median_ms(lambda: cost.satd(srcb, predc)),
+                     _median_ms(lambda: cost.satd_plain(srcb, predc)))
+    work["satd"] = (4 * (2 * b8 * 64 + b8), 9 * b8 * 64)
 
     # the P search of the frame gives the commit's decisions
     gh, gw = HEIGHT // 8, WIDTH // 8
@@ -819,6 +945,29 @@ def phase_b_kernels(torch, timed, work):
     torch.cuda.synchronize()
 
 
+def _b64_inputs(torch):
+    """Phase 2e's B frame (POC 4 of phase 10's clip) and its references (0,
+    8 and 8, 16) padded to the CTU-64 grid, int32 on the card, its
+    lambda_sqrt and its ME state at SR 64 with the 64 tier: (y, refs, ls,
+    state)."""
+    from fasthevc_tpu_torch.ops import me
+
+    dev = torch.device("cuda")
+    clip = _ra_clip()
+    ph = -(-HEIGHT // 64) * 64
+
+    def luma(k):
+        p = torch.from_numpy(np.asarray(clip[k][0], np.int32)).to(dev)
+        return torch.nn.functional.pad(p[None].float(),
+                                       (0, 0, 0, ph - HEIGHT),
+                                       mode="replicate")[0].to(torch.int32)
+
+    y = luma(4)
+    refs = torch.stack([luma(k) for k in (0, 8, 8, 16)])
+    return y, refs, _lambda_sqrt(QP + 2), me.me_state(y, refs, SR,
+                                                        max_size=64)
+
+
 def phase_ctu64_kernels(torch) -> None:
     """Phase 2e: the forms the CTU-64 classic route adds, on phase 2c's B
     frame and references padded to the CTU-64 grid, SR 64: K9's tier-64
@@ -829,21 +978,8 @@ def phase_ctu64_kernels(torch) -> None:
     from fasthevc_tpu_torch.codec.search import _blocks, _pick_ref
     from fasthevc_tpu_torch.ops import cost, me
 
-    dev = torch.device("cuda")
-    clip = _ra_clip()
-    ph = -(-HEIGHT // 64) * 64
-    n = 64
-
-    def luma(k):
-        p = torch.from_numpy(np.asarray(clip[k][0], np.int32)).to(dev)
-        return torch.nn.functional.pad(p[None].float(),
-                                       (0, 0, 0, ph - HEIGHT),
-                                       mode="replicate")[0].to(torch.int32)
-
-    y = luma(4)
-    refs = torch.stack([luma(k) for k in (0, 8, 8, 16)])
-    ls = _lambda_sqrt(QP + 2)
-    st = me.me_state(y, refs, SR, max_size=n)
+    y, refs, ls, st = _b64_inputs(torch)
+    ph, n = y.shape[0], 64
     # K9's two tier-64 calls of me_state: the coarse search on the 1/4
     # planes, the +-3 refinement around its bases
     ds = me.downsample4(torch.cat([y[None], refs]))
@@ -864,14 +1000,14 @@ def phase_ctu64_kernels(torch) -> None:
                 a, c = a.view(torch.int32), c.view(torch.int32)
             _same(torch, f"{name} n=64 output {i}", a, c)
         ms, plain_ms = _median_ms(fn), _median_ms(plain_fn, reps=1)
-        rows.append((name, ms, plain_ms, *_bound(*w)))
+        rows.append((name, ms, plain_ms, w))
         return got
 
     sargs = (st.y, st.refs, st.mv_int[n], n, ls)
     sp = check("subpel", lambda: me.subpel(*sargs),
                lambda: me.subpel(*sargs, plain=True),
                (4 * (hw * (1 + rr) + rr * b * (3 + n * n)),
-                rr * b * 17 * ((n + 7) * n * 16 + n * n * 28)))
+                _subpel_ops(n, rr * b)))
     src = _blocks(y[None], n).contiguous()
     pred = sp[2][0][:, None].contiguous()
     check("satd", lambda: (cost.satd(src, pred),),
@@ -886,9 +1022,15 @@ def phase_ctu64_kernels(torch) -> None:
           lambda: me.bi_cost(*bargs, plain=True),
           (4 * (rr * hw + hw + b * (8 + n * n + 1)),
            b * (2 * _interp_ops(n, 8) + n * n * (4 + 8))))
-    for name, ms, plain_ms, b_ms, b_by in rows:
+    for name, ms, plain_ms, w in rows:
+        if name == "subpel":
+            text = _subpel_bound_text(n, rr * b, w, ms)
+        else:
+            b_ms, b_by = _bound(*w)
+            text = (f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% "
+                    f"of the bound")
         print(f"kernel {name} n=64 (CTU 64, 1088x1920): {ms:.4f} ms, plain "
-              f"twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"twin {plain_ms:.4f} ms, {text}")
 
 
 def _cnn_macs(ctu: int, d: int) -> tuple:
@@ -1028,12 +1170,24 @@ def phase_cnn_kernels(torch, errs, timed, work, lib_ms):
     ce = torch.nn.functional.cross_entropy(
         cnn.logits_plain(x[:, None], q, cnn.unflatten(th_lib, 3))
         .permute(0, 3, 1, 2), t.long())
-    timed["cnn_backward"] = (
-        _median_ms(lambda: cnn.cnn_backward(x, q, t, theta, acts, lk)),
-        _median_ms(lambda: torch.autograd.grad(loss_p, th,
-                                               retain_graph=True)))
-    lib_ms["cnn_backward"] = _median_ms(
+    # K14 against autograd through the chain in turns: single medians of
+    # the two swung 2x between calls
+    k14, chain = _interleaved_ms(
+        lambda: cnn.cnn_backward(x, q, t, theta, acts, lk),
         lambda: torch.autograd.grad(ce, th_lib, retain_graph=True))
+    qa, qb = np.percentile(k14, [25, 50, 75]), np.percentile(chain,
+                                                             [25, 50, 75])
+    verdict = ("K14 is faster" if qa[2] < qb[0] else "K14 is slower"
+               if qa[0] > qb[2] else "their interquartile ranges overlap")
+    print(f"K14 against autograd through the conv2d chain (cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}), {K14_PAIRS} pairs in turns "
+          f"after a warm-up: K14 median {qa[1]:.4f} ms (IQR {qa[0]:.4f}-"
+          f"{qa[2]:.4f}), autograd median {qb[1]:.4f} ms (IQR {qb[0]:.4f}-"
+          f"{qb[2]:.4f}): {verdict}")
+    timed["cnn_backward"] = (
+        float(qa[1]), _median_ms(lambda: torch.autograd.grad(
+            loss_p, th, retain_graph=True)))
+    lib_ms["cnn_backward"] = float(qb[1])
     work["cnn_backward"] = (4 * (x.numel() + nb + t.numel() + p_
                                  + acts.numel() + lk.numel() + p_),
                             2 * nb * bwd, PEAK_F32_FLOPS_S)
@@ -1950,7 +2104,8 @@ def phase_mesh(torch) -> dict:
               f"and NAL glue {tm['entropy_s']:.3f} s), single-device "
               f"{len(clip) / sdt:.4f} fps (both after a warm-up)")
     print(f"launches in the mesh encodes: {launches}")
-    _require(launches, MESH_KERNELS + ("deblock_cbf",), "mesh encodes")
+    _require(launches, MESH_KERNELS + ("deblock_cbf", "intra_satd",
+                                       "subpel"), "mesh encodes")
     return launches
 
 
@@ -2217,18 +2372,92 @@ def _run_jobs(t_start: float, early: dict) -> dict:
     return results
 
 
+def bench_kernels(torch) -> None:
+    """`--bench-kernels`: the kernels this slice redesigned and the timed
+    encodes, with no twin and no launch check, so that two checkouts can
+    be timed in turns on one card (`--root DIR` imports the package from
+    DIR): K10 at n = 8, 16, 32 on phase 2b's P frame and n = 64 on phase
+    2e's B frame; K1's all-mode form, K2 and (where the package has it)
+    K1's fused form at n = 8, 16, 32 on phase 2a's group; then phases 3,
+    7 and 10's encodes, each BENCH_ENCODES times after its warm-up, every
+    fps and their median printed beside the medians of the encoder's
+    timing split and the stream's size and SHA-256."""
+    import hashlib
+
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.codec.search import _blocks
+    from fasthevc_tpu_torch.ops import cost, intra, me
+
+    src, refs = _p_frames(torch, torch.device("cuda"))
+    pad = (0, 0, 0, -(-HEIGHT // 32) * 32 - HEIGHT)
+    y = torch.nn.functional.pad(src[0][None].float(), pad,
+                                mode="replicate")[0].to(torch.int32)
+    r = torch.nn.functional.pad(refs[0].float(), pad,
+                                mode="replicate").to(torch.int32)
+    cases = [(n, y, r, me.me_state(y, r, SR).mv_int[n], _lambda_sqrt(QP))
+             for n in (8, 16, 32)]
+    y64, r64, ls64, st64 = _b64_inputs(torch)
+    cases.append((64, y64, r64, st64.mv_int[64], ls64))
+    for n, yy, rr, mv, ls in cases:
+        ms = _median_ms(lambda: me.subpel(yy, rr, mv, n, ls))
+        print(f"bench subpel n={n} ({rr.shape[0]} refs): {ms:.4f} ms")
+    del cases, y64, r64, st64
+    gy, _ = _kernel_inputs(torch, torch.device("cuda"))
+    for n in (8, 16, 32):
+        lg = n.bit_length() - 1
+        top, left = intra.grid_refs(gy, n)
+        src = _blocks(gy, n).contiguous()
+        pk = intra.predict_all_modes(top, left, lg)
+        k1 = _median_ms(lambda: intra.predict_all_modes(top, left, lg))
+        k2 = _median_ms(lambda: cost.satd(src, pk))
+        del pk
+        fused = ""
+        if hasattr(intra, "predict_satd"):
+            fused = ", intra_satd {:.4f} ms".format(_median_ms(
+                lambda: intra.predict_satd(top, left, lg, src)))
+        print(f"bench n={n}: intra_pred all-mode {k1:.4f} ms + satd "
+              f"{k2:.4f} ms = {k1 + k2:.4f} ms{fused}")
+    del gy
+    torch.cuda.empty_cache()
+    ai, ldp, ra = _ai_clip(), _ldp_clip(), _ra_clip()
+    for name, cfg, warm, clip in (
+            ("all-intra", _ai_cfg(TIMED), ai[:GROUP], ai[GROUP:]),
+            ("low-delay P", _ldp_cfg(len(ldp)), ldp[:3], ldp),
+            ("random access", _ra_cfg(RA_FRAMES), ra, ra)):
+        enc = TorchEncoder(cfg, "cuda")
+        enc.encode(warm)
+        fps, split = [], []
+        for _ in range(BENCH_ENCODES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream, _ = enc.encode(clip)
+            fps.append(len(clip) / (time.perf_counter() - t0))
+            split.append(enc.timing)
+        split = ", ".join(f"{k} {np.median([t[k] for t in split]):.4f}"
+                          for k in split[0])
+        print(f"bench {name}: median {np.median(fps):.4f} fps ("
+              + ", ".join(f"{v:.4f}" for v in fps) + f"), timing medians "
+              f"{split}, {len(stream)} bytes, sha256 "
+              f"{hashlib.sha256(stream).hexdigest()[:16]}")
+
+
 def _stamp(t_start: float, what: str) -> None:
     print(f"[{time.perf_counter() - t_start:.1f} s] {what}")
 
 
 def main() -> int:
+    argv = sys.argv[1:]
+    if "--root" in argv:
+        # time another checkout's package; its twins and jobs are not run
+        if "--bench-kernels" not in argv:
+            raise SystemExit("chip_smoke: --root is only for --bench-kernels")
+        sys.path.insert(0, os.path.abspath(argv[argv.index("--root") + 1]))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     # the device routes are the default; this variable would force the
     # pipelined all-intra route (and refuse P orders)
     os.environ.pop("FASTHEVC_FORCE_CLASSIC", None)
-    argv = sys.argv[1:]
     if "--job" in argv:
         # one twin check in its own process: the library is built already
         torch.set_num_threads(2)
@@ -2244,6 +2473,13 @@ def main() -> int:
           f"({len(_build.sources())} sources)")
     if "--profile-mesh" in argv:
         profile_mesh(torch)
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--bench-kernels" in argv:
+        bench_kernels(torch)
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2331,9 +2567,12 @@ def main() -> int:
                else f", library {lib_ms[name]:.4f} ms")
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}){lib}")
-    print("(phase 2a: 1080p group-of-8 shapes, K1-K4 at n=8, commit_intra "
+    print("(phase 2a: 1080p group-of-8 shapes, K3, K4 and K1's fused form "
+          "(intra_satd) at n=8, intra_pred_selected on the 3 rd candidates "
+          "a block, commit_intra "
           f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
-          "frame, SR 64, two references, ME and MC on the 8-blocks, "
+          "frame, SR 64, two references, ME and MC on the 8-blocks, satd "
+          "on their merge candidates, "
           "commit_mixed with RDOQ; phase 2c: one 1080p B frame, two "
           "references per list, bi_cost on the 8-blocks, inter_pred_bi on "
           "its B decisions; phase 2d: cnn_depth on the 1080p group of 8 "

@@ -50,6 +50,8 @@ _SIGNATURES = {
     # top, left, modes|NULL, mode_tab, out, B, n, lg, M, edge, max_val,
     # stream
     "fhv_intra_pred": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # top, left, src, mode_tab, out, B, n, lg, edge, max_val, stream
+    "fhv_intra_satd": [_P] * 5 + [_I] * 5 + [_P],
     # src, preds, out, B, M, n, stream
     "fhv_satd": [_P, _P, _P, _I, _I, _I, _P],
     # res, mat, levels, recon, B, n, lg, qp, bit_depth, dz, stream

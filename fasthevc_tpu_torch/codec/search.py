@@ -2,9 +2,10 @@
 fasthevc_tpu/codec/search.py.
 
 Intra, for every aligned block of every CU size of every frame: SATD over
-the 35 intra modes (K1 + K2), MPM-aware mode bits, a true-RD pass over the
-top-k shortlist through the exact T/Q/IQ/IT (K3) with SSE and the
-level-rate proxy (K4), the chroma DM cost (K1, K3, K4), then the bottom-up
+the 35 intra modes (K1's fused form), MPM-aware mode bits, a true-RD pass
+over the top-k shortlist, predicted again in K1's selected form, through
+the exact T/Q/IQ/IT (K3) with SSE and the level-rate proxy (K4), the
+chroma DM cost (K1, K3, K4), then the bottom-up
 quadtree DP and the packed int16 [gh, gw, 9] decision maps of the C++
 slice engine.  P frames add, per block, the best of up to two references
 from integer ME (K9) and sub-pel refinement (K10), two merge candidates
@@ -36,12 +37,14 @@ INTER_OVERHEAD_BITS = 2.0
 
 
 def _ops(plain: bool) -> tuple:
-    """The search's kernel entry points (predict, satd, tq_roundtrip,
-    sse_rate): the wrappers, or with `plain` their twins."""
+    """The search's kernel entry points (predict, predict_satd, satd,
+    tq_roundtrip, sse_rate): the wrappers, or with `plain` their twins."""
     if plain:
-        return (intra.predict_plain, cost.satd_plain,
-                transform.tq_roundtrip_plain, cost.sse_rate_plain)
-    return intra.predict, cost.satd, transform.tq_roundtrip, cost.sse_rate
+        return (intra.predict_plain, intra.predict_satd_plain,
+                cost.satd_plain, transform.tq_roundtrip_plain,
+                cost.sse_rate_plain)
+    return (intra.predict, intra.predict_satd, cost.satd,
+            transform.tq_roundtrip, cost.sse_rate)
 
 
 def _blocks(planes: torch.Tensor, n: int) -> torch.Tensor:
@@ -122,7 +125,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
     [F, B_n] in block raster order: mode{n}, cost{n} and split{n} (n above
     the min CU size), rawcost{n}.
     """
-    predict, satd, tq_roundtrip, sse_rate = _ops(plain)
+    predict, predict_satd, _, tq_roundtrip, sse_rate = _ops(plain)
     f, h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     # f32 scalars stay on the host: a 0-dim CPU tensor enters a CUDA op as
@@ -142,8 +145,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
             top = top[:, :2 * pn + 1].contiguous()
             left = left[:, :2 * pn + 1].contiguous()
         src = _blocks(y, n)[:, :pn, :pn].contiguous()
-        preds = predict(top, left, plg)                      # [B,35,pn,pn]
-        d = satd(src, preds)                                 # [B,35]
+        d = predict_satd(top, left, plg, src)                # [B,35]
         prov = torch.argmin(d, dim=1).to(torch.int32)
         mode_bits = _intra_mode_bits(prov, f, h // n, w // n,
                                      mpm_edge_x // n, mpm_edge_on)
@@ -152,8 +154,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
         # lower index first among equal costs, as jax.lax.top_k orders
         # them (torch.topk does not)
         top_idx = torch.sort(cost_rmd, dim=1, stable=True).indices[:, :kk]
-        cands = torch.take_along_dim(preds, top_idx[:, :, None, None], dim=1)
-        del preds
+        cands = predict(top, left, plg, top_idx)             # [B,kk,pn,pn]
         res = (src[:, None] - cands).reshape(b * kk, pn, pn)
         levels, rq = tq_roundtrip(res, qp_i, plg)
         dist, rate = sse_rate(res, rq, levels)
@@ -325,7 +326,7 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     dir{n} (1), mv0{n} ([B_n, 2] quarter-pel) and ref0{n} ([B_n] ref
     index), with list 1's mv1{n} and ref1{n} zero, each in block raster
     order."""
-    _, satd, tq_roundtrip, sse_rate = _ops(plain)
+    _, _, satd, tq_roundtrip, sse_rate = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -389,7 +390,7 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     (1 L0, 2 L1, 3 BI; 1 for intra), mv0{n}, mv1{n} ([B_n, 2]
     quarter-pel), ref0{n} and ref1{n} ([B_n] ref index), each in block
     raster order."""
-    _, satd, tq_roundtrip, sse_rate = _ops(plain)
+    _, _, satd, tq_roundtrip, sse_rate = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)

@@ -17,14 +17,53 @@
 // threads writing consecutive samples (coalesced stores).  The JAX
 // package's dense f32 reference-to-prediction matrix is a TPU matrix-unit
 // workaround and is not carried over.
+//
+// The fused form (fhv_intra_satd) replaces predict_all_modes followed by
+// satd as the intra search composes them (fasthevc_tpu/codec/search.py:
+// 163-166, satd(src[:, None] - predict_all_modes(...))): it returns the
+// [B, 35] SATDs and no prediction reaches device memory.  Its bound is the
+// integer work (about 15 operations a predicted sample); the bytes are the
+// references, the source and [B, 35].  Design: a warp holds the 35 modes of
+// 32 / S blocks, one lane per (block, hb x hb sub-block), S = (n / hb)^2;
+// warp w runs modes w, w + 7, ... so that a mode, and every branch on it,
+// is uniform across the warp.  A lane predicts its sub-block into
+// registers with the per-row terms of the angular formula hoisted, forms
+// the residual against the source in shared memory and runs K2's
+// transform (satd_common.cuh) there; the S lanes of a block sum with
+// shuffles, and the CTA writes its [P, 35] costs in one coalesced pass.
 
 #include <cuda_runtime.h>
 
 #include "intra_common.cuh"
+#include "satd_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// Loads the references of blocks [b0, b0 + nb) into refs (each block
+// [t | l | tf | lf | dc], stride 4L + 1), with the [1 2 1] smoothed copies
+// and the DC value.  The caller synchronises after it.
+__device__ __forceinline__ void load_refs(const int* __restrict__ top,
+                                          const int* __restrict__ left,
+                                          int* refs, int b0, int nb, int n,
+                                          int lg, int stride) {
+  const int L = 2 * n + 1;
+  for (int i = threadIdx.x; i < nb * L; i += blockDim.x) {
+    const int j = i / L, k = i - j * L;
+    refs[j * stride + k] = top[(size_t)(b0 + j) * L + k];
+    refs[j * stride + L + k] = left[(size_t)(b0 + j) * L + k];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb * L; i += blockDim.x) {
+    const int j = i / L, k = i - j * L;
+    const int* t = refs + j * stride;
+    const int* l = t + L;
+    intra_filter_ref(t, l, k, L, &refs[j * stride + 2 * L + k],
+                     &refs[j * stride + 3 * L + k]);
+    if (k == 0) refs[j * stride + 4 * L] = intra_dc(t, l, n, lg);
+  }
+}
 
 // mode_tab: [3][35] int32 = angle, inverse angle, use-filtered-refs flag.
 __global__ void intra_pred_kernel(const int* __restrict__ top,
@@ -42,20 +81,7 @@ __global__ void intra_pred_kernel(const int* __restrict__ top,
   const int nb = min(bpc, B - b0);
 
   for (int i = threadIdx.x; i < 3 * 35; i += blockDim.x) tab[i] = mode_tab[i];
-  for (int i = threadIdx.x; i < nb * L; i += blockDim.x) {
-    const int j = i / L, k = i - j * L;
-    refs[j * stride + k] = top[(size_t)(b0 + j) * L + k];
-    refs[j * stride + L + k] = left[(size_t)(b0 + j) * L + k];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nb * L; i += blockDim.x) {
-    const int j = i / L, k = i - j * L;
-    const int* t = refs + j * stride;
-    const int* l = t + L;
-    intra_filter_ref(t, l, k, L, &refs[j * stride + 2 * L + k],
-                     &refs[j * stride + 3 * L + k]);
-    if (k == 0) refs[j * stride + 4 * L] = intra_dc(t, l, n, lg);
-  }
+  load_refs(top, left, refs, b0, nb, n, lg, stride);
   __syncthreads();
 
   const int nn = n * n;
@@ -78,7 +104,169 @@ __global__ void intra_pred_kernel(const int* __restrict__ top,
   }
 }
 
+// The angular samples of the HB x HB sub-block at (x0, y0) into d (row
+// major): intra_sample's arithmetic with the per-row terms hoisted.  V:
+// a vertical mode (>= 18); a horizontal one is its transpose.
+template <int HB, bool V>
+__device__ __forceinline__ void angular_sub(int x0, int y0, int n,
+                                            const int* main_ref,
+                                            const int* side_ref, int angle,
+                                            int inv, int* d) {
+  const int a0 = V ? y0 : x0;  // along the prediction direction
+  const int c0 = V ? x0 : y0;  // across it
+#pragma unroll
+  for (int i = 0; i < HB; ++i) {
+    const int pos = (a0 + i + 1) * angle;
+    const int idx = pos >> 5, fact = pos & 31;
+#pragma unroll
+    for (int k = 0; k < HB; ++k) {
+      const int ka = c0 + k + idx + 1;
+      const int kb = min(ka + 1, 2 * n);
+      const int a = ka >= 0 ? main_ref[ka] : side_ref[(ka * inv + 128) >> 8];
+      const int c = kb >= 0 ? main_ref[kb] : side_ref[(kb * inv + 128) >> 8];
+      const int v = ((32 - fact) * a + fact * c + 16) >> 5;
+      if (V)
+        d[i * HB + k] = v;
+      else
+        d[k * HB + i] = v;
+    }
+  }
+}
+
+// The prediction of mode `mode` on the HB x HB sub-block at (x0, y0) into d,
+// sample for sample intra_sample's.
+template <int HB>
+__device__ __forceinline__ void predict_sub(int mode, int x0, int y0, int n,
+                                            int lg, const int* t,
+                                            const int* l, const int* ft,
+                                            const int* fl, int dc, int angle,
+                                            int inv, int edge, int max_val,
+                                            int* d) {
+  if (mode == 0) {
+#pragma unroll
+    for (int r = 0; r < HB; ++r)
+#pragma unroll
+      for (int c = 0; c < HB; ++c) {
+        const int x = x0 + c, y = y0 + r;
+        d[r * HB + c] = ((n - 1 - x) * fl[1 + y] + (x + 1) * ft[n + 1] +
+                         (n - 1 - y) * ft[1 + x] + (y + 1) * fl[n + 1] + n) >>
+                        (lg + 1);
+      }
+  } else if (mode == 1) {
+#pragma unroll
+    for (int r = 0; r < HB; ++r)
+#pragma unroll
+      for (int c = 0; c < HB; ++c) {
+        const int x = x0 + c, y = y0 + r;
+        int v = dc;
+        if (edge) {
+          if (x == 0 && y == 0)
+            v = (l[1] + 2 * dc + t[1] + 2) >> 2;
+          else if (y == 0)
+            v = (t[1 + x] + 3 * dc + 2) >> 2;
+          else if (x == 0)
+            v = (l[1 + y] + 3 * dc + 2) >> 2;
+        }
+        d[r * HB + c] = v;
+      }
+  } else if (mode >= 18) {
+    angular_sub<HB, true>(x0, y0, n, ft, fl, angle, inv, d);
+    if (edge && mode == 26 && x0 == 0)
+#pragma unroll
+      for (int r = 0; r < HB; ++r)
+        d[r * HB] =
+            min(max(t[1] + ((l[1 + y0 + r] - l[0]) >> 1), 0), max_val);
+  } else {
+    angular_sub<HB, false>(x0, y0, n, fl, ft, angle, inv, d);
+    if (edge && mode == 10 && y0 == 0)
+#pragma unroll
+      for (int c = 0; c < HB; ++c)
+        d[c] = min(max(l[1] + ((t[1 + x0 + c] - t[0]) >> 1), 0), max_val);
+  }
+}
+
+constexpr int kSatdWarps = 7;  // 35 modes = 5 rounds of 7 warps
+
+template <int HB>
+__global__ void __launch_bounds__(kSatdWarps * 32)
+    intra_satd_kernel(const int* __restrict__ top,
+                      const int* __restrict__ left,
+                      const int* __restrict__ src,
+                      const int* __restrict__ mode_tab, int* __restrict__ out,
+                      int B, int n, int lg, int edge, int max_val) {
+  extern __shared__ int sm[];
+  const int nbx = n / HB, S = nbx * nbx, P = 32 / S;
+  const int L = 2 * n + 1;
+  const int stride = 4 * L + 1;     // odd: blocks in different banks
+  const int sstride = n * n + 1;
+  int* tab = sm;                    // 3 * 35
+  int* refs = tab + 3 * 35;         // P blocks
+  int* srcs = refs + P * stride;    // P blocks, stride sstride
+  int* outs = srcs + P * sstride;   // [P, 35]
+  const int b0 = blockIdx.x * P;
+  const int nb = min(P, B - b0);
+
+  for (int i = threadIdx.x; i < 3 * 35; i += blockDim.x) tab[i] = mode_tab[i];
+  // blocks past the end predict zeros from zeros and write nothing
+  for (int i = threadIdx.x; i < P * stride; i += blockDim.x) refs[i] = 0;
+  for (int i = threadIdx.x; i < P * n * n; i += blockDim.x) {
+    const int j = i / (n * n), p = i - j * (n * n);
+    srcs[j * sstride + p] = j < nb ? src[(size_t)b0 * n * n + i] : 0;
+  }
+  __syncthreads();
+  load_refs(top, left, refs, b0, nb, n, lg, stride);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = lane / S, s = lane - j * S;
+  const int x0 = (s % nbx) * HB, y0 = (s / nbx) * HB;
+  const int* t = refs + j * stride;
+  const int* l = t + L;
+  const int* sp = srcs + j * sstride + y0 * n + x0;
+  for (int mode = warp; mode < 35; mode += kSatdWarps) {
+    const bool filt = tab[70 + mode] != 0;
+    int d[HB * HB];
+    predict_sub<HB>(mode, x0, y0, n, lg, t, l, filt ? t + 2 * L : t,
+                    filt ? t + 3 * L : l, t[4 * L], tab[mode], tab[35 + mode],
+                    edge, max_val, d);
+#pragma unroll
+    for (int r = 0; r < HB; ++r)
+#pragma unroll
+      for (int c = 0; c < HB; ++c)
+        d[r * HB + c] = sp[r * n + c] - d[r * HB + c];
+    int v = satd_subblock<HB>(d);
+    for (int o = 1; o < S; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (s == 0) outs[j * 35 + mode] = v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb * 35; i += blockDim.x)
+    out[(size_t)b0 * 35 + i] = outs[i];
+}
+
 }  // namespace
+
+// src [B, n, n], top/left [B, 2n + 1], mode_tab [3, 35] (luma); out [B, 35]
+// int32 SATD of src - prediction for every mode; n in 4..32.
+extern "C" int fhv_intra_satd(const int* top, const int* left, const int* src,
+                              const int* mode_tab, int* out, int B, int n,
+                              int lg, int edge, int max_val,
+                              cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (n < 4 || n > 32 || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  const int hb = n < 8 ? n : 8;
+  const int S = (n / hb) * (n / hb), P = 32 / S;
+  const size_t smem =
+      sizeof(int) * (3 * 35 + P * (4 * (2 * n + 1) + 1) + P * (n * n + 1) +
+                     P * 35);
+  const int grid = (B + P - 1) / P;
+  if (hb == 8)
+    intra_satd_kernel<8><<<grid, kSatdWarps * 32, smem, stream>>>(
+        top, left, src, mode_tab, out, B, n, lg, edge, max_val);
+  else
+    intra_satd_kernel<4><<<grid, kSatdWarps * 32, smem, stream>>>(
+        top, left, src, mode_tab, out, B, n, lg, edge, max_val);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fhv_intra_pred(const int* top, const int* left,
                               const int* modes, const int* mode_tab, int* out,

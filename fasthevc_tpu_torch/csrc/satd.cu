@@ -1,7 +1,9 @@
 // K2: Hadamard SATD of (src - pred) for B blocks x M predictions.
 //
-// Replaces fasthevc_tpu/ops/cost.py satd (:26) as the search calls it
-// (codec/search.py:163, satd(src[:, None] - preds)).  Per block: the
+// Replaces fasthevc_tpu/ops/cost.py satd (:26) as the P and B searches
+// call it on their merge candidates (codec/search.py:327, :453), CTU 64's
+// 64-blocks among them; the intra search's call (:163, satd(src[:, None] -
+// preds)) is K1's fused form (intra_pred.cu).  Per block: the
 // residual is cut into hb x hb sub-blocks (hb = 8, or 4 when n == 4), each
 // is Hadamard-transformed in both directions, its absolute sum divided by
 // hb (floor, HM normalisation), and the sub-block values are summed.
@@ -13,7 +15,8 @@
 // butterflies there, so the [B, 35, n, n] residual that the JAX package
 // materialises is never written; sub-block values of one (block,
 // prediction) meet in an integer atomicAdd (exact, order-free).  The
-// sub-block transform is shared with K10 through satd_common.cuh.
+// sub-block transform is shared with K1's fused form and K10 through
+// satd_common.cuh.
 
 #include <cuda_runtime.h>
 

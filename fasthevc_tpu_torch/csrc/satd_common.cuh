@@ -1,5 +1,6 @@
 // The Hadamard SATD of one HB x HB residual sub-block, shared by K2
-// (satd.cu, the intra search) and K10 (subpel.cu, the sub-pel search):
+// (satd.cu, the merge candidates), K1's fused form (intra_pred.cu, the
+// intra search's 35 modes) and K10 (subpel.cu, the sub-pel search):
 // in-place Walsh-Hadamard butterflies over the rows, then the columns, and
 // the absolute sum divided by HB (floor, HM normalisation).
 #pragma once

@@ -2,9 +2,12 @@
 
 Counterpart of fasthevc_tpu/ops/intra.py.  `predict` (and its two forms
 `predict_all_modes` and `predict_selected`) goes through kernel K1
-(csrc/intra_pred.cu) for CUDA tensors; `predict_plain` is its PyTorch
-twin.  `grid_refs` is plain
-tensor glue.
+(csrc/intra_pred.cu) for CUDA tensors, counted as `intra_pred` (all 35
+modes) or `intra_pred_selected`; `predict_plain` is its PyTorch twin.
+`predict_satd`, K1's fused form, is the intra search's all-mode
+step: the SATD of every mode's prediction (predict_all_modes, then
+fasthevc_tpu/ops/cost.py satd), with `predict_satd_plain` as its twin.
+`grid_refs` is plain tensor glue.
 
 Reference layout (the spec oracle's): top[b] = [corner, p[0][-1] ..
 p[2N-1][-1]], left[b] = [corner, p[-1][0] .. p[-1][2N-1]], both [B, 2N+1]
@@ -23,6 +26,7 @@ from ..spec.intra import should_filter
 from ..spec.tables import INTRA_INV_ANGLE, INTRA_PRED_ANGLE
 
 from .. import _build
+from . import cost
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,8 +201,47 @@ def predict(top: torch.Tensor, left: torch.Tensor, log2_size: int,
         None if modes is None else modes.data_ptr(), tab.data_ptr(),
         out.data_ptr(), b, n, log2_size, m, int(is_luma and n < 32),
         (1 << bit_depth) - 1, _build.stream_handle(top))
-    _build.launched("intra_pred")
+    # the all-mode form (no route launches it) and the selected form (the
+    # rd candidates, chroma DM) are counted apart
+    _build.launched("intra_pred" if modes is None else "intra_pred_selected")
     _build.check(rc, "intra_pred")
+    return out
+
+
+def predict_satd_plain(top: torch.Tensor, left: torch.Tensor,
+                       log2_size: int, src: torch.Tensor,
+                       bit_depth: int = 8) -> torch.Tensor:
+    """The fused form's twin: [B, 35] int32 SATD of src [B, N, N] against
+    each luma mode's prediction."""
+    return cost.satd_plain(src, predict_plain(top, left, log2_size, None,
+                                              True, bit_depth))
+
+
+def predict_satd(top: torch.Tensor, left: torch.Tensor, log2_size: int,
+                 src: torch.Tensor, bit_depth: int = 8) -> torch.Tensor:
+    """K1's fused form, the intra search's all-mode step (search.py:163):
+    [B, 35] int32 SATD of src [B, N, N] against the 35 luma predictions
+    from [B, 2N+1] refs; the predictions never reach device memory."""
+    if not top.is_cuda:
+        return predict_satd_plain(top, left, log2_size, src, bit_depth)
+    n = 1 << log2_size
+    b = top.shape[0]
+    top = top.to(torch.int32).contiguous()
+    left = left.to(torch.int32).contiguous()
+    src = src.to(torch.int32).contiguous()
+    _build.require_cuda("intra_satd", top, left, src, dtype=torch.int32)
+    if (top.shape != (b, 2 * n + 1) or left.shape != top.shape
+            or src.shape != (b, n, n) or not 2 <= log2_size <= 5):
+        raise ValueError("intra_satd: refs [B, 2N+1], src [B, N, N], N in "
+                         "4..32")
+    out = torch.empty((b, 35), dtype=torch.int32, device=top.device)
+    tab = _mode_table(n, True, top.device)
+    rc = _build.lib().fhv_intra_satd(
+        top.data_ptr(), left.data_ptr(), src.data_ptr(), tab.data_ptr(),
+        out.data_ptr(), b, n, log2_size, int(n < 32), (1 << bit_depth) - 1,
+        _build.stream_handle(top))
+    _build.launched("intra_satd")
+    _build.check(rc, "intra_satd")
     return out
 
 

@@ -1,9 +1,12 @@
 """fasthevc_tpu_torch.ops.intra against fasthevc_tpu.ops.intra.
 
 K1's twin (predict_plain, behind predict_all_modes / predict_selected on
-CPU tensors) must equal the JAX predictions exactly, and grid_refs must
-cut the same references.  The CUDA kernel itself is held against its twin
-in test_torch_kernels.py.
+CPU tensors) must equal the JAX predictions exactly, its fused form's twin
+(predict_satd on CPU tensors) the JAX search's satd(src - predict_all_modes)
+(fasthevc_tpu/codec/search.py:163-166), its selected form the gather of
+the 35-mode prediction, and grid_refs must cut the same references.  The
+CUDA kernels themselves are held against their twins in
+test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -11,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from fasthevc_tpu.ops import cost as jcost
 from fasthevc_tpu.ops import intra as jintra
 from fasthevc_tpu.utils import synthesize_yuv
 from fasthevc_tpu_torch.ops import intra
@@ -58,6 +62,48 @@ def test_predict_selected_matches_jax(lg, luma):
     got = intra.predict_selected(torch.from_numpy(top),
                                  torch.from_numpy(left), lg,
                                  torch.from_numpy(modes), luma)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+def test_predict_satd_matches_jax(lg, bits):
+    """The intra search's all-mode step: [B, 35] SATDs of every luma mode,
+    at the shapes of test_predict_all_modes_matches_jax (its compiled
+    prediction is reused); 10-bit references and sources through the
+    search's default bit_depth, as the reference's search calls it."""
+    top, left = _refs(lg, 48, seed=lg)
+    n = 1 << lg
+    rng = np.random.default_rng(50 + lg)
+    if bits == 10:
+        top = top * 4 + rng.integers(0, 4, top.shape).astype(np.int32)
+        left = left * 4 + rng.integers(0, 4, left.shape).astype(np.int32)
+        left[:, 0] = top[:, 0]
+    src = rng.integers(0, 1 << bits, (top.shape[0], n, n)).astype(np.int32)
+    want = np.asarray(jcost.satd(jnp.asarray(src)[:, None]
+                                 - jintra.predict_all_modes(
+                                     jnp.asarray(top), jnp.asarray(left), lg,
+                                     True)))
+    got = intra.predict_satd(torch.from_numpy(top), torch.from_numpy(left),
+                             lg, torch.from_numpy(src))
+    assert got.dtype == torch.int32 and got.shape == (top.shape[0], 35)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+def test_predict_selected_modes_equal_the_gather(lg):
+    """The search's rd candidates: K1's selected form with [B, 3] modes
+    equals the gather of the reference's 35-mode prediction, every mode
+    (the smoothed ones at 8 and 16 among them) taken at least once."""
+    top, left = _refs(lg, 48, seed=lg)
+    rng = np.random.default_rng(60 + lg)
+    take = rng.integers(0, 35, (top.shape[0], 3)).astype(np.int64)
+    take[:35, 0] = np.arange(35)
+    allm = np.asarray(jintra.predict_all_modes(jnp.asarray(top),
+                                               jnp.asarray(left), lg, True))
+    want = np.take_along_axis(allm, take[:, :, None, None], axis=1)
+    got = intra.predict(torch.from_numpy(top), torch.from_numpy(left), lg,
+                        torch.from_numpy(take))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -67,6 +67,8 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch():
     assert torch.equal(preds, intra.predict_plain(top, left, 3))
     src = preds[:, 5].clone()
     assert torch.equal(cost.satd(src, preds), cost.satd_plain(src, preds))
+    assert torch.equal(intra.predict_satd(top, left, 3, src),
+                       cost.satd_plain(src, preds))
     res = _residuals(8, 10, seed=2)
     lv, rq = transform.tq_roundtrip(res, 32, 3)
     for a, b in zip(cost.sse_rate(res, rq, lv),
@@ -126,13 +128,54 @@ def test_library_is_keyed_by_the_sources():
 def test_intra_kernel_matches_twin(cuda_device, lg, luma):
     top, left = (t.to(cuda_device) for t in _refs(lg, 300, seed=20 + lg))
     modes = torch.arange(top.shape[0], device=cuda_device) % 35
-    before = _build.LAUNCHES["intra_pred"]
+    before = (_build.LAUNCHES["intra_pred"],
+              _build.LAUNCHES["intra_pred_selected"])
     assert torch.equal(intra.predict_all_modes(top, left, lg, luma),
                        intra.predict_plain(top, left, lg, None, luma))
     assert torch.equal(
         intra.predict_selected(top, left, lg, modes, luma),
         intra.predict_plain(top, left, lg, modes[:, None], luma)[:, 0])
-    assert _build.LAUNCHES["intra_pred"] == before + 2
+    assert (_build.LAUNCHES["intra_pred"],
+            _build.LAUNCHES["intra_pred_selected"]) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+def test_intra_satd_kernel_matches_twin(cuda_device, lg, bits):
+    """K1's fused form (the intra search's all-mode SATDs) against its twin
+    on 8- and 10-bit references and sources, 301 blocks (a partial CTA at
+    the end), one launch."""
+    n = 1 << lg
+    rng = np.random.default_rng(40 + lg + bits)
+    top = rng.integers(0, 1 << bits, (301, 2 * n + 1)).astype(np.int32)
+    left = rng.integers(0, 1 << bits, (301, 2 * n + 1)).astype(np.int32)
+    left[:, 0] = top[:, 0]
+    src = rng.integers(0, 1 << bits, (301, n, n)).astype(np.int32)
+    t, l, s = (torch.from_numpy(a).to(cuda_device) for a in (top, left, src))
+    before = _build.LAUNCHES["intra_satd"]
+    for depth in (8, bits):
+        assert torch.equal(intra.predict_satd(t, l, lg, s, depth),
+                           intra.predict_satd_plain(t, l, lg, s, depth))
+    assert _build.LAUNCHES["intra_satd"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+def test_selected_candidates_match_the_gather(cuda_device, lg):
+    """The intra search's rd candidates: K1's selected form with [B, 3]
+    modes equals the gather of K1's 35-mode prediction, every mode taken
+    at least once (the smoothed ones at 8 and 16 among them)."""
+    top, left = (t.to(cuda_device) for t in _refs(lg, 300, seed=70 + lg))
+    take = torch.from_numpy(np.random.default_rng(lg).integers(
+        0, 35, (300, 3))).to(cuda_device)
+    take[:35, 0] = torch.arange(35, device=cuda_device)
+    allm = intra.predict_all_modes(top, left, lg)
+    got = intra.predict(top, left, lg, take)
+    assert torch.equal(got, torch.take_along_dim(allm, take[:, :, None, None],
+                                                 dim=1))
+    assert torch.equal(got, intra.predict_plain(top, left, lg, take))
 
 
 @pytest.mark.cuda
@@ -315,6 +358,36 @@ def test_me_kernels_match_twins(cuda_device, sr, nref, ctu):
                                        if sr > 8 else ["me_full_search"])
     for name in names:
         assert _build.LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_subpel_kernel_matches_twin(cuda_device, n, r):
+    """K10 against its twin on R references of a 128x128 picture: integer
+    MVs within +-64 (SR 64), every fourth block's at +-64 on both axes,
+    far out of the picture from the blocks near its edges; then a flat
+    picture at lambda_sqrt 0, where all 17 candidates tie and the first
+    must win.  Costs bit for bit."""
+    clip = synthesize_yuv(128, 128, r + 1, seed=80 + n)
+    fr = [torch.from_numpy(np.asarray(c[0], np.int32)) for c in clip]
+    y, refs = fr[r].to(cuda_device), torch.stack(fr[:r]).to(cuda_device)
+    b = (128 // n) ** 2
+    rng = np.random.default_rng(n + r)
+    mv = rng.integers(-64, 65, (r, b, 2))
+    mv[:, ::4] = np.where(mv[:, ::4] < 0, -64, 64)
+    mv = torch.from_numpy(mv.astype(np.int32)).to(cuda_device)
+    ls = float(np.sqrt(0.57 * 2.0 ** ((32 - 12) / 3.0)))
+    flat = torch.full_like(y, 77)
+    before = _build.LAUNCHES["subpel"]
+    for args in ((y, refs, mv, n, ls),
+                 (flat, flat[None].repeat(r, 1, 1), mv, n, 0.0)):
+        got = me.subpel(*args)
+        want = me.subpel(*args, plain=True)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)        # f32 costs bit for bit
+    assert torch.equal(got[1], 4 * mv - 2)
+    assert _build.LAUNCHES["subpel"] == before + 2
 
 
 @pytest.mark.cuda
