@@ -27,7 +27,13 @@ Phases (any failure raises, and the script exits non-zero):
         and 32, each timed beside K1 + K2, and K1's selected form on each
         block's 3 least-SATD modes against the gather of the 35 (K2 is
         timed here at [B, 35] only beside K1 + K2: no route launches that
-        form); then, on
+        form); K3's costed form (tq_cost, the search's T/Q/IQ/IT with K4's
+        SSE and rate inside) on the residuals of those 3 rd candidates
+        (luma n = 8, 16, 32) and of the chroma DM blocks (n = 4, 8, 16,
+        at both dead-zone offsets): bit for bit equal to K3 -> K4, against
+        its twin as K4 is held, each timed beside K3 + K4 with its
+        bound as the butterflies count it (the matrix form's count
+        beside); then, on
         the decision maps of one search of that group, K5 (the wavefront
         commit with the RDOQ trellis; its twin on the first 2 frames; its
         time on 1, 2 and 8 frames and per dependent CTU step, and its
@@ -57,8 +63,10 @@ Phases (any failure raises, and the script exits non-zero):
         flips inside the margin counted), each of its tiles T (CTUs a
         CTA) timed; K13's training mode and K14 on one training batch of 64 CTUs against
         autograd through the chain (gradients within 1e-4 of each
-        tensor's largest; K14 and autograd timed in turns, 41 pairs after
-        a warm-up, medians and interquartile ranges printed); K15 on the
+        tensor's largest; two K14 calls bit for bit equal; K14 and
+        autograd timed in turns, 41 pairs after a warm-up, medians and
+        interquartile ranges printed, with K14's grid, stages and share
+        of its bound); K15 on the
         flat parameters, bit for bit; each
         with its time, twin time, bound and the library call's time (the
         conv2d chain, its backward, torch.optim.Adam);
@@ -82,7 +90,7 @@ Phases (any failure raises, and the script exits non-zero):
   6. the pipelined route (CTU 64: device search, host C++ commit): the
      same 416x240 check, then 8 timed 1080p frames after a warm-up, fps
      printed beside phase 3's, requiring the intra search's kernels (K1's
-     fused and selected forms, K3, K4) to have been launched;
+     fused and selected forms, K3's costed form) to have been launched;
   7. the low-delay P device route: low_delay_p(1920, 1080, qp=32,
      hash_type=2) on synthesized frames, a warm-up, then one I frame and 8
      P frames timed;
@@ -108,8 +116,9 @@ Phases (any failure raises, and the script exits non-zero):
  12. trains the partition CNN on the card with
      train_self_distilled(qps=(27, 37), steps=400), the recipe of the
      reference's BASELINE config 4, printing its loss, accuracy and wall
-     time, and requires the intra search's kernels, K13's training mode,
-     K14 and K15 to have been launched;
+     time (the 400 steps apart from the distillation targets' search),
+     and requires the intra search's kernels, K13's training mode, K14
+     and K15 to have been launched;
  13. the fast-partition path with those parameters: phases 3, 7 and 10
      again (the same frames) with fast_partition, fps, kbit/frame and
      Y-PSNR printed beside the full search's, each requiring K13 and its
@@ -126,8 +135,9 @@ Phases (any failure raises, and the script exits non-zero):
  14. the classic per-frame route: phase 7's low_delay_p at CTU 64 (which
      TpuEncoder, too, sends to its per-frame loop), a warm-up, then 1 I
      and 4 P frames timed; prints fps, kbit/frame, Y-PSNR and the
-     search (CUDA events) / host C++ commit split, and requires K1-K4,
-     K9, K10 and K11's merge-candidate MC to have been launched;
+     search (CUDA events) / host C++ commit split, and requires K1, K2,
+     K3's costed form, K9, K10 and K11's merge-candidate MC to have been
+     launched;
  15. rate control at 1080p: the all-intra device route on phase 3's 16
      frames and the low-delay P device route on phase 7's 9 frames, each
      with target_bitrate at 0.8 of the rate its fixed-QP phase realized;
@@ -204,10 +214,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 33.5e12
 PEAK_F32_FLOPS_S = 67e12     # the partition CNN's f32 work, no tensor core
 # the intra search: K1's fused form (all 35 modes' SATDs), K1's selected
-# form (the rd candidates, chroma DM), K3, K4; K2 is launched by the inter
-# searches' merge candidates (and CTU 64's 64-blocks) only
-SEARCH_KERNELS = ("intra_pred_selected", "intra_satd", "tq_roundtrip",
-                  "sse_rate")
+# form (the rd candidates, chroma DM), K3's costed form (T/Q/IQ/IT with K4's
+# SSE and rate inside); K2 is launched by the inter searches' merge
+# candidates (and CTU 64's 64-blocks) only
+SEARCH_KERNELS = ("intra_pred_selected", "intra_satd", "tq_cost")
+# K3's plain form and K4, which no route launches since tq_cost replaced
+# the pair: every route's launches must show neither
+UNLAUNCHED = ("tq_roundtrip", "sse_rate")
 INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
 P_KERNELS = ("me_downsample4", "me_full_search", "me_refine", "subpel",
              "mc_sel", "satd", "inter_pred", "commit_mixed", "deblock_bs",
@@ -218,7 +231,7 @@ B_KERNELS = ("bi_cost", "inter_pred_bi")
 RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
             + B_KERNELS)
 # the classic per-frame route's P search: K1 (fused and selected forms),
-# K2-K4, K9, K10
+# K2, K3's costed form, K9, K10
 # and K11's merge candidates (the C++ engine commits and compensates on the
 # host)
 CLASSIC_ROUTE = SEARCH_KERNELS + ("me_downsample4", "me_full_search",
@@ -240,9 +253,7 @@ META = {
                             "fasthevc_tpu/ops/intra.py:239"),
     "intra_satd": ("csrc/intra_pred.cu", "fasthevc_tpu/codec/search.py:163"),
     "satd": ("csrc/satd.cu", "fasthevc_tpu/ops/cost.py:26"),
-    "tq_roundtrip": ("csrc/tq_roundtrip.cu",
-                     "fasthevc_tpu/ops/transform.py:151"),
-    "sse_rate": ("csrc/sse_rate.cu", "fasthevc_tpu/ops/cost.py:53"),
+    "tq_cost": ("csrc/tq_roundtrip.cu", "fasthevc_tpu/ops/transform.py:151"),
     "commit_intra": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:545"),
     "deblock": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:236"),
     "sao": ("csrc/sao.cu", "fasthevc_tpu/ops/sao.py:264"),
@@ -383,6 +394,29 @@ def _transform_ops(dm) -> float:
     return total
 
 
+def _bfly_ops(n: int) -> int:
+    """Operations (a multiply-add as two) of one n-point core transform by
+    HM's even-odd partial butterflies, forward or inverse: n additions
+    splitting (or joining) the even and odd halves, (n/2)^2 multiply-adds
+    of the odd half, and the n/2-point transform of the even half; the
+    2-point one is 64 (a +- b), four operations."""
+    return 4 if n == 2 else n + 2 * (n // 2) ** 2 + _bfly_ops(n // 2)
+
+
+def _tq_work(blocks: int, n: int, costed: bool, matrix: bool = False
+             ) -> tuple:
+    """(bytes, int32 operations) of K3 on `blocks` n x n residuals: the
+    residual read; the levels and recon written (tq_roundtrip) or (dist,
+    rate) (tq_cost).  Operations: four 1-D passes of n transforms by the
+    butterflies (with `matrix`, the n^3 matrix form's count), 10 a sample
+    for the shifts, clips and quantisers, and for tq_cost 12 a sample for
+    K4's SSE and level features."""
+    per_1d = 2 * n * n if matrix else _bfly_ops(n)
+    ops = 4 * n * per_1d + (22 if costed else 10) * n * n
+    nbytes = 4 * n * n + (8 if costed else 8 * n * n)
+    return blocks * nbytes, blocks * ops
+
+
 def _interp_ops(n: int, taps: int) -> float:
     """Multiply-adds (as two ops) of the separable interpolation of one
     n x n block with a taps-tap filter: (n + taps - 1) rows of n horizontal
@@ -395,16 +429,52 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
     from fasthevc_tpu_torch.ops import cost, intra, transform
 
     qp = search_qp(_lambda_sqrt(QP))
+    faster = []
 
-    def k4_check(name, got, want):
+    def k4_check(name, got, want, key):
         (dk, rk), (dp, rp) = got, want
         exact = dp < 2.0 ** 24
         if not torch.equal(dk[exact], dp[exact]):
-            raise AssertionError(f"{name}: K4 dist differs from the twin")
+            raise AssertionError(f"{name}: dist differs from the twin")
         rel = ((rk - rp).abs() / rp.abs().clamp_min(1e-30)).max().item()
         if rel > RATE_RTOL:
-            raise AssertionError(f"{name}: K4 rate rel err {rel:.3g}")
-        errs["sse_rate"] = max(errs["sse_rate"], (rk - rp).abs().max().item())
+            raise AssertionError(f"{name}: rate rel err {rel:.3g}")
+        if key in errs:
+            errs[key] = max(errs[key], (rk - rp).abs().max().item())
+
+    def tq_check(name, res, lg, intra):
+        """K3 and K4 against their twins, tq_cost bit for bit against K3
+        -> K4 and against its twin; each timed.  Returns the ms of
+        tq_cost, K3 and K4, and K3's (levels, recon)."""
+        lk, rk = transform.tq_roundtrip(res, qp, lg, is_intra=intra)
+        lp, rp = transform.tq_roundtrip_plain(res, qp, lg, is_intra=intra)
+        _same(torch, f"K3 levels {name}", lk, lp)
+        _same(torch, f"K3 recon {name}", rk, rp)
+        k4 = cost.sse_rate(res, rk, lk)
+        k4_check(f"K4 {name}", k4, cost.sse_rate_plain(res, rk, lk), "")
+        got = transform.tq_cost(res, qp, lg, is_intra=intra)
+        _same(torch, f"tq_cost dist against K3 -> K4 {name}", got[0], k4[0])
+        _same(torch, f"tq_cost rate against K3 -> K4 {name}", got[1], k4[1])
+        k4_check(f"tq_cost {name}", got,
+                 transform.tq_cost_plain(res, qp, lg, is_intra=intra),
+                 "tq_cost")
+        ms = _median_ms(lambda: transform.tq_cost(res, qp, lg,
+                                                  is_intra=intra))
+        k3 = _median_ms(lambda: transform.tq_roundtrip(res, qp, lg,
+                                                       is_intra=intra))
+        k4_ms = _median_ms(lambda: cost.sse_rate(res, rk, lk))
+        b, n = res.shape[0], 1 << lg
+        b_ms, b_by = _bound(*_tq_work(b, n, True))
+        m_ms, m_by = _bound(*_tq_work(b, n, True, matrix=True))
+        r_ms, r_by = _bound(*_tq_work(b, n, False))
+        print(f"kernel tq_cost {name} ({b} blocks): {ms:.4f} ms against K3 "
+              f"+ K4 {k3:.4f} + {k4_ms:.4f} = {k3 + k4_ms:.4f} ms "
+              f"({(k3 + k4_ms) / ms:.2f}x); bound {b_ms:.4f} ms ({b_by}, "
+              f"butterflies), {100 * b_ms / ms:.1f}% of it; the n^3 matrix "
+              f"form's count: {m_ms:.4f} ms ({m_by}); tq_roundtrip bound "
+              f"{r_ms:.4f} ms ({r_by}), {100 * r_ms / k3:.1f}% of it")
+        faster.append((name, ms < k3 + k4_ms))
+        return ms, k3, k4_ms, (lk, rk)
 
     # luma: all 35 modes, SATD, then the true-RD pass on the top 3 modes
     for n in (8, 16, 32):
@@ -443,12 +513,7 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
         _same(torch, f"K1 selected against the gather n={n}", ck,
               torch.take_along_dim(pk, take[:, :, None, None], dim=1))
         res = (src[:, None] - pk[:, :3]).reshape(-1, n, n).contiguous()
-        lk, rk = transform.tq_roundtrip(res, qp, lg)
-        lp, rp = transform.tq_roundtrip_plain(res, qp, lg)
-        _same(torch, f"K3 levels n={n}", lk, lp)
-        _same(torch, f"K3 recon n={n}", rk, rp)
-        k4_check(f"n={n}", cost.sse_rate(res, rk, lk),
-                 cost.sse_rate_plain(res, rk, lk))
+        ms, k3, k4_ms, (lk, rk) = tq_check(f"luma n={n}", res, lg, True)
         if n == 8:  # the largest batch: B = 8 * 136 * 240 blocks
             bt = res.shape[0]
             timed["intra_satd"], work["intra_satd"] = fused, w
@@ -461,7 +526,9 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
             work["intra_pred_selected"] = (
                 4 * (2 * b * (2 * n + 1) + b * 3 + b * 3 * n * n),
                 6 * b * 3 * n * n)
-            for name, ms, plain_fn, wb in (
+            # K3's plain form and K4, which no route launches, are printed
+            # beside tq_cost; their twins here
+            for name, ms_k, plain_fn, wb in (
                     ("intra_pred all-mode form", k12[0],
                      lambda: intra.predict_plain(top, left, lg),
                      (4 * (2 * b * (2 * n + 1) + b * 35 * n * n),
@@ -469,23 +536,23 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
                     ("satd at [B, 35]", k12[1],
                      lambda: cost.satd_plain(src, pk),
                      (4 * (b * n * n + b * 35 * n * n + b * 35),
-                      9 * b * 35 * n * n))):
+                      9 * b * 35 * n * n)),
+                    ("tq_roundtrip", k3,
+                     lambda: transform.tq_roundtrip_plain(res, qp, lg),
+                     _tq_work(bt, n, False)),
+                    ("sse_rate", k4_ms,
+                     lambda: cost.sse_rate_plain(res, rk, lk),
+                     (4 * 3 * bt * n * n + 8 * bt, 12 * bt * n * n))):
                 b_ms, b_by = _bound(*wb)
                 print(f"kernel {name} n={n} (no route launches it): "
-                      f"{ms:.4f} ms, plain twin {_median_ms(plain_fn):.4f} "
-                      f"ms, bound {b_ms:.4f} ms ({b_by})")
-            timed["tq_roundtrip"] = (
-                _median_ms(lambda: transform.tq_roundtrip(res, qp, lg)),
-                _median_ms(lambda: transform.tq_roundtrip_plain(res, qp, lg)))
-            work["tq_roundtrip"] = (4 * 3 * bt * n * n,
-                                    bt * (4 * 2 * n ** 3 + 10 * n * n))
-            timed["sse_rate"] = (
-                _median_ms(lambda: cost.sse_rate(res, rk, lk)),
-                _median_ms(lambda: cost.sse_rate_plain(res, rk, lk)))
-            work["sse_rate"] = (4 * 3 * bt * n * n + 8 * bt,
-                                12 * bt * n * n)
-        del pk, sk, fk, ck, res, lk, rk, lp, rp
-    # chroma DM: one selected mode per block
+                      f"{ms_k:.4f} ms, plain twin "
+                      f"{_median_ms(plain_fn):.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by})")
+            timed["tq_cost"] = (ms, _median_ms(
+                lambda: transform.tq_cost_plain(res, qp, lg)))
+            work["tq_cost"] = _tq_work(bt, n, True)
+        del pk, sk, fk, ck, res, lk, rk
+    # chroma DM: one selected mode per block, at both dead-zone offsets
     gen = torch.Generator(device="cpu").manual_seed(7)
     for cn in (4, 8, 16):
         lg = cn.bit_length() - 1
@@ -496,12 +563,12 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
         pp = intra.predict_plain(top, left, lg, modes[:, None], False)[:, 0]
         _same(torch, f"K1 chroma n={cn}", pk, pp)
         res = (_blocks(c, cn) - pk).contiguous()
-        lk, rk = transform.tq_roundtrip(res, qp, lg)
-        lp, rp = transform.tq_roundtrip_plain(res, qp, lg)
-        _same(torch, f"K3 chroma levels n={cn}", lk, lp)
-        _same(torch, f"K3 chroma recon n={cn}", rk, rp)
-        k4_check(f"chroma n={cn}", cost.sse_rate(res, rk, lk),
-                 cost.sse_rate_plain(res, rk, lk))
+        for intra_dz in (True, False):
+            tq_check(f"chroma n={cn} {'intra' if intra_dz else 'inter'}",
+                     res, lg, intra_dz)
+    print("tq_cost faster than K3 + K4 on the same inputs: "
+          + ", ".join(f"{name} {'yes' if ok else 'NO'}"
+                      for name, ok in faster))
     torch.cuda.synchronize()
 
 
@@ -1156,6 +1223,8 @@ def phase_cnn_kernels(torch, errs, timed, work, lib_ms):
                          2 * nb * fwd, PEAK_F32_FLOPS_S)
 
     gk = cnn.cnn_backward(x, q, t, theta, acts, lk)
+    _same(torch, "K14 run to run", cnn.cnn_backward(x, q, t, theta, acts, lk),
+          gk)
     th = theta.clone().requires_grad_(True)
     loss_p, logits_p = cnn.cnn_loss_plain(th, x, q, t)
     gp, = torch.autograd.grad(loss_p, th, retain_graph=True)
@@ -1179,18 +1248,23 @@ def phase_cnn_kernels(torch, errs, timed, work, lib_ms):
                                                              [25, 50, 75])
     verdict = ("K14 is faster" if qa[2] < qb[0] else "K14 is slower"
                if qa[0] > qb[2] else "their interquartile ranges overlap")
+    _, grid, stages = cnn.cnn_backward_plan(nb, 5)
+    work["cnn_backward"] = (4 * (x.numel() + nb + t.numel() + p_
+                                 + acts.numel() + lk.numel() + p_),
+                            2 * nb * bwd, PEAK_F32_FLOPS_S)
+    b_ms = _bound(*work["cnn_backward"])[0]
     print(f"K14 against autograd through the conv2d chain (cuDNN TF32 "
           f"{torch.backends.cudnn.allow_tf32}), {K14_PAIRS} pairs in turns "
           f"after a warm-up: K14 median {qa[1]:.4f} ms (IQR {qa[0]:.4f}-"
           f"{qa[2]:.4f}), autograd median {qb[1]:.4f} ms (IQR {qb[0]:.4f}-"
-          f"{qb[2]:.4f}): {verdict}")
+          f"{qb[2]:.4f}): {verdict}; K14's grid {grid} CTAs of 256 "
+          f"threads, {stages} stages (one launch), "
+          f"{100 * b_ms / qa[1]:.2f}% of its bound {b_ms:.4f} ms; two calls "
+          f"bit for bit equal")
     timed["cnn_backward"] = (
         float(qa[1]), _median_ms(lambda: torch.autograd.grad(
             loss_p, th, retain_graph=True)))
     lib_ms["cnn_backward"] = float(qb[1])
-    work["cnn_backward"] = (4 * (x.numel() + nb + t.numel() + p_
-                                 + acts.numel() + lk.numel() + p_),
-                            2 * nb * bwd, PEAK_F32_FLOPS_S)
 
     bufs = [theta.clone(), torch.zeros_like(theta), torch.zeros_like(theta)]
     twin = [b.clone() for b in bufs]
@@ -1234,10 +1308,16 @@ def _encode(torch, cfg, clip, device="cuda", plain=False, params=None):
 
 
 def _require(launches: dict, names, what: str) -> None:
+    """Every kernel of `names` launched in `launches`, and none of
+    UNLAUNCHED."""
     for name in names:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"{what}")
+    for name in UNLAUNCHED:
+        if launches.get(name, 0):
+            raise AssertionError(f"kernel {name} was launched by the {what}"
+                                 f", which should run tq_cost in its place")
 
 
 def _ai_clip():
@@ -1689,14 +1769,24 @@ def phase_train(torch):
 
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
+    marks = []
+
+    def log(line):
+        # the first line follows the distillation targets' search; the
+        # step lines carry the loss and accuracy
+        marks.append(time.perf_counter())
+        print(line)
+
     t0 = time.perf_counter()
-    params = train_self_distilled(qps=(27, 37), steps=400, device="cuda")
+    params = train_self_distilled(qps=(27, 37), steps=400, device="cuda",
+                                  log=log)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     print(f"train_self_distilled(qps=(27, 37), steps=400) on the card: "
-          f"{dt:.2f} s wall (targets from the port's intra search, then "
-          f"400 steps of K13's training mode, K14 and K15)")
+          f"{dt:.2f} s wall: the distillation targets (the port's intra "
+          f"search) {marks[0] - t0:.2f} s, then the 400 steps of K13's "
+          f"training mode, K14 and K15 {t0 + dt - marks[0]:.2f} s")
     print(f"launches in the training: {launches}")
     _require(launches, SEARCH_KERNELS + TRAIN_KERNELS, "training")
     save_params(params, params_path())
@@ -1899,6 +1989,13 @@ def profile_route(torch, label, clip, cfg, warm) -> None:
                                key=lambda kv: -kv[1][0])[:25]:
         print(f"  {t / 1e3:10.3f} ms {100 * t / total:5.1f}% {k:6d}x "
               f"{name[:90]}")
+    # the search's T/Q/IQ/IT with its RD terms, every form of K3 and K4
+    tq = [v for name, v in by_name.items()
+          if "tq_kernel" in name or "sse_rate_kernel" in name]
+    t_tq = sum(t for t, _ in tq)
+    print(f"  the search's T/Q/IQ/IT and RD terms (K3's forms, K4): "
+          f"{t_tq / 1e3:.3f} ms, {100 * t_tq / total:.1f}%, "
+          f"{sum(k for _, k in tq)} launches")
 
 
 def _intra_sp():
@@ -2378,15 +2475,18 @@ def bench_kernels(torch) -> None:
     be timed in turns on one card (`--root DIR` imports the package from
     DIR): K10 at n = 8, 16, 32 on phase 2b's P frame and n = 64 on phase
     2e's B frame; K1's all-mode form, K2 and (where the package has it)
-    K1's fused form at n = 8, 16, 32 on phase 2a's group; then phases 3,
-    7 and 10's encodes, each BENCH_ENCODES times after its warm-up, every
-    fps and their median printed beside the medians of the encoder's
-    timing split and the stream's size and SHA-256."""
+    K1's fused form at n = 8, 16, 32 on phase 2a's group, with K3 + K4
+    and (where the package has it) K3's costed form on three candidates a
+    block; K14 and autograd through the chain in turns on phase 2d's
+    training batch; then phases 3, 7 and 10's encodes, each BENCH_ENCODES
+    times after its warm-up, every fps and their median printed beside
+    the medians of the encoder's timing split and the stream's size and
+    SHA-256."""
     import hashlib
 
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
-    from fasthevc_tpu_torch.codec.search import _blocks
-    from fasthevc_tpu_torch.ops import cost, intra, me
+    from fasthevc_tpu_torch.codec.search import _blocks, search_qp
+    from fasthevc_tpu_torch.ops import cnn, cost, intra, me, transform
 
     src, refs = _p_frames(torch, torch.device("cuda"))
     pad = (0, 0, 0, -(-HEIGHT // 32) * 32 - HEIGHT)
@@ -2410,6 +2510,7 @@ def bench_kernels(torch) -> None:
         pk = intra.predict_all_modes(top, left, lg)
         k1 = _median_ms(lambda: intra.predict_all_modes(top, left, lg))
         k2 = _median_ms(lambda: cost.satd(src, pk))
+        res = (src[:, None] - pk[:, :3]).reshape(-1, n, n).contiguous()
         del pk
         fused = ""
         if hasattr(intra, "predict_satd"):
@@ -2417,7 +2518,42 @@ def bench_kernels(torch) -> None:
                 lambda: intra.predict_satd(top, left, lg, src)))
         print(f"bench n={n}: intra_pred all-mode {k1:.4f} ms + satd "
               f"{k2:.4f} ms = {k1 + k2:.4f} ms{fused}")
+        qp = search_qp(_lambda_sqrt(QP))
+        lk, rk = transform.tq_roundtrip(res, qp, lg)
+        k3 = _median_ms(lambda: transform.tq_roundtrip(res, qp, lg))
+        k4 = _median_ms(lambda: cost.sse_rate(res, rk, lk))
+        costed = ""
+        if hasattr(transform, "tq_cost"):
+            costed = ", tq_cost {:.4f} ms".format(_median_ms(
+                lambda: transform.tq_cost(res, qp, lg)))
+        print(f"bench n={n} ({res.shape[0]} residuals): tq_roundtrip "
+              f"{k3:.4f} ms + sse_rate {k4:.4f} ms = {k3 + k4:.4f} ms"
+              f"{costed}")
+        del res, lk, rk
     del gy
+    rng = np.random.default_rng(12)
+    x = cnn.ctu_batch(_cnn_frames(torch, 5, 1), 32)[:CNN_BATCH, 0]
+    x = x.contiguous()
+    q = torch.from_numpy(rng.choice([27.0, 37.0], CNN_BATCH)
+                         .astype(np.float32)).to("cuda")
+    t = torch.from_numpy(rng.integers(0, 3, (CNN_BATCH, 4, 4))
+                         .astype(np.int32)).to("cuda")
+    theta = _seeded_cnn(torch, 5).flat_params()
+    lk, acts = cnn.cnn_train_forward(x, q, theta)
+    th_lib = theta.clone().requires_grad_(True)
+    ce = torch.nn.functional.cross_entropy(
+        cnn.logits_plain(x[:, None], q, cnn.unflatten(th_lib, 3))
+        .permute(0, 3, 1, 2), t.long())
+    k14, chain = _interleaved_ms(
+        lambda: cnn.cnn_backward(x, q, t, theta, acts, lk),
+        lambda: torch.autograd.grad(ce, th_lib, retain_graph=True))
+    qa, qb = np.percentile(k14, [25, 50, 75]), np.percentile(chain,
+                                                             [25, 50, 75])
+    print(f"bench cnn_backward ({CNN_BATCH} CTUs of 32), {K14_PAIRS} pairs "
+          f"in turns with autograd through the chain: K14 median "
+          f"{qa[1]:.4f} ms (IQR {qa[0]:.4f}-{qa[2]:.4f}), autograd median "
+          f"{qb[1]:.4f} ms (IQR {qb[0]:.4f}-{qb[2]:.4f})")
+    del x, acts, lk, ce
     torch.cuda.empty_cache()
     ai, ldp, ra = _ai_clip(), _ldp_clip(), _ra_clip()
     for name, cfg, warm, clip in (
@@ -2567,8 +2703,9 @@ def main() -> int:
                else f", library {lib_ms[name]:.4f} ms")
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}){lib}")
-    print("(phase 2a: 1080p group-of-8 shapes, K3, K4 and K1's fused form "
-          "(intra_satd) at n=8, intra_pred_selected on the 3 rd candidates "
+    print("(phase 2a: 1080p group-of-8 shapes, K3's costed form (tq_cost) "
+          "and K1's fused form (intra_satd) at luma n=8, "
+          "intra_pred_selected and tq_cost on the 3 rd candidates "
           "a block, commit_intra "
           f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
           "frame, SR 64, two references, ME and MC on the 8-blocks, satd "

@@ -45,7 +45,8 @@ def launched(name: str, n: int = 1) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argument types (the stream is always last)
+# C entry points: name -> argument types (the stream, where one is taken,
+# last)
 _SIGNATURES = {
     # top, left, modes|NULL, mode_tab, out, B, n, lg, M, edge, max_val,
     # stream
@@ -54,8 +55,10 @@ _SIGNATURES = {
     "fhv_intra_satd": [_P] * 5 + [_I] * 5 + [_P],
     # src, preds, out, B, M, n, stream
     "fhv_satd": [_P, _P, _P, _I, _I, _I, _P],
-    # res, mat, levels, recon, B, n, lg, qp, bit_depth, dz, stream
-    "fhv_tq_roundtrip": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # res, levels, recon, B, lg, qp, bit_depth, dz, stream
+    "fhv_tq_roundtrip": [_P, _P, _P] + [_I] * 5 + [_P],
+    # res, dist, rate, B, lg, qp, bit_depth, dz, w0..w5, stream
+    "fhv_tq_cost": [_P, _P, _P] + [_I] * 5 + [_F] * 6 + [_P],
     # res, rq, levels, dist, rate, B, n, lg, w0..w5, stream
     "fhv_sse_rate": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                      _F, _P],
@@ -95,9 +98,11 @@ _SIGNATURES = {
     # plane, dtype, qv, qp, theta, depth, logits, acts, F, PH, PW, log2_ctu,
     # T, smem bytes, stream
     "fhv_cnn_fwd": [_P, _I, _P, _F, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    # x, qv, labels, theta, acts, logits, partial, grad, B, log2_ctu, inv_n,
+    # x, qv, labels, theta, acts, logits, scratch, grad, B, log2_ctu, inv_n,
     # stream
     "fhv_cnn_bwd": [_P] * 8 + [_I, _I, _F, _P],
+    # B, log2_ctu, out (int64 [3]: scratch floats, grid, stages)
+    "fhv_cnn_bwd_plan": [_I, _I, _P],
     # theta, grad, m, v, P, lr, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2, stream
     "fhv_adam": [_P] * 4 + [_I] + [_F] * 8 + [_P],
     # plane descriptors (int64), n planes, stream

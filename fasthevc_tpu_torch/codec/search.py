@@ -4,8 +4,9 @@ fasthevc_tpu/codec/search.py.
 Intra, for every aligned block of every CU size of every frame: SATD over
 the 35 intra modes (K1's fused form), MPM-aware mode bits, a true-RD pass
 over the top-k shortlist, predicted again in K1's selected form, through
-the exact T/Q/IQ/IT (K3) with SSE and the level-rate proxy (K4), the
-chroma DM cost (K1, K3, K4), then the bottom-up
+the exact T/Q/IQ/IT with SSE and the level-rate proxy (K3's costed form,
+`tq_cost`: K3 and K4's arithmetic in one launch), the chroma DM cost (K1,
+`tq_cost`), then the bottom-up
 quadtree DP and the packed int16 [gh, gw, 9] decision maps of the C++
 slice engine.  P frames add, per block, the best of up to two references
 from integer ME (K9) and sub-pel refinement (K10), two merge candidates
@@ -38,13 +39,11 @@ INTER_OVERHEAD_BITS = 2.0
 
 def _ops(plain: bool) -> tuple:
     """The search's kernel entry points (predict, predict_satd, satd,
-    tq_roundtrip, sse_rate): the wrappers, or with `plain` their twins."""
+    tq_cost): the wrappers, or with `plain` their twins."""
     if plain:
         return (intra.predict_plain, intra.predict_satd_plain,
-                cost.satd_plain, transform.tq_roundtrip_plain,
-                cost.sse_rate_plain)
-    return (intra.predict, intra.predict_satd, cost.satd,
-            transform.tq_roundtrip, cost.sse_rate)
+                cost.satd_plain, transform.tq_cost_plain)
+    return (intra.predict, intra.predict_satd, cost.satd, transform.tq_cost)
 
 
 def _blocks(planes: torch.Tensor, n: int) -> torch.Tensor:
@@ -125,7 +124,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
     [F, B_n] in block raster order: mode{n}, cost{n} and split{n} (n above
     the min CU size), rawcost{n}.
     """
-    predict, predict_satd, _, tq_roundtrip, sse_rate = _ops(plain)
+    predict, predict_satd, _, tq_cost = _ops(plain)
     f, h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     # f32 scalars stay on the host: a 0-dim CPU tensor enters a CUDA op as
@@ -156,8 +155,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
         top_idx = torch.sort(cost_rmd, dim=1, stable=True).indices[:, :kk]
         cands = predict(top, left, plg, top_idx)             # [B,kk,pn,pn]
         res = (src[:, None] - cands).reshape(b * kk, pn, pn)
-        levels, rq = tq_roundtrip(res, qp_i, plg)
-        dist, rate = sse_rate(res, rq, levels)
+        dist, rate = tq_cost(res, qp_i, plg)
         dist = dist.reshape(b, kk)
         rate = rate.reshape(b, kk)
         cand_bits = torch.take_along_dim(mode_bits, top_idx, dim=1)
@@ -178,8 +176,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
                 cpred = predict(ctop, cleft, clg, modes[n][:, None],
                                 is_luma=False)[:, 0]
                 cres = _blocks(cp, cn) - cpred
-                clv, crq = tq_roundtrip(cres, qp_i, clg)
-                cdist, crate = sse_rate(cres, crq, clv)
+                cdist, crate = tq_cost(cres, qp_i, clg)
                 cost_n = cost_n + (cdist + lam * crate)
         costs[n] = cost_n * (4.0 if pn != n else 1.0)
 
@@ -281,15 +278,13 @@ def _pick_ref(sp_n, ia: int, ib: int) -> tuple:
             torch.where(sel[:, None, None], pred[ib], pred[ia]), sel)
 
 
-def _inter_leaf(y, n: int, pred, rate_bits, qp_i: int, lam, tq_roundtrip,
-                sse_rate):
+def _inter_leaf(y, n: int, pred, rate_bits, qp_i: int, lam, tq_cost):
     """The true-RD leaf cost of an inter candidate's residual at the inter
     dead-zone offset; XLA contracts dist + lam * (...) into one fused
     multiply-add."""
     pn = min(n, 32)
     res = (_blocks(y[None], n) - pred)[:, :pn, :pn].contiguous()
-    levels, rq = tq_roundtrip(res, qp_i, pn.bit_length() - 1, is_intra=False)
-    dist, rate = sse_rate(res, rq, levels)
+    dist, rate = tq_cost(res, qp_i, pn.bit_length() - 1, is_intra=False)
     return cost.fma_f32(lam, (rate + rate_bits) + INTER_OVERHEAD_BITS,
                         dist) * (4.0 if pn != n else 1.0)
 
@@ -326,7 +321,7 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     dir{n} (1), mv0{n} ([B_n, 2] quarter-pel) and ref0{n} ([B_n] ref
     index), with list 1's mv1{n} and ref1{n} zero, each in block raster
     order."""
-    _, _, satd, tq_roundtrip, sse_rate = _ops(plain)
+    _, _, satd, tq_cost = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -353,8 +348,7 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
             st, _blocks(y[None], n), 0, ib, mv, sel.to(torch.int32), pred,
             me_cost, me.mv_rate_bits(mv), n, ls, satd, plain, mpm_edge_x,
             mpm_edge_on)
-        icost = _inter_leaf(y, n, pred, rate_bits, qp_i, lam, tq_roundtrip,
-                            sse_rate)
+        icost = _inter_leaf(y, n, pred, rate_bits, qp_i, lam, tq_cost)
         raw_intra = intra_dec[f"rawcost{n}"]
         out[f"mode{n}"] = intra_dec[f"mode{n}"]
         out[f"inter{n}"] = icost < raw_intra
@@ -390,7 +384,7 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     (1 L0, 2 L1, 3 BI; 1 for intra), mv0{n}, mv1{n} ([B_n, 2]
     quarter-pel), ref0{n} and ref1{n} ([B_n] ref index), each in block
     raster order."""
-    _, _, satd, tq_roundtrip, sse_rate = _ops(plain)
+    _, _, satd, tq_cost = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -437,8 +431,7 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
         rate_sel = torch.where(dchoice == 0, r0bits,
                                torch.where(dchoice == 1, r1bits,
                                            r0bits + r1bits))
-        icost = _inter_leaf(y, n, pred_sel, rate_sel, qp_i, lam,
-                            tq_roundtrip, sse_rate)
+        icost = _inter_leaf(y, n, pred_sel, rate_sel, qp_i, lam, tq_cost)
         raw_intra = intra_dec[f"rawcost{n}"]
         use_inter = icost < raw_intra
         out[f"mode{n}"] = intra_dec[f"mode{n}"]

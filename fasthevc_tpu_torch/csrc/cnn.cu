@@ -15,10 +15,7 @@
 // K14 replaces `jax.value_and_grad` of the step of `train_self_distilled`
 // (:158): from K13's logits, the gradient of the mean softmax cross-entropy
 // (softmax - onehot) / (B g g), then, layer by layer, each layer's weight
-// and bias gradients and the gradient of its input through the ReLU.  One
-// CTA per CTU writes its partial sums of every parameter gradient; a second
-// launch sums them over the batch in CTU order (deterministic, no float
-// atomics).
+// and bias gradients and the gradient of its input through the ReLU.
 //
 // K15 replaces `optax.adam(3e-3)`'s update of the same step: one
 // elementwise pass over the flat parameter, gradient and moment buffers,
@@ -50,9 +47,27 @@
 // positions).  The wrapper picks T from the batch: the largest T that
 // still gives every SM its CTAs, T = 1 for a small batch (a training batch
 // of 64 CTUs: 64 CTAs).
-// The backward keeps the gradient planes in two shared buffers of 2 S^2
-// and 4 S^2 floats and reads the saved activations from global memory.
+//
+// K14's first design (one CTA of 256 threads per CTU, every gradient one
+// thread's serial FMA chain over __ldg loads at strides no warp coalesces,
+// each CTA writing a partial copy of all 60,995 gradients that a second
+// launch summed over the batch) ran at 0.5% of its bound: a training batch
+// of 64 CTUs filled 64 of the 132 SMs.  This design runs every gradient as
+// tiled GEMMs over the whole batch, in one cooperative launch whose grid
+// (the device's occupancy, at most two CTAs an SM) walks each stage's
+// tiles, with a grid-wide barrier between dependent stages (dz3 -> dz2 ->
+// dz1 -> dz0).  A weight gradient is M = cout x N = cin x 9 (+ the bias as
+// a column of ones) over K = the batch's output positions, cut into slices
+// of a fixed number of CTUs whose partial sums a later stage adds in
+// order; an input gradient is M = the batch's input positions x N = cin
+// over K = cout x the taps (a stride-2 layer's positions go by parity
+// class, so no tap is idle), masked by the activation's sign.  Operands
+// are gathered (im2col on the fly) into shared K-chunks; each thread keeps
+// a register tile of up to 4 x 4 outputs, each one's FMA chain in K order.
+// No float atomics: every sum's order depends on B and the CTU size alone,
+// so the same inputs give the same bits on any grid.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,10 +96,6 @@ __host__ __device__ inline Layout layout_of(int D) {
   o.total = o.b4 + D;
   return o;
 }
-
-// shared floats for a CTU of S: buffers of 2 S^2 and 4 S^2, then the
-// logits or their gradient (at most 64 granules x 4 depths)
-__host__ __device__ inline int smem_floats(int S) { return 6 * S * S + 256; }
 
 // ---------------------------------------------------------------------------
 // K13: the forward as tiled implicit GEMMs
@@ -415,203 +426,440 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// the sum over positions of each output channel's gradient: the bias
-// gradient of one CTU
-__device__ void bias_grad(const float* dz, int cout, int hw, float* gb) {
-  for (int oc = threadIdx.x; oc < cout; oc += blockDim.x) {
+// ---------------------------------------------------------------------------
+// K14: the backward as tiled GEMMs over the batch, in one cooperative launch
+// ---------------------------------------------------------------------------
+
+// The backward's plan at CTU 2^LG for a batch of B: the layers' GEMM shapes,
+// the K-slices of the weight gradients and the scratch buffer's layout.
+// Layer l's weight gradient (with its bias as one more column of ones) is
+// the GEMM [cout] x [NK + 1] over K = the layer's output positions of the
+// batch, cut into slices of KC CTUs: each slice's partial sums go to
+// scratch, and a later stage sums the slices in order.  So every sum runs
+// in an order fixed by B and the CTU size alone.
+struct BwdPlan {
+  int cout[5], nk[5], kc[5], ns[5], pl[5];
+  long long qs, dl, dz3, dz2, dz1, dz0, part[5], total;
+};
+
+constexpr int kStages = 6;  // five grid-wide barriers
+
+__host__ __device__ inline BwdPlan bwd_plan(int lg, int B) {
+  const int S = 1 << lg, H1 = S / 2, H2 = S / 4, GG = (S / 8) * (S / 8);
+  const int D = lg - 2;
+  const int cout[5] = {16, 32, 64, 64, D};
+  const int nk[5] = {9, 16 * 9, 32 * 9, 65 * 9, 64};
+  const int kc[5] = {1, 2, 4, 4, 4};  // CTUs a K-slice
+  BwdPlan p;
+  long long at = 0;
+  p.qs = at;
+  at += B;
+  p.dl = at;
+  at += (long long)B * GG * D;
+  p.dz3 = at;
+  at += (long long)B * 64 * GG;
+  p.dz2 = at;
+  at += (long long)B * 64 * GG;
+  p.dz1 = at;
+  at += (long long)B * 32 * H2 * H2;
+  p.dz0 = at;
+  at += (long long)B * 16 * H1 * H1;
+  for (int l = 0; l < 5; ++l) {
+    p.cout[l] = cout[l];
+    p.nk[l] = nk[l];
+    p.kc[l] = kc[l];
+    p.ns[l] = (B + kc[l] - 1) / kc[l];
+    p.pl[l] = cout[l] * (nk[l] + 1);
+    p.part[l] = at;
+    at += (long long)p.ns[l] * p.pl[l];
+  }
+  p.total = at;
+  return p;
+}
+
+constexpr int kTK = 16;  // K-chunk of the GEMM tiles
+
+// One output tile of a GEMM C[m][n] = sum_k A[m][k] B[k][n], m < TM, n < TN
+// (tile-local), k < K.  fa(m, k) and fb(k, n) gather the operands (0 off
+// the tile's edge); K-chunks of kTK are staged in shared memory, rows
+// padded to TM + 1 and TN + 1 words, the next chunk's gathers in registers
+// while the current one is multiplied (chunks of 64 measured slower:
+// their gathers' registers spill).  A thread holds RM x RN outputs (rows
+// tm + i TM/RM, columns tn + j TN/RN) and runs each one's FMA chain over
+// k in order.  AM: A's gathers walk m fastest (else k); BN: B's walk n
+// fastest.  fo(m, n, v) stores.  Every thread of the CTA calls it.
+template <int TM, int TN, int RM, int RN, bool AM, bool BN, class FA,
+          class FB, class FO>
+__device__ void tile_gemm(float* sm, int K, FA fa, FB fb, FO fo) {
+  constexpr int TK = kTK;
+  constexpr int TMR = TM / RM, TNR = TN / RN;
+  static_assert(TMR * TNR == kThreads, "one register tile a thread");
+  constexpr int LA = TK * TM / kThreads, LB = TK * TN / kThreads;
+  static_assert(LA * kThreads == TK * TM && LB * kThreads == TK * TN,
+                "whole chunks");
+  float* As = sm;                    // [TK][TM + 1]
+  float* Bs = sm + TK * (TM + 1);    // [TK][TN + 1]
+  const int tid = threadIdx.x;
+  const int tm = tid % TMR, tn = tid / TMR;
+  float ra[LA], rb[LB];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < LA; ++i) {
+      const int e = tid + i * kThreads;
+      const int m = AM ? e % TM : e / TK, kk = AM ? e / TM : e % TK;
+      ra[i] = k0 + kk < K ? fa(m, k0 + kk) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < LB; ++i) {
+      const int e = tid + i * kThreads;
+      const int n = BN ? e % TN : e / TK, kk = BN ? e / TN : e % TK;
+      rb[i] = k0 + kk < K ? fb(k0 + kk, n) : 0.f;
+    }
+  };
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += TK) {
+#pragma unroll
+    for (int i = 0; i < LA; ++i) {
+      const int e = tid + i * kThreads;
+      const int m = AM ? e % TM : e / TK, kk = AM ? e / TM : e % TK;
+      As[kk * (TM + 1) + m] = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < LB; ++i) {
+      const int e = tid + i * kThreads;
+      const int n = BN ? e % TN : e / TK, kk = BN ? e / TN : e % TK;
+      Bs[kk * (TN + 1) + n] = rb[i];
+    }
+    __syncthreads();
+    if (k0 + TK < K) fetch(k0 + TK);
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      float a[RM], b[RN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = As[kk * (TM + 1) + tm + i * TMR];
+#pragma unroll
+      for (int j = 0; j < RN; ++j) b[j] = Bs[kk * (TN + 1) + tn + j * TNR];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j)
+          acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) fo(tm + i * TMR, tn + j * TNR, acc[i][j]);
+}
+
+struct BwdArgs {
+  const float* x;       // [B][S][S] normalised CTUs
+  const float* qv;      // [B] qps
+  const int* labels;    // [B][g][g]
+  const float* theta;   // flat parameters
+  const float* acts;    // [B][8 S^2] K13's saved post-ReLU activations
+  const float* logits;  // [B][g][g][D]
+  float* scr;           // bwd_plan's scratch
+  float* grad;          // [P]
+  int B;
+  float inv_n;          // 1 / (B g g)
+};
+
+// Layer l's weight-gradient items: slice s of its K, N-tile nt of TN
+// columns.  A[oc][k] = dz[b][oc][p] (k = (b - s KC) KPC + p), B[k][n] = the
+// input tap n of position p (n = ic * 9 + ky * 3 + kx; n == nk: 1), via
+// in_tap(b, p, n).  The partial sums go to the slice's row of part[l].
+// KPC: the layer's output positions a CTU, compile-time so that the
+// gathers divide by a constant.
+template <int TM, int TN, int RM, int RN, int KPC, class FI>
+__device__ void wgrad_item(float* sm, const BwdPlan& P, const BwdArgs& a,
+                           int l, const float* dz, int item, FI in_tap) {
+  const int nt = (P.nk[l] + 1 + TN - 1) / TN;
+  const int s = item / nt, n0 = (item - s * nt) * TN;
+  const int cout = P.cout[l], ncol = P.nk[l] + 1;
+  const int b0 = s * P.kc[l];
+  const int K = min(P.kc[l], a.B - b0) * KPC;
+  float* out = a.scr + P.part[l] + (long long)s * P.pl[l];
+  tile_gemm<TM, TN, RM, RN, false, false>(
+      sm, K,
+      [&](int m, int k) {
+        const int b = b0 + k / KPC, p = k % KPC;
+        return m < cout ? dz[((long long)b * cout + m) * KPC + p] : 0.f;
+      },
+      [&](int k, int n) {
+        const int b = b0 + k / KPC, p = k % KPC;
+        const int gn = n0 + n;
+        return gn < P.nk[l] ? in_tap(b, p, gn) : (gn == P.nk[l] ? 1.f : 0.f);
+      },
+      [&](int m, int n, float v) {
+        if (m < cout && n0 + n < ncol) out[m * ncol + n0 + n] = v;
+      });
+}
+
+// The input gradient of a stride-2 layer (Conv_2 or Conv_1) for one parity
+// class (py, px) of its input positions (iy, ix) = (2 ty + py, 2 tx + px):
+// the taps that reach them are ky in {0, 2} (py = 0) or {1}, and kx alike,
+// so K = cout x those taps, walked (oc, ky, kx), with no idle tap.
+// dzin[b][ic][iy][ix] = [ain > 0] sum W[oc][ic][ky][kx] dz[b][oc][oy][ox],
+// oy = ty - ky / 2.  Items: M-tiles of TM positions of the class.  HO:
+// the layer's output size, compile-time so that the gathers divide by a
+// constant.
+template <int TM, int TN, int RM, int RN, int HO>
+__device__ void igrad_s2_item(float* sm, const BwdArgs& a, int cls,
+                              int mtile, int cout, int cin,
+                              const float* dz, const float* w,
+                              const float* ain, long long ain_ctu,
+                              float* dzin) {
+  constexpr int ho = HO, hin = 2 * HO, pc = HO * HO;
+  const int py = cls >> 1, px = cls & 1;
+  const int lnx = px ? 0 : 1, lnt = (py ? 0 : 1) + lnx;
+  const int m0 = mtile * TM;
+  const int M = a.B * pc;
+  auto pos = [&](int m, int& b, int& ty, int& tx) {
+    b = m / pc;
+    const int q = m - b * pc;
+    ty = q / ho;
+    tx = q - ty * ho;
+  };
+  auto tap = [&](int t, int& ky, int& kx) {
+    ky = py ? 1 : 2 * (t >> lnx);
+    kx = px ? 1 : 2 * (t & ((1 << lnx) - 1));
+  };
+  tile_gemm<TM, TN, RM, RN, true, false>(
+      sm, cout << lnt,
+      [&](int m, int k) {
+        const int gm = m0 + m;
+        if (gm >= M) return 0.f;
+        int b, ty, tx, ky, kx;
+        pos(gm, b, ty, tx);
+        const int oc = k >> lnt;
+        tap(k & ((1 << lnt) - 1), ky, kx);
+        const int oy = ty - (ky >> 1), ox = tx - (kx >> 1);
+        return oy >= 0 && ox >= 0
+                   ? dz[((long long)b * cout + oc) * pc + oy * ho + ox]
+                   : 0.f;
+      },
+      [&](int k, int n) {
+        if (n >= cin) return 0.f;
+        int ky, kx;
+        tap(k & ((1 << lnt) - 1), ky, kx);
+        return w[((k >> lnt) * cin + n) * 9 + ky * 3 + kx];
+      },
+      [&](int m, int n, float v) {
+        const int gm = m0 + m;
+        if (gm >= M || n >= cin) return;
+        int b, ty, tx;
+        pos(gm, b, ty, tx);
+        const int o = (2 * ty + py) * hin + 2 * tx + px;
+        const float act = ain[b * ain_ctu + (long long)n * hin * hin + o];
+        dzin[((long long)b * cin + n) * hin * hin + o] = act > 0.f ? v : 0.f;
+      });
+}
+
+// grad[j] of layer l = the sum of its slices' partials, in slice order
+__device__ void reduce_layer(const BwdPlan& P, const BwdArgs& a,
+                             const Layout& L, int l) {
+  const int wo[5] = {L.w0, L.w1, L.w2, L.w3, L.w4};
+  const int bo[5] = {L.b0, L.b1, L.b2, L.b3, L.b4};
+  const int ncol = P.nk[l] + 1;
+  const float* part = a.scr + P.part[l];
+  for (int j = blockIdx.x * kThreads + threadIdx.x; j < P.pl[l];
+       j += gridDim.x * kThreads) {
     float acc = 0.f;
-    for (int p = 0; p < hw; ++p) acc = __fadd_rn(acc, dz[oc * hw + p]);
-    gb[oc] = acc;
+#pragma unroll 8
+    for (int s = 0; s < P.ns[l]; ++s)
+      acc = __fadd_rn(acc, part[(long long)s * P.pl[l] + j]);
+    const int oc = j / ncol, n = j - oc * ncol;
+    a.grad[n < P.nk[l] ? wo[l] + oc * P.nk[l] + n : bo[l] + oc] = acc;
   }
 }
 
-// The gradients of one stride-2 layer of one CTU: dz [cout][ho][ho] the
-// gradient of its pre-ReLU output (shared), in [cin][hin][hin] its input
-// (global: the previous layer's saved post-ReLU activations, or x).
-// Writes the weight and bias gradients to gw, gb and, when dzin is given,
-// the gradient of the previous layer's pre-ReLU output: the transposed
-// convolution of dz, zero where that layer's output was not positive.
-__device__ void conv_s2_grads(const float* dz, int cout, int ho,
-                              const float* __restrict__ in, int cin, int hin,
-                              const float* __restrict__ w, float* gw,
-                              float* gb, float* dzin) {
-  const int hw = ho * ho;
-  for (int o = threadIdx.x; o < cout * cin * 9; o += blockDim.x) {
-    const int oc = o / (cin * 9);
-    int r = o - oc * cin * 9;
-    const int ic = r / 9;
-    r -= ic * 9;
-    const int ky = r / 3, kx = r - ky * 3;
-    const float* src = in + ic * hin * hin;
-    const float* d = dz + oc * hw;
-    float acc = 0.f;
-    for (int oy = 0; oy < ho; ++oy) {
-      const int iy = 2 * oy + ky;
-      if (iy >= hin) continue;
-      for (int ox = 0; ox < ho; ++ox) {
-        const int ix = 2 * ox + kx;
-        if (ix >= hin) continue;
-        acc = __fmaf_rn(d[oy * ho + ox], __ldg(src + iy * hin + ix), acc);
-      }
-    }
-    gw[o] = acc;
-  }
-  bias_grad(dz, cout, hw, gb);
-  if (!dzin) return;
-  const int h2 = hin * hin;
-  for (int o = threadIdx.x; o < cin * h2; o += blockDim.x) {
-    const int ic = o / h2, p = o - ic * h2;
-    const int iy = p / hin, ix = p - iy * hin;
-    float acc = 0.f;
-    if (__ldg(in + o) > 0.f) {
-      for (int oc = 0; oc < cout; ++oc) {
-        const float* wk = w + (oc * cin + ic) * 9;
-        for (int ky = iy & 1; ky < 3; ky += 2) {
-          const int oy = (iy - ky) >> 1;
-          if (oy < 0 || oy >= ho) continue;
-          for (int kx = ix & 1; kx < 3; kx += 2) {
-            const int ox = (ix - kx) >> 1;
-            if (ox < 0 || ox >= ho) continue;
-            acc = __fmaf_rn(__ldg(wk + ky * 3 + kx),
-                            dz[oc * hw + oy * ho + ox], acc);
-          }
-        }
-      }
-    }
-    dzin[o] = acc;
-  }
-}
-
-// K14, first launch: one CTA per CTU writes its partial parameter
-// gradients, partial [B][P].
-__global__ void __launch_bounds__(kThreads)
-    cnn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ qv,
-                   const int* __restrict__ labels,
-                   const float* __restrict__ theta,
-                   const float* __restrict__ acts,
-                   const float* __restrict__ logits,
-                   float* __restrict__ partial, int lg, float inv_n) {
-  extern __shared__ float smem[];
-  const int S = 1 << lg, S2 = S * S, g = S >> 3, gg = g * g, D = lg - 2;
-  const int b = blockIdx.x;
+// K14.  Stages, a grid-wide barrier between each: A the logits' gradient
+// (softmax - onehot) / (B g g) and dz3 = [a3 > 0] W4^T dl; B Conv_4's and
+// Conv_3's weight-gradient slices and dz2 (Conv_3's input gradient, over
+// a2 > 0); C the sums of B's slices, Conv_2's slices and dz1; D Conv_2's
+// sums, Conv_1's slices and dz0; E Conv_1's sums and Conv_0's slices; F
+// Conv_0's sums.  Each stage's items (GEMM tiles) go round the grid.
+template <int LG>
+__global__ void __launch_bounds__(kThreads, 2) cnn_bwd_kernel(BwdArgs a) {
+  namespace cg = cooperative_groups;
+  constexpr int S = 1 << LG, S2 = S * S, H1 = S / 2, H2 = S / 4, G = S / 8;
+  constexpr int GG = G * G, D = LG - 2;
+  constexpr long long ACT = 8LL * S2;  // a CTU's saved activations
+  __shared__ float sm[kTK * (64 + 1) * 2];
+  cg::grid_group grid = cg::this_grid();
+  const BwdPlan P = bwd_plan(LG, a.B);
   const Layout L = layout_of(D);
-  float* bufA = smem;
-  float* bufB = smem + 2 * S2;
-  float* dl = smem + 6 * S2;
-  const float* a0 = acts + (size_t)b * 8 * S2;  // [16][S/2][S/2]
-  const float* a1 = a0 + 4 * S2;                // [32][S/4][S/4]
-  const float* a2 = a0 + 6 * S2;                // [64][g][g]
-  const float* a3 = a0 + 7 * S2;                // [64][g][g]
-  float* pg = partial + (size_t)b * L.total;
-  const float q = __fdiv_rn(qv[b], 51.f);
+  const int B = a.B;
+  float* dl = a.scr + P.dl;
+  float* dz3 = a.scr + P.dz3;
+  float* dz2 = a.scr + P.dz2;
+  float* dz1 = a.scr + P.dz1;
+  float* dz0 = a.scr + P.dz0;
+  float* qs = a.scr + P.qs;
+  const float* th = a.theta;
+  const int gtid = blockIdx.x * kThreads + threadIdx.x;
+  const int gthreads = gridDim.x * kThreads;
 
-  // the logits' gradient: (softmax - onehot) / (B g g)
-  for (int p = threadIdx.x; p < gg; p += blockDim.x) {
-    const float* l = logits + ((size_t)b * gg + p) * D;
-    float m = l[0];
-    for (int d = 1; d < D; ++d) m = fmaxf(m, l[d]);
-    float e[4], s = 0.f;
+  // A: one thread per (b, channel, granule), the granule fastest; the
+  // channel-0 thread of each granule writes its logits' gradient
+  for (int e = gtid; e < B * 64 * GG; e += gthreads) {
+    const int b = e / (64 * GG), ch = (e / GG) & 63, p = e % GG;
+    if (ch == 0 && p == 0) qs[b] = __fdiv_rn(a.qv[b], 51.f);
+    const float* lg = a.logits + ((long long)b * GG + p) * D;
+    float m = lg[0];
+#pragma unroll
+    for (int d = 1; d < D; ++d) m = fmaxf(m, lg[d]);
+    float ex[D], g[D], s = 0.f;
+#pragma unroll
     for (int d = 0; d < D; ++d) {
-      e[d] = expf(__fsub_rn(l[d], m));
-      s = __fadd_rn(s, e[d]);
+      ex[d] = expf(__fsub_rn(lg[d], m));
+      s = __fadd_rn(s, ex[d]);
     }
-    const int t = labels[(size_t)b * gg + p];
+    const int t = a.labels[(long long)b * GG + p];
+#pragma unroll
     for (int d = 0; d < D; ++d)
-      dl[p * D + d] =
-          __fmul_rn(__fsub_rn(__fdiv_rn(e[d], s), d == t ? 1.f : 0.f), inv_n);
-  }
-  __syncthreads();
-
-  // Conv_4 (1x1, 64 -> D): its gradients, and dz3 = [a3 > 0] W4^T dl
-  for (int o = threadIdx.x; o < D * 64; o += blockDim.x) {
-    const int d = o >> 6, ch = o & 63;
+      g[d] = __fmul_rn(__fsub_rn(__fdiv_rn(ex[d], s), d == t ? 1.f : 0.f),
+                       a.inv_n);
+    if (ch == 0)
+#pragma unroll
+      for (int d = 0; d < D; ++d) dl[((long long)b * GG + p) * D + d] = g[d];
     float acc = 0.f;
-    for (int p = 0; p < gg; ++p)
-      acc = __fmaf_rn(dl[p * D + d], __ldg(a3 + ch * gg + p), acc);
-    pg[L.w4 + o] = acc;
-  }
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.f;
-    for (int p = 0; p < gg; ++p) acc = __fadd_rn(acc, dl[p * D + d]);
-    pg[L.b4 + d] = acc;
-  }
-  for (int o = threadIdx.x; o < 64 * gg; o += blockDim.x) {
-    const int ch = o / gg, p = o - ch * gg;
-    float acc = 0.f;
-    if (__ldg(a3 + o) > 0.f)
+    if (a.acts[b * ACT + 7 * S2 + ch * GG + p] > 0.f)
+#pragma unroll
       for (int d = 0; d < D; ++d)
-        acc = __fmaf_rn(__ldg(theta + L.w4 + d * 64 + ch), dl[p * D + d],
-                        acc);
-    bufA[o] = acc;
+        acc = __fmaf_rn(th[L.w4 + d * 64 + ch], g[d], acc);
+    dz3[e] = acc;
   }
-  __syncthreads();
+  grid.sync();
 
-  // Conv_3 (3x3 s1, 65 -> 64): its gradients over a2 and the qp plane,
-  // and dz2 = [a2 > 0] (the transposed convolution of dz3)
-  for (int o = threadIdx.x; o < 64 * 65 * 9; o += blockDim.x) {
-    const int oc = o / 585;
-    int r = o - oc * 585;
-    const int ic = r / 9;
-    r -= ic * 9;
-    const int ky = r / 3, kx = r - ky * 3;
-    float acc = 0.f;
-    for (int oy = 0; oy < g; ++oy) {
-      const int iy = oy + ky - 1;
-      if (iy < 0 || iy >= g) continue;
-      for (int ox = 0; ox < g; ++ox) {
-        const int ix = ox + kx - 1;
-        if (ix < 0 || ix >= g) continue;
-        const float v = ic < 64 ? __ldg(a2 + ic * gg + iy * g + ix) : q;
-        acc = __fmaf_rn(bufA[oc * gg + oy * g + ox], v, acc);
-      }
-    }
-    pg[L.w3 + o] = acc;
-  }
-  bias_grad(bufA, 64, gg, pg + L.b3);
-  for (int o = threadIdx.x; o < 64 * gg; o += blockDim.x) {
-    const int ic = o / gg, p = o - ic * gg;
-    const int iy = p / g, ix = p - iy * g;
-    float acc = 0.f;
-    if (__ldg(a2 + o) > 0.f) {
-      for (int oc = 0; oc < 64; ++oc) {
-        const float* wk = theta + L.w3 + (oc * 65 + ic) * 9;
-        for (int ky = 0; ky < 3; ++ky) {
-          const int oy = iy - ky + 1;
-          if (oy < 0 || oy >= g) continue;
-          for (int kx = 0; kx < 3; ++kx) {
-            const int ox = ix - kx + 1;
-            if (ox < 0 || ox >= g) continue;
-            acc = __fmaf_rn(__ldg(wk + ky * 3 + kx),
-                            bufA[oc * gg + oy * g + ox], acc);
+  // B: dz2 (M-tiles of 32 positions x 2 N-tiles of 32 channels), Conv_3's
+  // slices (10 N-tiles of 64), Conv_4's slices (one thread an output)
+  {
+    const int n_dz2 = (B * GG + 31) / 32 * 2;
+    const int n_w3 = P.ns[3] * ((P.nk[3] + 64) / 64);
+    for (int it = blockIdx.x; it < n_dz2 + n_w3 + P.ns[4];
+         it += gridDim.x) {
+      if (it < n_dz2) {
+        const int m0 = (it >> 1) * 32, n0 = (it & 1) * 32;
+        tile_gemm<32, 32, 2, 2, true, false>(
+            sm, 64 * 9,
+            [&](int m, int k) {
+              const int gm = m0 + m;
+              if (gm >= B * GG) return 0.f;
+              const int b = gm / GG, p = gm - b * GG;
+              const int oc = k / 9, t = k - oc * 9;
+              const int oy = p / G - t / 3 + 1, ox = p % G - t % 3 + 1;
+              return oy >= 0 && oy < G && ox >= 0 && ox < G
+                         ? dz3[((long long)b * 64 + oc) * GG + oy * G + ox]
+                         : 0.f;
+            },
+            [&](int k, int n) {
+              const int oc = k / 9, t = k - oc * 9;
+              return th[L.w3 + (oc * 65 + n0 + n) * 9 + t];
+            },
+            [&](int m, int n, float v) {
+              const int gm = m0 + m;
+              if (gm >= B * GG) return;
+              const int b = gm / GG, p = gm - b * GG, ic = n0 + n;
+              const float act = a.acts[b * ACT + 6 * S2 + ic * GG + p];
+              dz2[((long long)b * 64 + ic) * GG + p] = act > 0.f ? v : 0.f;
+            });
+      } else if (it < n_dz2 + n_w3) {
+        wgrad_item<64, 64, 4, 4, GG>(
+            sm, P, a, 3, dz3, it - n_dz2, [&](int b, int p, int n) {
+              const int ic = n / 9, t = n - ic * 9;
+              const int iy = p / G + t / 3 - 1, ix = p % G + t % 3 - 1;
+              if (iy < 0 || iy >= G || ix < 0 || ix >= G) return 0.f;
+              return ic < 64 ? a.acts[b * ACT + 6 * S2 + ic * GG + iy * G + ix]
+                             : qs[b];
+            });
+      } else {
+        // Conv_4 (1x1): [D] x [65] over a slice's granules
+        const int s = it - n_dz2 - n_w3, b0 = s * P.kc[4];
+        const int K = min(P.kc[4], B - b0) * GG;
+        for (int o = threadIdx.x; o < P.pl[4]; o += kThreads) {
+          const int d = o / 65, n = o - d * 65;
+          float acc = 0.f;
+#pragma unroll 8
+          for (int k = 0; k < K; ++k) {
+            const int b = b0 + k / GG, p = k % GG;
+            const float v =
+                n < 64 ? a.acts[b * ACT + 7 * S2 + n * GG + p] : 1.f;
+            acc = __fmaf_rn(dl[((long long)b * GG + p) * D + d], v, acc);
           }
+          a.scr[P.part[4] + (long long)s * P.pl[4] + o] = acc;
         }
       }
     }
-    bufB[o] = acc;
   }
-  __syncthreads();
+  grid.sync();
 
-  // Conv_2 (32 -> 64 over a1), Conv_1 (16 -> 32 over a0), Conv_0 (1 -> 16
-  // over x, no input gradient)
-  conv_s2_grads(bufB, 64, g, a1, 32, S >> 2, theta + L.w2, pg + L.w2,
-                pg + L.b2, bufA);
-  __syncthreads();
-  conv_s2_grads(bufA, 32, S >> 2, a0, 16, S >> 1, theta + L.w1, pg + L.w1,
-                pg + L.b1, bufB);
-  __syncthreads();
-  conv_s2_grads(bufB, 16, S >> 1, x + (size_t)b * S2, 1, S, theta + L.w0,
-                pg + L.w0, pg + L.b0, nullptr);
-}
+  // C: Conv_4's and Conv_3's sums; dz1 (4 parity classes x M-tiles of 32),
+  // Conv_2's slices (5 N-tiles of 64)
+  reduce_layer(P, a, L, 4);
+  reduce_layer(P, a, L, 3);
+  {
+    const int mt = (B * GG + 31) / 32;
+    const int n_w2 = P.ns[2] * ((P.nk[2] + 64) / 64);
+    for (int it = blockIdx.x; it < 4 * mt + n_w2; it += gridDim.x) {
+      if (it < 4 * mt)
+        igrad_s2_item<32, 32, 2, 2, G>(sm, a, it / mt, it % mt, 64, 32, dz2,
+                                       th + L.w2, a.acts + 4 * S2, ACT, dz1);
+      else
+        wgrad_item<64, 64, 4, 4, GG>(
+            sm, P, a, 2, dz2, it - 4 * mt, [&](int b, int p, int n) {
+              const int ic = n / 9, t = n - ic * 9;
+              const int iy = 2 * (p / G) + t / 3, ix = 2 * (p % G) + t % 3;
+              return iy < H2 && ix < H2
+                         ? a.acts[b * ACT + 4 * S2 + (ic * H2 + iy) * H2 + ix]
+                         : 0.f;
+            });
+    }
+  }
+  grid.sync();
 
-// K14, second launch: grad[j] = sum over the batch of partial[b][j], in
-// CTU order
-__global__ void grad_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ grad, int B, int P) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= P) return;
-  float acc = 0.f;
-  for (int b = 0; b < B; ++b) acc = __fadd_rn(acc, partial[(size_t)b * P + j]);
-  grad[j] = acc;
+  // D: Conv_2's sums; dz0 (4 classes x M-tiles of 64), Conv_1's slices
+  // (3 N-tiles of 64)
+  reduce_layer(P, a, L, 2);
+  {
+    const int mt = (B * H2 * H2 + 63) / 64;
+    const int n_w1 = P.ns[1] * ((P.nk[1] + 64) / 64);
+    for (int it = blockIdx.x; it < 4 * mt + n_w1; it += gridDim.x) {
+      if (it < 4 * mt)
+        igrad_s2_item<64, 16, 4, 1, H2>(sm, a, it / mt, it % mt, 32, 16,
+                                        dz1, th + L.w1, a.acts, ACT, dz0);
+      else
+        wgrad_item<32, 64, 2, 4, H2 * H2>(
+            sm, P, a, 1, dz1, it - 4 * mt, [&](int b, int p, int n) {
+              const int ic = n / 9, t = n - ic * 9;
+              const int iy = 2 * (p / H2) + t / 3, ix = 2 * (p % H2) + t % 3;
+              return iy < H1 && ix < H1
+                         ? a.acts[b * ACT + (ic * H1 + iy) * H1 + ix]
+                         : 0.f;
+            });
+    }
+  }
+  grid.sync();
+
+  // E: Conv_1's sums; Conv_0's slices (one CTU each)
+  reduce_layer(P, a, L, 1);
+  for (int it = blockIdx.x; it < P.ns[0]; it += gridDim.x)
+    wgrad_item<16, 16, 1, 1, H1 * H1>(sm, P, a, 0, dz0, it,
+                                      [&](int b, int p, int n) {
+      const int iy = 2 * (p / H1) + n / 3, ix = 2 * (p % H1) + n % 3;
+      return iy < S && ix < S ? a.x[(long long)b * S2 + iy * S + ix] : 0.f;
+    });
+  grid.sync();
+
+  // F: Conv_0's sums
+  reduce_layer(P, a, L, 0);
 }
 
 // K15: optax.adam's update at one count, in place
@@ -653,6 +901,21 @@ int launch_fwd(const void* plane, int dtype, const float* qv, float qp,
   return (int)cudaGetLastError();
 }
 
+// The backward's grid on the current device: its occupancy (at most two
+// CTAs an SM) times its SMs, read on every call (a mesh's ranks may sit on
+// different cards).  0 if the kernel cannot run there.
+template <int LG>
+int bwd_grid() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, cnn_bwd_kernel<LG>, kThreads, 0) != cudaSuccess)
+    return 0;
+  return (per_sm < 2 ? per_sm : 2) * sms;
+}
+
 }  // namespace
 
 // plane dtype: 0 uint8, 1 int32 (luma, normalised here), 2 f32 (training
@@ -678,26 +941,33 @@ extern "C" int fhv_cnn_fwd(const void* plane, int dtype, const float* qv,
   return (int)cudaErrorInvalidValue;
 }
 
+// K14's plan for a batch of B at CTU 2^log2_ctu: out[0] the scratch floats
+// the caller allocates, out[1] the grid on the current device, out[2] the
+// stages (one grid-wide barrier between each)
+extern "C" int fhv_cnn_bwd_plan(int B, int log2_ctu, long long* out) {
+  if (B <= 0 || (log2_ctu != 5 && log2_ctu != 6))
+    return (int)cudaErrorInvalidValue;
+  out[0] = bwd_plan(log2_ctu, B).total;
+  out[1] = log2_ctu == 5 ? bwd_grid<5>() : bwd_grid<6>();
+  out[2] = kStages;
+  return 0;
+}
+
 extern "C" int fhv_cnn_bwd(const float* x, const float* qv, const int* labels,
                            const float* theta, const float* acts,
-                           const float* logits, float* partial, float* grad,
+                           const float* logits, float* scratch, float* grad,
                            int B, int log2_ctu, float inv_n,
                            cudaStream_t stream) {
   if (B <= 0) return 0;
-  // the opt-in above 48 KB is per device: set on every launch
-  cudaError_t e = cudaFuncSetAttribute(
-      cnn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_floats(64) * (int)sizeof(float));
-  if (e != cudaSuccess) return (int)e;
-  cnn_bwd_kernel<<<B, kThreads, smem_floats(1 << log2_ctu) * sizeof(float),
-                   stream>>>(x, qv, labels, theta, acts, logits, partial,
-                             log2_ctu, inv_n);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int P = layout_of(log2_ctu - 2).total;
-  grad_reduce_kernel<<<(P + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partial, grad, B, P);
-  return (int)cudaGetLastError();
+  if (log2_ctu != 5 && log2_ctu != 6) return (int)cudaErrorInvalidValue;
+  BwdArgs a{x, qv, labels, theta, acts, logits, scratch, grad, B, inv_n};
+  void* args[] = {&a};
+  const int grid = log2_ctu == 5 ? bwd_grid<5>() : bwd_grid<6>();
+  if (grid <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const void* kernel = log2_ctu == 5 ? (const void*)cnn_bwd_kernel<5>
+                                     : (const void*)cnn_bwd_kernel<6>;
+  return (int)cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, 0,
+                                          stream);
 }
 
 extern "C" int fhv_adam(float* theta, const float* grad, float* m, float* v,

@@ -11,11 +11,15 @@
 // Bound on the H100: device-memory reads, 12 * n^2 bytes per block, with a
 // handful of integer ops per sample.  Design: one warp per block; lanes
 // stride over the samples and the partial sums meet in warp shuffles, so
-// no shared memory and no atomics.  The model's f32 arithmetic uses
-// round-to-nearest intrinsics in the reference's order (no contraction
-// into fused multiply-adds).
+// no shared memory and no atomics.  The lanes' sums, their reduction and
+// the model are rate_common.cuh's, which the costed form of K3 shares.
+// No route launches K4 since K3's costed form (`tq_cost`) took its place
+// in the search; it stays as the tested counterpart of sse and
+// level_rate_proxy.
 
 #include <cuda_runtime.h>
+
+#include "rate_common.cuh"
 
 namespace {
 
@@ -34,45 +38,14 @@ __global__ void sse_rate_kernel(const int* __restrict__ res,
   if (warp >= B) return;
   const int nn = n * n;
   const size_t base = (size_t)warp * nn;
-  long long sse = 0;
-  int ones = 0, twos = 0, esc = 0, last = -1;
-  float esclog = 0.f;
+  RateLane r;
   for (int i = lane; i < nn; i += 32) {
     const long long d = (long long)res[base + i] - rq[base + i];
-    sse += d * d;
-    const int a = abs(lv[base + i]);
-    ones += a == 1;
-    twos += a == 2;
-    if (a > 2) {
-      ++esc;
-      esclog = __fadd_rn(esclog, log2f(__fadd_rn(1.f, (float)a)));
-    }
-    if (a > 0) last = max(last, (i >> lg) + (i & (n - 1)));
+    r.sse += d * d;
+    rate_level(r, lv[base + i], i, lg, n);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sse += __shfl_down_sync(0xffffffffu, sse, off);
-    ones += __shfl_down_sync(0xffffffffu, ones, off);
-    twos += __shfl_down_sync(0xffffffffu, twos, off);
-    esc += __shfl_down_sync(0xffffffffu, esc, off);
-    esclog = __fadd_rn(esclog, __shfl_down_sync(0xffffffffu, esclog, off));
-    last = max(last, __shfl_down_sync(0xffffffffu, last, off));
-  }
-  if (lane != 0) return;
-  dist[warp] = (float)sse;
-  if (last < 0) {
-    rate[warp] = 0.f;
-    return;
-  }
-  const float fo = (float)ones, ft = (float)twos, fe = (float)esc;
-  float bits = __fmul_rn(w0, fo);
-  bits = __fadd_rn(bits, __fmul_rn(w1, ft));
-  bits = __fadd_rn(bits, __fmul_rn(w2, fe));
-  bits = __fadd_rn(bits, __fmul_rn(w3, esclog));
-  bits = __fadd_rn(bits, __fmul_rn(w4, log2f(__fadd_rn(1.f, (float)last))));
-  bits = __fadd_rn(bits, w5);
-  const float floor_bits = __fadd_rn(__fadd_rn(__fadd_rn(2.f, fo), ft), fe);
-  rate[warp] = fmaxf(bits, floor_bits);
+  const float w[6] = {w0, w1, w2, w3, w4, w5};
+  rate_finish(r, lane, w, dist + warp, rate + warp);
 }
 
 }  // namespace

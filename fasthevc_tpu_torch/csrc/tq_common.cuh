@@ -1,7 +1,7 @@
-// The exact integer T -> Q -> IQ -> IT stages, one output sample each,
-// shared by K3 (tq_roundtrip.cu, the search) and K5 (commit.cu, the
-// commit).  Matrices and tiles are n x n int32, row-major, T[k][j] the
-// core transform (DCT, or DST for 4x4 luma).
+// The exact integer T -> Q -> IQ -> IT stages, one output sample each, of
+// K5 (commit.cu, the commit); K3 (tq_roundtrip.cu, the search) shares the
+// quantiser and dequantiser.  Matrices and tiles are n x n int32,
+// row-major, T[k][j] the core transform (DCT, or DST for 4x4 luma).
 #pragma once
 
 // forward stage 1: tmp[k][m] = sum_j T[k][j] x[j][m], rounded >> shift1

@@ -22,8 +22,8 @@ The parameters travel as one flat f32 buffer `theta`: Conv_0 kernel
     cross-entropy of a batch of CTUs, a `torch.autograd.Function` whose
     forward is K13 writing the logits and activations, and whose backward
     is K14 (softmax - onehot, then each layer's input and weight
-    gradients, per-CTU partial sums reduced over the batch in a second
-    pass); `cnn_loss_plain` is autograd through the conv2d chain.
+    gradients as tiled GEMMs over the batch, one cooperative launch);
+    `cnn_loss_plain` is autograd through the conv2d chain.
   * `adam_update` (K15): optax.adam's step, in place over the flat
     parameter, gradient and moment buffers; `adam_update_plain` is
     optax's formula in torch ops.
@@ -35,6 +35,7 @@ tensor cores: TF32 would flip near-tied logits.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -269,12 +270,31 @@ def cnn_train_forward(x: torch.Tensor, q: torch.Tensor,
     return logits, acts
 
 
+def cnn_backward_plan(bsz: int, log2_ctu: int) -> tuple:
+    """K14's (scratch floats, grid on the current device, stages) for a
+    batch of bsz CTUs of 2^log2_ctu (csrc/cnn.cu `bwd_plan`)."""
+    out = (ctypes.c_longlong * 3)()
+    _build.check(_build.lib().fhv_cnn_bwd_plan(bsz, log2_ctu, out),
+                 "cnn_backward")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_scratch(bsz: int, log2_ctu: int) -> int:
+    """K14's scratch floats: a function of the batch and the CTU size only
+    (the grid, which belongs to the device, is not kept)."""
+    return cnn_backward_plan(bsz, log2_ctu)[0]
+
+
 def cnn_backward(x, q, labels, theta, acts, logits) -> torch.Tensor:
     """K14: the gradient of the mean softmax cross-entropy over the B x g x
     g granules with respect to the flat parameters, from K13's saved
-    logits and activations: [P] f32."""
+    logits and activations: [P] f32, in one cooperative launch whose sums
+    run in an order fixed by B and the CTU size (the same bits on any
+    grid)."""
     bsz, s, _ = x.shape
-    d = _depths(theta, s.bit_length() - 1)
+    lg = s.bit_length() - 1
+    d = _depths(theta, lg)
     labels = labels.to(torch.int32).contiguous()
     x, q, theta, acts, logits = (t.detach().to(torch.float32).contiguous()
                                  for t in (x, q, theta, acts, logits))
@@ -283,15 +303,14 @@ def cnn_backward(x, q, labels, theta, acts, logits) -> torch.Tensor:
     if labels.shape != (bsz, g, g) or logits.shape != (bsz, g, g, d):
         raise ValueError("cnn_backward: labels [B, S/8, S/8], logits "
                          "[B, S/8, S/8, D]")
-    partial = torch.empty((bsz, theta.numel()), dtype=torch.float32,
+    scratch = torch.empty(_bwd_scratch(bsz, lg), dtype=torch.float32,
                           device=x.device)
     grad = torch.empty_like(theta)
     inv_n = float(np.float32(1.0) / np.float32(bsz * g * g))
     rc = _build.lib().fhv_cnn_bwd(
         x.data_ptr(), q.data_ptr(), labels.data_ptr(), theta.data_ptr(),
-        acts.data_ptr(), logits.data_ptr(), partial.data_ptr(),
-        grad.data_ptr(), bsz, s.bit_length() - 1, inv_n,
-        _build.stream_handle(x))
+        acts.data_ptr(), logits.data_ptr(), scratch.data_ptr(),
+        grad.data_ptr(), bsz, lg, inv_n, _build.stream_handle(x))
     _build.launched("cnn_backward")
     _build.check(rc, "cnn_backward")
     return grad

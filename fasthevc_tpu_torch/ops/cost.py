@@ -2,7 +2,9 @@
 
 Counterpart of fasthevc_tpu/ops/cost.py.  `satd` goes through kernel K2
 (csrc/satd.cu) and `sse_rate` through K4 (csrc/sse_rate.cu) for CUDA
-tensors; `satd_plain` and `sse_rate_plain` are their PyTorch twins.
+tensors; `satd_plain` and `sse_rate_plain` are their PyTorch twins.  The
+search runs K4's arithmetic inside K3's costed form (`transform.tq_cost`)
+and no longer launches K4.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ _RATE_W = {
 }
 
 
-def _rate_weights(n: int) -> tuple:
+def rate_weights(n: int) -> tuple:
+    """The rate model's six weights for an n x n block."""
     lg = n.bit_length() - 1
     return _RATE_W.get(lg, _RATE_W[5])
 
@@ -108,7 +111,7 @@ def sse_rate_plain(res: torch.Tensor, rq: torch.Tensor,
     (dist [B] f32, rate [B] f32).  dist is the int64 SSE rounded once to
     f32; rate is the level-rate proxy of fasthevc_tpu/ops/cost.py."""
     n = levels.shape[-1]
-    w = _rate_weights(n)
+    w = rate_weights(n)
     d = res.to(torch.int64) - rq.to(torch.int64)
     dist = (d * d).sum(dim=(-2, -1)).to(torch.float32)
     a = levels.abs().to(torch.float32)
@@ -144,7 +147,7 @@ def sse_rate(res: torch.Tensor, rq: torch.Tensor, levels: torch.Tensor):
     rate = torch.empty(b, dtype=torch.float32, device=res.device)
     rc = _build.lib().fhv_sse_rate(
         res.data_ptr(), rq.data_ptr(), levels.data_ptr(), dist.data_ptr(),
-        rate.data_ptr(), b, n, n.bit_length() - 1, *_rate_weights(n),
+        rate.data_ptr(), b, n, n.bit_length() - 1, *rate_weights(n),
         _build.stream_handle(res))
     _build.launched("sse_rate")
     _build.check(rc, "sse_rate")

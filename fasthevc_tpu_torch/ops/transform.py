@@ -7,8 +7,10 @@ Counterpart of fasthevc_tpu/ops/transform.py.  `fwd_transform`,
 functions of the same names; on the card the commit runs them inside
 kernel K5 (csrc/commit.cu).  `tq_roundtrip` goes through kernel K3
 (csrc/tq_roundtrip.cu) for CUDA tensors: the exact integer form of the JAX
-search's f32 stand-in `tq_roundtrip_fast`.  K3 and K5 share one device
-implementation of these stages (csrc/tq_common.cuh).
+search's f32 stand-in `tq_roundtrip_fast`.  `tq_cost`, K3's costed form,
+follows it with K4's SSE and rate proxy inside the kernel: the search's
+unit `tq_roundtrip_fast` + `sse` + `level_rate_proxy`.  K3 and K5 share
+the quantiser and dequantiser (csrc/tq_common.cuh).
 
 The matrix stages run in float64, which is exact here (every product and
 sum stays below 2^31); shifts, clips and the quantisers are int64.
@@ -31,17 +33,18 @@ from ..spec.tables import (
 )
 
 from .. import _build
+from . import cost
 
 _DEVICE_MATS: dict = {}
 
 
-def _mat(log2_size: int, use_dst: bool, device, dtype) -> torch.Tensor:
-    key = (log2_size, use_dst, str(device), dtype)
+def _mat(log2_size: int, use_dst: bool, device) -> torch.Tensor:
+    """The core transform matrix in float64 on `device` (cached)."""
+    key = (log2_size, use_dst, str(device))
     if key not in _DEVICE_MATS:
         m = DST4 if use_dst else DCT_MATRICES[1 << log2_size]
         _DEVICE_MATS[key] = torch.from_numpy(
-            np.ascontiguousarray(m, dtype=np.int64)).to(device=device,
-                                                        dtype=dtype)
+            np.ascontiguousarray(m, dtype=np.float64)).to(device)
     return _DEVICE_MATS[key]
 
 
@@ -57,7 +60,7 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def fwd_transform(res: torch.Tensor, log2_size: int, bit_depth: int = 8,
                   use_dst: bool = False) -> torch.Tensor:
     """Forward core transform of [..., N, N] residuals (int64 out)."""
-    t = _mat(log2_size, use_dst, res.device, torch.float64)
+    t = _mat(log2_size, use_dst, res.device)
     shift1 = log2_size + bit_depth - 9
     tmp = _mm(t, res)                                   # T @ X
     if shift1 > 0:
@@ -68,7 +71,7 @@ def fwd_transform(res: torch.Tensor, log2_size: int, bit_depth: int = 8,
 def inv_transform(coeffs: torch.Tensor, log2_size: int, bit_depth: int = 8,
                   use_dst: bool = False) -> torch.Tensor:
     """Normative inverse transform (spec 8.6.4) of [..., N, N] (int64)."""
-    t = _mat(log2_size, use_dst, coeffs.device, torch.float64)
+    t = _mat(log2_size, use_dst, coeffs.device)
     e = _round_shift(_mm(t.T, coeffs), 7).clamp(-32768, 32767)  # T^T @ D
     return _round_shift(_mm(e, t), 20 - bit_depth).clamp(-32768, 32767)
 
@@ -113,6 +116,19 @@ def tq_roundtrip_plain(res: torch.Tensor, qp: int, log2_size: int,
     return levels.to(torch.int32), r.to(torch.int32)
 
 
+def _tq_input(name: str, res: torch.Tensor, log2_size: int) -> torch.Tensor:
+    """res as K3 takes it: contiguous int32 [B, N, N] on the card, 16-byte
+    aligned (its int4 loads)."""
+    n = 1 << log2_size
+    res = res.to(torch.int32).contiguous()
+    _build.require_cuda(name, res, dtype=torch.int32)
+    if res.shape[1:] != (n, n) or not 2 <= log2_size <= 5:
+        raise ValueError(f"{name}: res must be [B, N, N], N in 4..32")
+    if res.data_ptr() % 16:
+        res = res.clone()
+    return res
+
+
 def tq_roundtrip(res: torch.Tensor, qp: int, log2_size: int,
                  bit_depth: int = 8, is_intra: bool = True):
     """Forward DCT, HM dead-zone quantisation (offset 171/512 intra,
@@ -121,19 +137,41 @@ def tq_roundtrip(res: torch.Tensor, qp: int, log2_size: int,
     int32."""
     if not res.is_cuda:
         return tq_roundtrip_plain(res, qp, log2_size, bit_depth, is_intra)
-    n = 1 << log2_size
-    res = res.to(torch.int32).contiguous()
-    _build.require_cuda("tq_roundtrip", res, dtype=torch.int32)
-    if res.shape[1:] != (n, n):
-        raise ValueError("tq_roundtrip: res must be [B, N, N]")
-    b = res.shape[0]
+    res = _tq_input("tq_roundtrip", res, log2_size)
     levels = torch.empty_like(res)
     recon = torch.empty_like(res)
-    mat = _mat(log2_size, False, res.device, torch.int32)
     rc = _build.lib().fhv_tq_roundtrip(
-        res.data_ptr(), mat.data_ptr(), levels.data_ptr(), recon.data_ptr(),
-        b, n, log2_size, int(qp), bit_depth, 171 if is_intra else 85,
+        res.data_ptr(), levels.data_ptr(), recon.data_ptr(), res.shape[0],
+        log2_size, int(qp), bit_depth, 171 if is_intra else 85,
         _build.stream_handle(res))
     _build.launched("tq_roundtrip")
     _build.check(rc, "tq_roundtrip")
     return levels, recon
+
+
+def tq_cost_plain(res: torch.Tensor, qp: int, log2_size: int,
+                  bit_depth: int = 8, is_intra: bool = True):
+    """The twin of `tq_cost`: `sse_rate_plain` over `tq_roundtrip_plain`."""
+    levels, rq = tq_roundtrip_plain(res, qp, log2_size, bit_depth, is_intra)
+    return cost.sse_rate_plain(res, rq, levels)
+
+
+def tq_cost(res: torch.Tensor, qp: int, log2_size: int, bit_depth: int = 8,
+            is_intra: bool = True):
+    """The search's RD terms of res [B, N, N] through `tq_roundtrip`:
+    (dist [B], rate [B]) f32, as `cost.sse_rate` computes them over its
+    levels and recon, which here never leave the kernel (K3's costed
+    form)."""
+    if not res.is_cuda:
+        return tq_cost_plain(res, qp, log2_size, bit_depth, is_intra)
+    res = _tq_input("tq_cost", res, log2_size)
+    b = res.shape[0]
+    dist = torch.empty(b, dtype=torch.float32, device=res.device)
+    rate = torch.empty(b, dtype=torch.float32, device=res.device)
+    rc = _build.lib().fhv_tq_cost(
+        res.data_ptr(), dist.data_ptr(), rate.data_ptr(), b, log2_size,
+        int(qp), bit_depth, 171 if is_intra else 85,
+        *cost.rate_weights(1 << log2_size), _build.stream_handle(res))
+    _build.launched("tq_cost")
+    _build.check(rc, "tq_cost")
+    return dist, rate

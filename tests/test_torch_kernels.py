@@ -74,6 +74,9 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch():
     for a, b in zip(cost.sse_rate(res, rq, lv),
                     cost.sse_rate_plain(res, rq, lv)):
         assert torch.equal(a, b)
+    for a, b in zip(transform.tq_cost(res, 32, 3, is_intra=False),
+                    transform.tq_cost_plain(res, 32, 3, is_intra=False)):
+        assert torch.equal(a, b)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -116,8 +119,9 @@ def test_library_is_keyed_by_the_sources():
         "intra_pred.cu", "satd.cu", "tq_roundtrip.cu", "sse_rate.cu",
         "commit.cu", "deblock.cu", "sao.cu", "checksum.cu", "me_int.cu",
         "subpel.cu", "mc.cu", "intra_common.cuh", "tq_common.cuh",
-        "satd_common.cuh", "cnn.cu", "halo.cu"}
+        "satd_common.cuh", "rate_common.cuh", "cnn.cu", "halo.cu"}
     assert set(_build._SIGNATURES) >= {
+        "fhv_tq_roundtrip", "fhv_tq_cost", "fhv_cnn_bwd_plan",
         "fhv_downsample4", "fhv_sad_search", "fhv_subpel", "fhv_mc_sel",
         "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf",
         "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam", "fhv_halo"}
@@ -200,6 +204,34 @@ def test_tq_kernel_matches_twin(cuda_device, lg, qp):
     lp, rp = transform.tq_roundtrip_plain(res, qp, lg)
     assert torch.equal(lk, lp)
     assert torch.equal(rk, rp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [22, 32, 37, 51])
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+@pytest.mark.parametrize("intra", [True, False])
+def test_tq_cost_equals_tq_roundtrip_then_sse_rate(cuda_device, lg, qp,
+                                                   intra):
+    """K3's costed form is K3 -> K4 bit for bit (K4's lane order and
+    model), on random, all-zero and +-255 blocks; and within its twin's
+    tolerance (dist exact, rate 1e-5 relative)."""
+    n = 1 << lg
+    res = torch.cat([_residuals(n, 200, seed=80 + lg + qp),
+                     torch.zeros((2, n, n), dtype=torch.int32),
+                     torch.full((1, n, n), 255, dtype=torch.int32),
+                     torch.full((1, n, n), -255, dtype=torch.int32)]).to(
+        cuda_device)
+    before = _build.LAUNCHES["tq_cost"]
+    dist, rate = transform.tq_cost(res, qp, lg, is_intra=intra)
+    assert _build.LAUNCHES["tq_cost"] == before + 1
+    lv, rq = transform.tq_roundtrip(res, qp, lg, is_intra=intra)
+    d4, r4 = cost.sse_rate(res, rq, lv)
+    assert torch.equal(dist, d4)
+    assert torch.equal(rate, r4)
+    dp, rp = transform.tq_cost_plain(res, qp, lg, is_intra=intra)
+    assert torch.equal(dist, dp)
+    torch.testing.assert_close(rate, rp, rtol=1e-5, atol=0)
+    assert (rate[-4:-2] == 0).all()
 
 
 @pytest.mark.cuda
@@ -611,18 +643,20 @@ def test_cnn_depth_kernel_matches_twin(cuda_device, lg, frames):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lg", [5, 6])
-def test_cnn_backward_kernel_matches_autograd(cuda_device, lg):
-    """K13's training mode and K14 on a batch of 64 CTUs against autograd
+@pytest.mark.parametrize("lg,bsz", [(5, 64), (6, 64), (5, 1), (5, 17),
+                                    (6, 17)])
+def test_cnn_backward_kernel_matches_autograd(cuda_device, lg, bsz):
+    """K13's training mode and K14 on a batch of CTUs (64 as the trainer
+    draws them, 1, and 17: a batch no tile divides) against autograd
     through the conv2d chain: the loss within 1e-6 relative, each of the
     ten gradient tensors within 1e-4 of its largest magnitude (f32 sums of
     up to 64 x 1024 products, in another order)."""
     ctu = 1 << lg
-    rng = np.random.default_rng(50 + lg)
-    x = cnn.ctu_batch(_cnn_planes(lg, 1, cuda_device), ctu)[:64, 0]
-    q = torch.from_numpy(rng.integers(22, 38, 64).astype(np.float32)).to(
+    rng = np.random.default_rng(50 + lg + bsz)
+    x = cnn.ctu_batch(_cnn_planes(lg, 1, cuda_device), ctu)[:bsz, 0]
+    q = torch.from_numpy(rng.integers(22, 38, bsz).astype(np.float32)).to(
         cuda_device)
-    t = torch.from_numpy(rng.integers(0, lg - 2, (64, ctu // 8, ctu // 8))
+    t = torch.from_numpy(rng.integers(0, lg - 2, (bsz, ctu // 8, ctu // 8))
                          .astype(np.int32)).to(cuda_device)
     theta = init_params(torch.Generator().manual_seed(lg), lg,
                         cuda_device).flat_params()
@@ -640,6 +674,25 @@ def test_cnn_backward_kernel_matches_autograd(cuda_device, lg):
                                   cnn.unflatten(grads[1], lg - 2)):
         for a, b in ((wk, wp), (bk, bp)):
             assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg", [5, 6])
+def test_cnn_backward_is_deterministic(cuda_device, lg):
+    """K14 sums every gradient in an order fixed by the batch and the CTU
+    size: two calls on the same inputs give the same bits."""
+    ctu = 1 << lg
+    rng = np.random.default_rng(90 + lg)
+    x = cnn.ctu_batch(_cnn_planes(lg, 1, cuda_device), ctu)[:64, 0]
+    q = torch.from_numpy(rng.integers(22, 38, 64).astype(np.float32)).to(
+        cuda_device)
+    t = torch.from_numpy(rng.integers(0, lg - 2, (64, ctu // 8, ctu // 8))
+                         .astype(np.int32)).to(cuda_device)
+    theta = init_params(torch.Generator().manual_seed(lg), lg,
+                        cuda_device).flat_params()
+    logits, acts = cnn.cnn_train_forward(x, q, theta)
+    first = cnn.cnn_backward(x, q, t, theta, acts, logits)
+    assert torch.equal(cnn.cnn_backward(x, q, t, theta, acts, logits), first)
 
 
 @pytest.mark.cuda
