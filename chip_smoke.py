@@ -2,15 +2,17 @@
 """Drive the fasthevc_tpu_torch encoder once on one CUDA card.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # only the profiled 1080p LDP and RA
+    python3 chip_smoke.py --profile [--root DIR]
+                                       # only the profiled 1080p LDP and RA
                                        # encodes
     python3 chip_smoke.py --profile-mesh   # only phase 16's cases, profiled
     python3 chip_smoke.py --bench-kernels [--root DIR]
-                                       # K10, K1 + K2 and K1's fused form,
-                                       # then phases 3, 7 and 10's encodes,
-                                       # no twins (DIR: another checkout's
-                                       # package; --root is refused in any
-                                       # other mode)
+                                       # K9's integer stage and the merge
+                                       # candidates, K10, K1 + K2 and K1's
+                                       # fused form, then phases 3, 7, 10,
+                                       # 14 and 16's encodes, no twins (DIR:
+                                       # another checkout's package; --root
+                                       # is refused in every other mode)
 
 Phases (any failure raises, and the script exits non-zero):
   0. the card: requires torch.cuda.is_available(); prints nvidia-smi's
@@ -40,22 +42,33 @@ Phases (any failure raises, and the script exits non-zero):
         latency bound: the steps times the least CTU step), K6 (deblock),
         K7 (SAO) and K8 (checksum), exactly;
      b. the P kernels on one P frame of phase 7's clip with two
-        references at SR 64: K9 (decimation, coarse full search, +-3
-        refinement), K10 (sub-pel, at n = 8, 16 and 32, each timed with
-        its bound), K11 (merge-candidate MC and the
-        commit's MC planes), K2 on the merge candidates' predictions (one
-        a block, as the P search launches it), K5's mixed form (RDOQ on; its time per
+        references at SR 64: K9 (decimation; the fused form, me_coarse
+        and me_fine, each against its twin, which searches one tier at a
+        time, and against the earlier form's five sad_search calls, the
+        parent's path, timed beside it; the earlier form's coarse tier 16
+        and 8-block refinement against their twins), K10 (sub-pel, at n =
+        8, 16 and 32, each timed with its bound), K11's merge form
+        (mc_merge at n = 8, 16, 32, against its twin and against the
+        earlier path of mc_sel, K2 on the candidates' predictions and the
+        fold's torch ops, timed beside it; mc_sel and K2 on their own) and
+        the commit's MC planes, K5's mixed form (RDOQ on; its time per
         dependent step beside the frame's share of intra granules and
-        CTUs) and K6 with boundary strengths, exactly;
+        CTUs, and its latency bound: the steps times the least CTU step,
+        the slope of one-row P pictures) and K6 with boundary strengths,
+        exactly; K9's and K11's bounds by the fused count, with the
+        earlier count beside;
      c. the B kernels on POC 4 of phase 10's clip with two references per
-        list (0, 8 and 8, 16) at SR 64: K12 (the bi-prediction cost) for
-        the 8-, 16- and 32-blocks, each with its time, twin time and bound,
-        and K11's bi-predicting planes on that frame's B decisions, exactly
-        (K12's f32 costs bit for bit);
+        list (0, 8 and 8, 16) at SR 64: K9's fused form over the four
+        state references and K11's merge form over both lists (n = 8, 16,
+        32), as in b; K12 (the bi-prediction cost) for the 8-, 16- and
+        32-blocks, each with its time, twin time and bound, and K11's
+        bi-predicting planes on that frame's B decisions, exactly (the
+        f32 costs bit for bit);
      e. the forms the CTU-64 classic route adds, on that B frame padded
-        to the CTU-64 grid: K9's tier-64 search, K10, K2 and K12 on the
-        64-blocks, exactly, each with its time, twin time and bound
-        (run before d, which needs the card's memory);
+        to the CTU-64 grid: K9's fused form with its tier 64 (and the
+        earlier form's tier-64 searches), K10, K2, K12 and K11's merge
+        form on the 64-blocks, exactly, each with its time, twin time and
+        bound (run before d, which needs the card's memory);
      d. the partition CNN with seeded random weights: K13 on a 1080p group
         of 8 at CTU 32 (and one 1080p frame at CTU 64), its training-mode
         logits within CNN_TOL of the conv2d chain's and its depth maps
@@ -95,8 +108,10 @@ Phases (any failure raises, and the script exits non-zero):
      hash_type=2) on synthesized frames, a warm-up, then one I frame and 8
      P frames timed;
      prints fps, kbit/frame, Y-PSNR and the split, and requires every
-     kernel of the route (K1-K11 with K5's mixed form and K6's strengths)
-     to have been launched by that encode;
+     kernel of the route (K1, K3, K5-K11 with K5's mixed form and K6's
+     strengths) to have been launched by that encode, K9 at three
+     launches a P picture and K11's merge form at one a block size, and
+     none of the superseded forms (UNLAUNCHED);
   8. the first 2 frames of that clip through the kernels and through the
      twins on the card: byte-identical streams;
   9. a 416x240 4-frame low-delay P clip on the card and with the twins on
@@ -109,7 +124,8 @@ Phases (any failure raises, and the script exits non-zero):
      kbit/frame, Y-PSNR (I and B), each batch's span on the card and the
      host-wait / entropy split, and requires every kernel of the route
      (K12 and K11's bi-predicting planes included) to have been launched
-     by that encode;
+     by that encode, K9 at three launches a B picture and K11's merge form
+     at one a block size for both lists;
  11. a 416x240 17-frame random-access clip through the kernels and through
      the twins on the card, and through the twins on the CPU: identical
      streams that decode hash-clean in SpecDecoder;
@@ -135,9 +151,9 @@ Phases (any failure raises, and the script exits non-zero):
  14. the classic per-frame route: phase 7's low_delay_p at CTU 64 (which
      TpuEncoder, too, sends to its per-frame loop), a warm-up, then 1 I
      and 4 P frames timed; prints fps, kbit/frame, Y-PSNR and the
-     search (CUDA events) / host C++ commit split, and requires K1, K2,
-     K3's costed form, K9, K10 and K11's merge-candidate MC to have been
-     launched;
+     search (CUDA events) / host C++ commit split, and requires K1, K3's
+     costed form, K9, K10 and K11's merge form to have been launched, at
+     three and four launches a P picture;
  15. rate control at 1080p: the all-intra device route on phase 3's 16
      frames and the low-delay P device route on phase 7's 9 frames, each
      with target_bitrate at 0.8 of the rate its fixed-QP phase realized;
@@ -150,8 +166,9 @@ Phases (any failure raises, and the script exits non-zero):
      480-column tiles), and IDR + P + B with the two-entry GOP (2
      segments of 3); each sharded stream must equal TorchEncoder's
      single-device route byte for byte, both fps printed, and K16, K6's
-     tile-column form and cbf pass and K7's halo form must have been
-     launched; the streams are decoded in the mesh-decode jobs;
+     tile-column form and cbf pass, K7's halo form, K9's fused form, K10
+     and K11's merge form must have been launched, and none of the
+     superseded forms; the streams are decoded in the mesh-decode jobs;
  17. BASELINE config 5 through parallel.multiproc.gop_parallel_encode_check:
      3840x2160, 16 frames, 2 processes on the card, tiles 2x2, intra
      period 8: the concatenated stream must equal one process's byte for
@@ -215,27 +232,30 @@ PEAK_INT32_OPS_S = 33.5e12
 PEAK_F32_FLOPS_S = 67e12     # the partition CNN's f32 work, no tensor core
 # the intra search: K1's fused form (all 35 modes' SATDs), K1's selected
 # form (the rd candidates, chroma DM), K3's costed form (T/Q/IQ/IT with K4's
-# SSE and rate inside); K2 is launched by the inter searches' merge
-# candidates (and CTU 64's 64-blocks) only
+# SSE and rate inside)
 SEARCH_KERNELS = ("intra_pred_selected", "intra_satd", "tq_cost")
-# K3's plain form and K4, which no route launches since tq_cost replaced
-# the pair: every route's launches must show neither
-UNLAUNCHED = ("tq_roundtrip", "sse_rate")
+# the superseded forms, which no route launches: K3's plain form and K4
+# (tq_cost replaced the pair), K9's one-search-a-launch form (me_coarse and
+# me_fine replaced it), K11's merge-candidate MC and K2 (mc_merge replaced
+# them with the fold); every route's launches must show none of them
+UNLAUNCHED = ("tq_roundtrip", "sse_rate", "me_full_search", "me_refine",
+              "mc_sel", "satd")
 INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
-P_KERNELS = ("me_downsample4", "me_full_search", "me_refine", "subpel",
-             "mc_sel", "satd", "inter_pred", "commit_mixed", "deblock_bs",
-             "deblock_cbf")
+# the P search's K9 (three launches a picture), K10 and K11's merge form
+# (one launch a block size), then the commit's
+ME_KERNELS = ("me_downsample4", "me_coarse", "me_fine", "subpel",
+              "mc_merge")
+P_KERNELS = ME_KERNELS + ("inter_pred", "commit_mixed", "deblock_bs",
+                          "deblock_cbf")
 LDP_ROUTE = INTRA_ROUTE + P_KERNELS
 RA_FRAMES = 17           # random access: the IDR and one GOP-16
 B_KERNELS = ("bi_cost", "inter_pred_bi")
 RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
             + B_KERNELS)
 # the classic per-frame route's P search: K1 (fused and selected forms),
-# K2, K3's costed form, K9, K10
-# and K11's merge candidates (the C++ engine commits and compensates on the
-# host)
-CLASSIC_ROUTE = SEARCH_KERNELS + ("me_downsample4", "me_full_search",
-                                  "me_refine", "subpel", "mc_sel", "satd")
+# K3's costed form, K9, K10 and K11's merge form (the C++ engine commits
+# and compensates on the host)
+CLASSIC_ROUTE = SEARCH_KERNELS + ME_KERNELS
 CLASSIC_TIMED_P = 4      # P frames of the timed classic-route encode
 RC_SHARE = 0.8           # phase 15's targets: this share of phases 3 and 7's
 TRAIN_KERNELS = ("cnn_train", "cnn_backward", "adam")
@@ -260,9 +280,12 @@ META = {
     "checksum": ("csrc/checksum.cu",
                  "fasthevc_tpu/codec/device_pipeline.py:55"),
     "me_downsample4": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:129"),
+    "me_coarse": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:233"),
+    "me_fine": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:265"),
     "me_full_search": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:42"),
     "me_refine": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:220"),
     "subpel": ("csrc/subpel.cu", "fasthevc_tpu/ops/me.py:343"),
+    "mc_merge": ("csrc/mc.cu", "fasthevc_tpu/codec/search.py:438"),
     "mc_sel": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:671"),
     "inter_pred": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "commit_mixed": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:570"),
@@ -318,6 +341,41 @@ def _median_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_ms(fn, keys=None, reps: int = 5, tries: int = 3):
+    """The card's own time of one call of fn, without the host work around
+    its launches: torch.profiler's device time of the kernels whose names
+    hold one of `keys` (every kernel when None), summed over `reps` calls
+    after a warm-up, divided by reps.  A profiling window now and then
+    records no device event: it is run again, up to `tries` times, and
+    None (not measured) is returned if none records one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")
+                 and (keys is None or any(k in e.name for k in keys)))
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def _ms_text(ms) -> str:
+    """A time for the log: "x.xxxx ms", or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _share_text(bound_ms: float, ms) -> str:
+    """The bound's share of a time, or "not measured"."""
+    return ("not measured" if ms is None
+            else f"{100 * bound_ms / ms:.1f}%")
 
 
 def _interleaved_ms(fa, fb, pairs: int = K14_PAIRS, warm: int = 5) -> tuple:
@@ -632,6 +690,34 @@ def _k5_least_step(torch, d) -> float:
     return best
 
 
+def _k5_mixed_least_step(torch, d) -> float:
+    """The least time of one dependent CTU step of K5's mixed form (RDOQ
+    on): over rows 8, 16 and 24 of phase 2b's P frame, the slope between
+    one-row pictures of 60 and 4 CTUs with that row's decisions and MC
+    planes, as _k5_least_step takes it for the intra form."""
+    from fasthevc_tpu_torch.ops import commit
+    lam = float(torch.tensor(_lambda_sqrt(QP), dtype=torch.float32) ** 2)
+    best = float("inf")
+    for row in (8, 16, 24):
+        ms = {}
+        for k in (4, WIDTH // 32):
+            y0, w = row * 32, k * 32
+
+            def crop(p, s):
+                """rows y0.. of a [(1,) H, W] plane at 1/s scale"""
+                p = p if p.dim() == 3 else p[None]
+                return p[:, y0 // s:(y0 + 32) // s, :w // s].contiguous()
+
+            args = ([crop(p, 1 + (i > 0)) for i, p in enumerate(d["src"])]
+                    + [crop(d[m], 8) for m in ("dm", "mm", "im")]
+                    + [crop(p, 1 + (i > 0)) for i, p in enumerate(d["pred"])]
+                    + [[QP], [QP], [QP], w, 32, True])
+            ms[k] = _median_ms(lambda: commit.wavefront_commit_mixed(
+                *args, rdoq=True, lam=[lam]), reps=9)
+        best = min(best, (ms[WIDTH // 32] - ms[4]) / (WIDTH // 32 - 4))
+    return best
+
+
 def phase_pixel_kernels(torch, y, c, sp, timed, work):
     """K5-K8 on the decisions of one 1080p search; K6-K8 against their
     twins here, K5 against its twin in the job k5-intra."""
@@ -767,10 +853,175 @@ def _subpel_bound_text(n: int, blocks: int, w: tuple, ms: float) -> str:
             f"candidate: {old_ms:.4f} ms, {100 * old_ms / ms:.1f}%)")
 
 
+def _k9_work(h: int, w: int, rr: int, tiers) -> dict:
+    """K9's (bytes, int32 operations) on an h x w picture with rr
+    references at SR: "me_coarse" and "me_fine" as the fused form counts
+    them (the tier-16 blocks' absolute differences, 3 operations each, and
+    3 additions a larger block and offset for its children's sum; the
+    8-blocks' refinements and 3 additions a 16-block and offset), and
+    "old": the operations of the five separate searches (each tier's own
+    absolute differences).  Bytes: the search planes, the bases and the
+    MVs, each read or written once."""
+    scale = 4 if SR > 8 else 1
+    rng = SR if scale == 1 else -(-SR // 4)
+    offs = (2 * rng + 1) ** 2
+    nb = {n: (h // n) * (w // n) for n in (8,) + tuple(tiers)}
+    mvs = 8 * rr * sum(nb[n] for n in tiers)
+    coarse_ops = rr * offs * (nb[16] * (16 // scale) ** 2 * 3
+                              + 3 * sum(nb[n] for n in tiers if n > 16))
+    fine_ops = rr * 49 * 3 * (nb[8] * 64 + nb[16]
+                              + sum(nb[n] * n * n for n in tiers if n > 16))
+    old_ops = rr * (offs * 3 * sum(nb[n] * (n // scale) ** 2 for n in tiers)
+                    + 49 * 3 * (nb[8] * 64 + sum(nb[n] * n * n
+                                                 for n in tiers)))
+    return {"me_coarse": (4 * (1 + rr) * h * w / scale ** 2 + mvs,
+                          coarse_ops),
+            "me_fine": (4 * (1 + rr) * h * w + 2 * mvs + 8 * rr * nb[8],
+                        fine_ops),
+            "old": (4 * (1 + rr) * h * w * (1 + 1 / scale ** 2), old_ops)}
+
+
+def _k9_check(torch, label: str, y, refs, tiers, timed=None, work=None):
+    """K9's fused form (me_coarse on the 1/4 planes, me_fine) on one picture
+    at SR: each against its twin, both equal to the earlier form's five
+    sad_search calls (the parent's path), which are timed too; prints each
+    kernel's time, twin time, bound by the fused count and share of it,
+    with the earlier count's bound beside.  Returns the ME state."""
+    from fasthevc_tpu_torch.ops import me
+
+    ds = me.downsample4(torch.cat([y[None], refs]))
+    sr4 = -(-SR // 4)
+
+    def old():
+        base = {n: me.sad_search(ds[0], ds[1:], None, n // 4, sr4, n // 4,
+                                 4, SR) for n in tiers}
+        mv = {n: me.sad_search(y, refs, base[n], n, 3, n, 1, SR)
+              for n in tiers}
+        mv[8] = me.sad_search(y, refs, base[16], 8, 3, 16, 1, SR)
+        return base, mv
+
+    def coarse(plain=False):
+        return me.me_coarse(ds[0], ds[1:], SR, tiers, 4, plain=plain)
+
+    base = coarse()
+
+    def fine(plain=False):
+        return me.me_fine(y, refs, base, SR, tiers, plain=plain)
+
+    mv = fine()
+    ob, om = old()
+    for got, twin, parent in ((base, coarse(True), ob),
+                              (mv, fine(True), om)):
+        for n in twin:
+            _same(torch, f"K9 {label} n={n}", got[n], twin[n])
+            _same(torch, f"K9 {label} n={n} (earlier form)", parent[n],
+                  got[n])
+    ms = {"me_coarse": (_median_ms(coarse), _median_ms(lambda: coarse(True),
+                                                       reps=1)),
+          "me_fine": (_median_ms(fine), _median_ms(lambda: fine(True),
+                                                   reps=1))}
+    dev = {"me_coarse": _device_ms(coarse, ("me_coarse_kernel",)),
+           "me_fine": _device_ms(fine, ("me_fine_kernel",))}
+    old_ms, old_dev = _median_ms(old), _device_ms(old, ("sad_search",))
+    h, w = y.shape
+    wk = _k9_work(h, w, refs.shape[0], tiers)
+    old_b = _bound(*wk["old"])[0]
+    new_b = _bound(*wk["me_coarse"])[0] + _bound(*wk["me_fine"])[0]
+    for name in ("me_coarse", "me_fine"):
+        b_ms, b_by = _bound(*wk[name])
+        print(f"kernel {name} ({label}): {ms[name][0]:.4f} ms (the kernel "
+              f"alone {_ms_text(dev[name])}), plain twin {ms[name][1]:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{_share_text(b_ms, dev[name])} of the bound")
+    both = ms["me_coarse"][0] + ms["me_fine"][0]
+    both_dev = (None if None in dev.values()
+                else dev["me_coarse"] + dev["me_fine"])
+    print(f"K9 ({label}): me_coarse + me_fine {both:.4f} ms (the kernels "
+          f"alone {_ms_text(both_dev)}) against the earlier form's five "
+          f"sad_search calls {old_ms:.4f} ms (alone {_ms_text(old_dev)}; the"
+          f" parent's path, this run); bound by the fused count "
+          f"{new_b:.4f} ms ({_share_text(new_b, both_dev)} of the kernels "
+          f"alone), by the five searches' count {old_b:.4f} ms "
+          f"({_share_text(old_b, both_dev)})")
+    if timed is not None:
+        for name in ("me_coarse", "me_fine"):
+            timed[name], work[name] = ms[name], wk[name]
+    st = me.MEState(y, refs, SR)
+    st.tiers, st.base, st.mv_int = list(tiers), base, mv
+    return st
+
+
+def _merge_work(h: int, w: int, n: int, lists: int) -> tuple:
+    """mc_merge's (bytes, int32 operations) on an h x w picture: per list
+    the source, the ME winners' predictions, at least one reference
+    plane's area and the winners' predictions written, each once, and the
+    per-block fields in and out; two candidates' separable filters and
+    8x8 Hadamard SATDs (~9 operations a sample)."""
+    b = (h // n) * (w // n)
+    return (lists * (4 * 4 * h * w + 2 * 20 * b),
+            lists * 2 * b * (_interp_ops(n, 8) + 9 * n * n))
+
+
+def _merge_check(torch, label: str, st, lists, n: int, ls: float,
+                 timed=None, work=None) -> None:
+    """K11's merge form on one block size: against its twin and against the
+    earlier form's path (mc_sel, K2 and the fold's torch ops, the
+    parent's), bit for bit, all three timed; prints the bound."""
+    from fasthevc_tpu_torch.ops import cost, me
+
+    def new():
+        return me.mc_merge(st, lists, n, ls)
+
+    def twin():
+        return me.mc_merge(st, lists, n, ls, plain=True)
+
+    def old():
+        return me.mc_merge_plain(st, lists, n, ls, -1, me.mc_sel,
+                                 cost.satd)
+
+    got = new()
+    for ref, what in ((twin(), "twin"), (old(), "earlier form")):
+        for li, (a, c) in enumerate(zip(got, ref)):
+            for k, (x, z) in enumerate(zip(a, c)):
+                if x.dtype == torch.float32:
+                    x, z = x.view(torch.int32), z.view(torch.int32)
+                _same(torch, f"K11 mc_merge {label} n={n} list {li} "
+                      f"output {k} ({what})", x, z)
+    merged = sum(int((a[4] == 2.0).sum()) for a in got)
+    ms, plain_ms, old_ms = (_median_ms(new), _median_ms(twin, reps=1),
+                            _median_ms(old))
+    dev, old_dev = _device_ms(new, ("mc_merge_kernel",)), _device_ms(old)
+    h, w = st.y.shape
+    wk = _merge_work(h, w, n, len(lists))
+    b_ms, b_by = _bound(*wk)
+    print(f"kernel mc_merge n={n} ({label}, {len(lists)} list(s), "
+          f"{merged} merge winners): {ms:.4f} ms (the kernel alone "
+          f"{_ms_text(dev)}), plain twin {plain_ms:.4f} ms, the earlier form"
+          f" (mc_sel + satd + the fold's torch ops, the parent's path) "
+          f"{old_ms:.4f} ms (its kernels alone {_ms_text(old_dev)}); bound "
+          f"{b_ms:.4f} ms ({b_by}), {_share_text(b_ms, dev)} of the bound")
+    if timed is not None:
+        timed["mc_merge"], work["mc_merge"] = (ms, plain_ms), wk
+
+
+def _merge_lists(torch, st, sp, n: int, pairs) -> list:
+    """mc_merge's lists of one block size from the sub-pel results: per
+    (ia, ib) the ME winners of `_pick_ref`."""
+    from fasthevc_tpu_torch.codec.search import _pick_ref
+    from fasthevc_tpu_torch.ops import me
+    out = []
+    for ia, ib in pairs:
+        c, mv, pred, sel = _pick_ref(sp[n], ia, ib)
+        out.append((ia, ib, mv, sel.to(torch.int32), pred, c,
+                    me.mv_rate_bits(mv)))
+    return out
+
+
 def phase_inter_kernels(torch, timed, work):
     """K9-K11, K5's mixed form and K6 with strengths on one 1080p P frame
     (SR 64, two references), against their twins (K5's in the job
-    k5-mixed)."""
+    k5-mixed); K9's and K11's earlier forms beside their fused ones, as
+    the parent's path."""
     from fasthevc_tpu_torch.codec.search import _blocks
     from fasthevc_tpu_torch.ops import cost, deblock, me
 
@@ -781,8 +1032,10 @@ def phase_inter_kernels(torch, timed, work):
     ls = _lambda_sqrt(QP)
     hw, rr = ph * WIDTH, r.shape[0]
 
-    # K9: decimation, coarse full search (tier 16 on the 1/4 planes), the
-    # +-3 refinement of the 8-blocks around their 16-parent's base
+    # K9: decimation; the earlier form's coarse full search (tier 16 on
+    # the 1/4 planes) and +-3 refinement of the 8-blocks around their
+    # 16-parent's base, each a launch (their rows of the kernels line);
+    # then the fused form against its twins and the earlier five calls
     planes = torch.cat([y[None], r])
     ds = me.downsample4(planes)
     _same(torch, "K9 downsample4", ds, me.downsample4(planes, plain=True))
@@ -808,10 +1061,11 @@ def phase_inter_kernels(torch, timed, work):
         _median_ms(lambda: me.sad_search(*rargs, plain=True), reps=1))
     b8 = hw // 64
     work["me_refine"] = (4 * (3 * hw + rr * b8 * 2), 3 * rr * b8 * 49 * 64)
+    st = _k9_check(torch, f"1080p P frame, {rr} refs, SR {SR}", y, r,
+                   [16, 32], timed, work)
 
     # K10 on the 8-blocks (the largest batch, the kernels line's entry),
     # the 16- and 32-blocks on me_state's tier MVs
-    st = me.me_state(y, r, SR)
     for n in (8, 16, 32):
         mvn = mv8 if n == 8 else st.mv_int[n]
         got = me.subpel(y, r, mvn, n, ls)
@@ -830,7 +1084,9 @@ def phase_inter_kernels(torch, timed, work):
             sk = got
             timed["subpel"], work["subpel"] = ms, w
 
-    # K11: the merge candidates' MC (left neighbours' MVs, mixed refs)
+    # K11's earlier merge form: the merge candidates' MC (left
+    # neighbours' MVs, mixed refs), then K2 on their predictions, one a
+    # block, as the parent's P search launched them
     mvq = sk[1][0].reshape(ph // 8, WIDTH // 8, 2)
     left = torch.cat([torch.zeros_like(mvq[:, :1]), mvq[:, :-1]], 1)
     left = left.reshape(-1, 2).contiguous()
@@ -845,9 +1101,6 @@ def phase_inter_kernels(torch, timed, work):
                        _median_ms(lambda: me.mc_sel(*margs, plain=True)))
     work["mc_sel"] = (4 * (rr * hw + b8 * (64 + 4)),
                       b8 * _interp_ops(8, 8))
-
-    # K2 as the P search launches it: the SATD of each 8-block's merge
-    # candidate, one prediction a block (codec/search.py _with_merge_cands)
     srcb = _blocks(y[None], 8).contiguous()
     predc = ((mk[0] + 32) >> 6).clamp(0, 255).reshape(b8, 1, 8, 8)
     predc = predc.contiguous()
@@ -856,6 +1109,15 @@ def phase_inter_kernels(torch, timed, work):
     timed["satd"] = (_median_ms(lambda: cost.satd(srcb, predc)),
                      _median_ms(lambda: cost.satd_plain(srcb, predc)))
     work["satd"] = (4 * (2 * b8 * 64 + b8), 9 * b8 * 64)
+
+    # K11's merge form, the P search's: one list over both references,
+    # n = 8 (the kernels line's entry), 16 and 32
+    sp = me.subpel_from_state(st, ls)
+    for n in (8, 16, 32):
+        _merge_check(torch, "1080p P frame", st,
+                     _merge_lists(torch, st, sp, n, [(0, 1)]), n, ls,
+                     *((timed, work) if n == 8 else ()))
+    del sp
 
     # the P search of the frame gives the commit's decisions
     gh, gw = HEIGHT // 8, WIDTH // 8
@@ -893,6 +1155,11 @@ def phase_inter_kernels(torch, timed, work):
           f"{ms / _k5_steps():.4f} ms per dependent step ({_k5_steps()} "
           f"steps); {1 - inter:.4f} of the granules intra, "
           f"{ctu_intra.mean().item():.4f} of the CTUs holding an intra CU")
+    step = _k5_mixed_least_step(torch, d)
+    print(f"kernel commit_mixed: least CTU step {step:.4f} ms (the slope "
+          f"of one-row P pictures of 4 and {WIDTH // 32} CTUs, the least of "
+          f"3 rows); latency bound {_k5_steps()} x {step:.4f} = "
+          f"{_k5_steps() * step:.4f} ms a 1080p call")
     work["commit_mixed"] = (fpx * 1.5 * (4 + 4 + 4 + 2),
                             _transform_ops(dm))
 
@@ -932,9 +1199,11 @@ def _ra_cfg(frames: int):
 
 
 def phase_b_kernels(torch, timed, work):
-    """K12 and K11's bi-predicting planes against their twins on POC 4 of
-    the random-access clip, with references 0, 8 (list 0) and 8, 16 (list
-    1) as the GOP-16 gives them, at SR 64 and POC 4's QP (32 + 2)."""
+    """K9's fused form over the four state references, K11's merge form
+    over both lists (n = 8, 16, 32), K12 and K11's bi-predicting planes
+    against their twins on POC 4 of the random-access clip, with
+    references 0, 8 (list 0) and 8, 16 (list 1) as the GOP-16 gives them,
+    at SR 64 and POC 4's QP (32 + 2)."""
     from fasthevc_tpu_torch.codec.search import _pick_ref, search_b_maps
     from fasthevc_tpu_torch.ops import me
 
@@ -954,8 +1223,13 @@ def phase_b_kernels(torch, timed, work):
     lists = ((0, 8), (8, 16))
     refs = torch.stack([luma(k) for lst in lists for k in lst])
     ls = _lambda_sqrt(QP + 2)
-    st = me.me_state(y, refs, SR)
+    # K9 over the four state references, K11's merge form over both lists
+    st = _k9_check(torch, "1080p B frame, 4 state refs, SR 64", y, refs,
+                   [16, 32])
     sp = me.subpel_from_state(st, ls)
+    for n in (8, 16, 32):
+        _merge_check(torch, "1080p B frame", st,
+                     _merge_lists(torch, st, sp, n, [(0, 1), (2, 3)]), n, ls)
     hw = ph * WIDTH
     for n in (8, 16, 32):
         _, mv0, _, sel0 = _pick_ref(sp[n], 0, 1)
@@ -1037,18 +1311,21 @@ def _b64_inputs(torch):
 
 def phase_ctu64_kernels(torch) -> None:
     """Phase 2e: the forms the CTU-64 classic route adds, on phase 2c's B
-    frame and references padded to the CTU-64 grid, SR 64: K9's tier-64
-    search, K10 on the 64-blocks, K2 on the 64-blocks (the merge
-    candidates' SATD) and K12 on the 64-blocks, each against its twin,
-    exactly (K10's and K12's f32 costs bit for bit), with its time, twin
-    time and bound."""
+    frame and references padded to the CTU-64 grid, SR 64: K9's fused form
+    with its tier 64 (and the earlier form's tier-64 searches), K10 on
+    the 64-blocks, K2 on the 64-blocks (the earlier merge candidates'
+    SATD), K12 and K11's merge form on the 64-blocks, each against its
+    twin, exactly (K10's, K12's and K11's f32 costs bit for bit), with its
+    time, twin time and bound."""
     from fasthevc_tpu_torch.codec.search import _blocks, _pick_ref
     from fasthevc_tpu_torch.ops import cost, me
 
     y, refs, ls, st = _b64_inputs(torch)
     ph, n = y.shape[0], 64
-    # K9's two tier-64 calls of me_state: the coarse search on the 1/4
-    # planes, the +-3 refinement around its bases
+    # K9's earlier form's two tier-64 calls of me_state: the coarse search
+    # on the 1/4 planes, the +-3 refinement around its bases; then the
+    # fused form, tier 64 included, against its twins and the earlier five
+    # calls
     ds = me.downsample4(torch.cat([y[None], refs]))
     sr4 = -(-SR // 4)
     for name, args in (
@@ -1057,6 +1334,8 @@ def phase_ctu64_kernels(torch) -> None:
             ("K9 tier-64 MVs", (y, refs, st.base[n], n, 3, n, 1, SR))):
         _same(torch, name, me.sad_search(*args),
               me.sad_search(*args, plain=True))
+    _k9_check(torch, "CTU 64, 1088x1920 B frame, 4 state refs", y, refs,
+              [16, 32, 64])
     hw, rr, b = ph * WIDTH, refs.shape[0], ph * WIDTH // (n * n)
     rows = []
 
@@ -1089,6 +1368,9 @@ def phase_ctu64_kernels(torch) -> None:
           lambda: me.bi_cost(*bargs, plain=True),
           (4 * (rr * hw + hw + b * (8 + n * n + 1)),
            b * (2 * _interp_ops(n, 8) + n * n * (4 + 8))))
+    _merge_check(torch, "CTU 64, 1088x1920 B frame", st,
+                 _merge_lists(torch, st, {n: sp}, n, [(0, 1), (2, 3)]), n,
+                 ls)
     for name, ms, plain_ms, w in rows:
         if name == "subpel":
             text = _subpel_bound_text(n, rr * b, w, ms)
@@ -1317,7 +1599,20 @@ def _require(launches: dict, names, what: str) -> None:
     for name in UNLAUNCHED:
         if launches.get(name, 0):
             raise AssertionError(f"kernel {name} was launched by the {what}"
-                                 f", which should run tq_cost in its place")
+                                 f", which should run the form that "
+                                 f"superseded it")
+
+
+def _per_picture(launches: dict, pictures: int, sizes: int,
+                 what: str) -> None:
+    """K9 at three launches an inter picture (the decimation, me_coarse,
+    me_fine) and K11's merge form at one a block size (SR 64)."""
+    want = {"me_downsample4": pictures, "me_coarse": pictures,
+            "me_fine": pictures, "mc_merge": pictures * sizes}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: K9 / K11 launches {got}, expected "
+                             f"{want} for {pictures} inter pictures")
 
 
 def _ai_clip():
@@ -1537,6 +1832,8 @@ def phase_ldp_route(torch, params=None):
     _require(launches, LDP_ROUTE + (() if params is None
                                     else ("cnn_depth",)),
              f"low-delay P encode ({_label(params)})")
+    _per_picture(launches, n - 1, 3,
+                 f"low-delay P encode ({_label(params)})")
     return launches, st
 
 
@@ -1576,6 +1873,8 @@ def phase_ra_route(torch, params=None):
     _require(launches, RA_ROUTE + (() if params is None
                                    else ("cnn_depth",)),
              f"random-access encode ({_label(params)})")
+    _per_picture(launches, RA_FRAMES - 1, 3,
+                 f"random-access encode ({_label(params)})")
     return launches, st
 
 
@@ -1619,6 +1918,7 @@ def phase_classic_route(torch):
           f"host C++ commit {tm['commit_s']:.4f} s")
     print(f"launches in the timed classic-route encode: {launches}")
     _require(launches, CLASSIC_ROUTE, "classic-route encode")
+    _per_picture(launches, n - 1, 4, "classic-route encode")
     return launches, st
 
 
@@ -1989,13 +2289,21 @@ def profile_route(torch, label, clip, cfg, warm) -> None:
                                key=lambda kv: -kv[1][0])[:25]:
         print(f"  {t / 1e3:10.3f} ms {100 * t / total:5.1f}% {k:6d}x "
               f"{name[:90]}")
-    # the search's T/Q/IQ/IT with its RD terms, every form of K3 and K4
-    tq = [v for name, v in by_name.items()
-          if "tq_kernel" in name or "sse_rate_kernel" in name]
-    t_tq = sum(t for t, _ in tq)
-    print(f"  the search's T/Q/IQ/IT and RD terms (K3's forms, K4): "
-          f"{t_tq / 1e3:.3f} ms, {100 * t_tq / total:.1f}%, "
-          f"{sum(k for _, k in tq)} launches")
+    # the kernels by the work they do, every form of each
+    for what, keys in (
+            ("the search's T/Q/IQ/IT and RD terms (K3's forms, K4)",
+             ("tq_kernel", "sse_rate_kernel")),
+            ("K9's integer search (sad_search, me_coarse, me_fine)",
+             ("sad_search_kernel", "me_coarse_kernel", "me_fine_kernel")),
+            ("K9's decimation", ("downsample4_kernel",)),
+            ("the merge candidates (mc_sel + K2, or mc_merge)",
+             ("mc_sel_kernel", "::satd_kernel", "mc_merge_kernel")),
+            ("PyTorch's own kernels (at::native)", ("at::native",))):
+        grp = [v for name, v in by_name.items()
+               if any(k in name for k in keys)]
+        t_g = sum(t for t, _ in grp)
+        print(f"  {what}: {t_g / 1e3:.3f} ms, {100 * t_g / total:.1f}%, "
+              f"{sum(k for _, k in grp)} launches")
 
 
 def _intra_sp():
@@ -2201,8 +2509,8 @@ def phase_mesh(torch) -> dict:
               f"and NAL glue {tm['entropy_s']:.3f} s), single-device "
               f"{len(clip) / sdt:.4f} fps (both after a warm-up)")
     print(f"launches in the mesh encodes: {launches}")
-    _require(launches, MESH_KERNELS + ("deblock_cbf", "intra_satd",
-                                       "subpel"), "mesh encodes")
+    _require(launches, MESH_KERNELS + ("deblock_cbf", "intra_satd")
+             + ME_KERNELS, "mesh encodes")
     return launches
 
 
@@ -2481,9 +2789,18 @@ def bench_kernels(torch) -> None:
     training batch; then phases 3, 7 and 10's encodes, each BENCH_ENCODES
     times after its warm-up, every fps and their median printed beside
     the medians of the encoder's timing split and the stream's size and
-    SHA-256."""
+    SHA-256; then phase 14's classic-route encode and phase 16's three mesh
+    encodes, each once after its warm-up, with the stream's size and
+    SHA-256.  First of all, K9's integer stage (`me_state`: the earlier
+    form's downsample4 + five sad_search calls, or downsample4 + me_coarse
+    + me_fine) and the merge candidates (the earlier form's
+    `_with_merge_cands` a list, on mc_sel, K2 and the fold's torch ops, or
+    one mc_merge for the lists) on phase 2b's P frame (two references, one
+    list) and phase 2c's B frame (four state references, two lists), at n
+    = 8, 16, 32."""
     import hashlib
 
+    from fasthevc_tpu_torch.codec import search
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     from fasthevc_tpu_torch.codec.search import _blocks, search_qp
     from fasthevc_tpu_torch.ops import cnn, cost, intra, me, transform
@@ -2494,6 +2811,47 @@ def bench_kernels(torch) -> None:
                                 mode="replicate")[0].to(torch.int32)
     r = torch.nn.functional.pad(refs[0].float(), pad,
                                 mode="replicate").to(torch.int32)
+    clip = _ra_clip()
+    yb = torch.nn.functional.pad(torch.from_numpy(np.asarray(
+        clip[4][0], np.int32))[None].float().cuda(), pad,
+        mode="replicate")[0].to(torch.int32)
+    rb = torch.stack([torch.nn.functional.pad(torch.from_numpy(np.asarray(
+        clip[k][0], np.int32))[None].float().cuda(), pad,
+        mode="replicate")[0].to(torch.int32) for k in (0, 8, 8, 16)])
+    del clip
+    fused = hasattr(me, "mc_merge")
+    for label, yy, rr, ls, pairs in (
+            ("P frame, 2 refs", y, r, _lambda_sqrt(QP), [(0, 1)]),
+            ("B frame, 4 state refs", yb, rb, _lambda_sqrt(QP + 2),
+             [(0, 1), (2, 3)])):
+        ms = _median_ms(lambda: me.me_state(yy, rr, SR))
+        dev = _device_ms(lambda: me.me_state(yy, rr, SR))
+        print(f"bench me_state ({label}, SR {SR}): {ms:.4f} ms, the card's "
+              f"own {_ms_text(dev)} ("
+              + ("downsample4 + me_coarse + me_fine" if fused else
+                 "downsample4 + five sad_search") + ")")
+        st = me.me_state(yy, rr, SR)
+        sp = me.subpel_from_state(st, ls)
+        for n in (8, 16, 32):
+            lists = _merge_lists(torch, st, sp, n, pairs)
+            if fused:
+                def run():
+                    return me.mc_merge(st, lists, n, ls)
+            else:
+                ls_t = torch.tensor(ls, dtype=torch.float32)
+                src_b = _blocks(yy[None], n)
+
+                def run():
+                    return [search._with_merge_cands(
+                        st, src_b, *li[:2], *li[2:], n, ls_t, cost.satd,
+                        False) for li in lists]
+            ms, dev = _median_ms(run), _device_ms(run)
+            print(f"bench merge candidates n={n} ({label}, {len(pairs)} "
+                  f"list(s)): {ms:.4f} ms, the card's own {_ms_text(dev)} ("
+                  + ("mc_merge" if fused else "mc_sel + satd + the fold, a "
+                     "list at a time") + ")")
+        del st, sp
+    del yb, rb
     cases = [(n, y, r, me.me_state(y, r, SR).mv_int[n], _lambda_sqrt(QP))
              for n in (8, 16, 32)]
     y64, r64, ls64, st64 = _b64_inputs(torch)
@@ -2575,6 +2933,29 @@ def bench_kernels(torch) -> None:
               + ", ".join(f"{v:.4f}" for v in fps) + f"), timing medians "
               f"{split}, {len(stream)} bytes, sha256 "
               f"{hashlib.sha256(stream).hexdigest()[:16]}")
+    clip = ldp[:1 + CLASSIC_TIMED_P]
+    enc = TorchEncoder(_classic_cfg(len(clip)), "cuda")
+    enc.encode(clip[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream, _ = enc.encode(clip)
+    print(f"bench classic per-frame (phase 14): "
+          f"{len(clip) / (time.perf_counter() - t0):.4f} fps, "
+          f"{len(stream)} bytes, sha256 "
+          f"{hashlib.sha256(stream).hexdigest()[:16]}")
+    from fasthevc_tpu_torch.parallel import gop_tile_mesh, sharded
+    mesh = gop_tile_mesh(MESH[0] * MESH[1], n_tile=MESH[1], device="cuda")
+    for name, (cfg, clip, driver) in _mesh_cases().items():
+        encode = getattr(sharded, driver)
+        encode(clip, cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream, _ = encode(clip, cfg, mesh)
+        torch.cuda.synchronize()
+        print(f"bench mesh {MESH} {name} (phase 16): "
+              f"{len(clip) / (time.perf_counter() - t0):.4f} fps, "
+              f"{len(stream)} bytes, sha256 "
+              f"{hashlib.sha256(stream).hexdigest()[:16]}")
 
 
 def _stamp(t_start: float, what: str) -> None:
@@ -2585,8 +2966,9 @@ def main() -> int:
     argv = sys.argv[1:]
     if "--root" in argv:
         # time another checkout's package; its twins and jobs are not run
-        if "--bench-kernels" not in argv:
-            raise SystemExit("chip_smoke: --root is only for --bench-kernels")
+        if "--bench-kernels" not in argv and "--profile" not in argv:
+            raise SystemExit("chip_smoke: --root is only for --bench-kernels"
+                             " and --profile")
         sys.path.insert(0, os.path.abspath(argv[argv.index("--root") + 1]))
     import torch
     if not torch.cuda.is_available():
@@ -2702,14 +3084,17 @@ def main() -> int:
         lib = ("" if lib_ms[name] is None
                else f", library {lib_ms[name]:.4f} ms")
         print(f"kernel {name}: {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}){lib}")
+              f"bound {b_ms:.4f} ms ({b_by}){lib}, route launches "
+              f"{launches.get(name, 0)}")
     print("(phase 2a: 1080p group-of-8 shapes, K3's costed form (tq_cost) "
           "and K1's fused form (intra_satd) at luma n=8, "
           "intra_pred_selected and tq_cost on the 3 rd candidates "
           "a block, commit_intra "
           f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
-          "frame, SR 64, two references, ME and MC on the 8-blocks, satd "
-          "on their merge candidates, "
+          "frame, SR 64, two references, me_coarse and me_fine on the "
+          "whole frame, the earlier forms me_full_search and me_refine on "
+          "the coarse tier 16 and the 8-blocks, subpel and mc_merge on the "
+          "8-blocks, mc_sel and satd on their merge candidates, "
           "commit_mixed with RDOQ; phase 2c: one 1080p B frame, two "
           "references per list, bi_cost on the 8-blocks, inter_pred_bi on "
           "its B decisions; phase 2d: cnn_depth on the 1080p group of 8 "
@@ -2725,7 +3110,8 @@ def main() -> int:
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fasthevc_tpu_torch/{src}", "replaces": rep,
-                "launches": launches[name], "max_abs_err": errs[name],
+                "launches": launches.get(name, 0),
+                "max_abs_err": errs[name],
                 "ms": timed[name][0], "plain_ms": timed[name][1],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": lib_ms[name]}

@@ -84,11 +84,20 @@ _SIGNATURES = {
     "fhv_downsample4": [_P, _P, _I, _I, _I, _P],
     # src, refs, center, out, R, H, W, n, rng, base_n, scale, clip, stream
     "fhv_sad_search": [_P] * 4 + [_I] * 8 + [_P],
+    # src, refs, out16, out32, out64, R, H, W, c, k, rng, scale, clip,
+    # stream
+    "fhv_me_coarse": [_P] * 5 + [_I] * 8 + [_P],
+    # y, refs, base16/32/64, out8/16/32/64, R, H, W, t, clip, stream
+    "fhv_me_fine": [_P] * 9 + [_I] * 5 + [_P],
     # src, refs, mv_int, rate_tab, tab_len, ls, out_c, out_mv, out_p, R, H,
     # W, n, stream
     "fhv_subpel": [_P, _P, _P, _P, _I, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     # refs, base, mvq, sel, raw, valid, R, H, W, n, tier, tier_w, stream
     "fhv_mc_sel": [_P] * 6 + [_I] * 6 + [_P],
+    # src, refs, base, list 0 (mv, ridx, pred, cost, rate), list 1 (or
+    # NULL), out mv/ridx/pred/cost/rate, L, ia0, ib0, ia1, ib1, H, W, n,
+    # tier, tier_w, edge_col, ls2, stream
+    "fhv_mc_merge": [_P] * 18 + [_I] * 11 + [_F, _P],
     # ref0, ref1, dir, mv, rmap, out, F, R0, R1, H, W, chroma, bit_depth,
     # stream
     "fhv_inter_pred": [_P] * 6 + [_I] * 7 + [_P],

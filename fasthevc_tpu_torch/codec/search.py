@@ -38,12 +38,12 @@ INTER_OVERHEAD_BITS = 2.0
 
 
 def _ops(plain: bool) -> tuple:
-    """The search's kernel entry points (predict, predict_satd, satd,
-    tq_cost): the wrappers, or with `plain` their twins."""
+    """The search's kernel entry points (predict, predict_satd, tq_cost):
+    the wrappers, or with `plain` their twins."""
     if plain:
         return (intra.predict_plain, intra.predict_satd_plain,
-                cost.satd_plain, transform.tq_cost_plain)
-    return (intra.predict, intra.predict_satd, cost.satd, transform.tq_cost)
+                transform.tq_cost_plain)
+    return (intra.predict, intra.predict_satd, transform.tq_cost)
 
 
 def _blocks(planes: torch.Tensor, n: int) -> torch.Tensor:
@@ -124,7 +124,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
     [F, B_n] in block raster order: mode{n}, cost{n} and split{n} (n above
     the min CU size), rawcost{n}.
     """
-    predict, predict_satd, _, tq_cost = _ops(plain)
+    predict, predict_satd, tq_cost = _ops(plain)
     f, h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     # f32 scalars stay on the host: a 0-dim CPU tensor enters a CUDA op as
@@ -220,48 +220,12 @@ def search_intra_frame(y_plane: torch.Tensor, lambda_sqrt: float,
     return {key: v[0] for key, v in dec.items()}
 
 
-def _neighbor_fields(field: torch.Tensor, gy: int, gx: int,
-                     edge_col: int = 0, edge_on=None) -> tuple:
-    """The left and top same-size-grid neighbours of a [B, C] block field
-    (zero at the frame edge): the search's stand-ins for the merge
-    candidates A1/B1 (search.py:54 `_neighbor_mvs`).  edge_col, edge_on:
-    the picture's left edge inside a halo-extended shard, where the left
-    field is zero too (:61-75)."""
-    c = field.shape[-1]
-    m = field.reshape(gy, gx, c)
-    left = torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
-    if _edge(edge_col, edge_on, gx):
-        left[:, edge_col] = 0
-    top = torch.cat([torch.zeros_like(m[:1]), m[:-1]], dim=0)
-    return left.reshape(-1, c), top.reshape(-1, c)
-
-
-def _with_merge_cands(st, src_b, ia: int, ib: int, mv, ridx, pred, cost_,
-                      rate_bits, n: int, ls, satd, plain: bool,
-                      edge_x: int = 0, edge_on=None) -> tuple:
-    """Fold the left and top same-size neighbours' (MV, ref) into one
-    list's candidate at the merge rate of 2 bits, chosen in the SATD
-    domain (search.py:438 `with_merge_cands`; the P search's loop at
-    :318-334 is the same with state refs 0 and R-1); a merge winner
-    adopts the neighbour's reference, ia or ib of the ME state.  edge_x,
-    edge_on: the shard's picture edge (mpm_edge_x, mpm_edge_on)."""
-    field = torch.cat([mv, ridx[:, None]], dim=1)
-    for cand in _neighbor_fields(field, st.h // n, st.w // n, edge_x // n,
-                                 edge_on):
-        cmv, cref = cand[:, :2].contiguous(), cand[:, 2]
-        raw_c, valid = me.mc_raw_from_state_sel(st, ia, ib, cref > 0, n, cmv,
-                                                plain=plain)
-        predc = ((raw_c + 32) >> 6).clamp(0, 255)
-        costc = torch.where(
-            valid, satd(src_b, predc[:, None])[:, 0].to(torch.float32)
-            + ls * 2.0, float("inf"))
-        better = costc < cost_
-        cost_ = torch.where(better, costc, cost_)
-        mv = torch.where(better[:, None], cmv, mv)
-        ridx = torch.where(better, cref, ridx)
-        pred = torch.where(better[:, None, None], predc, pred)
-        rate_bits = torch.where(better, 2.0, rate_bits)
-    return mv, ridx, pred, cost_, rate_bits
+def _merge_edge(edge_x: int, edge_on, n: int, w: int) -> int:
+    """The n-grid column whose left neighbour is the picture's edge inside
+    a halo-extended shard (the merge candidates' left field is zero there,
+    search.py:61-75), or -1."""
+    col = edge_x // n
+    return col if _edge(col, edge_on, w // n) else -1
 
 
 def _pick_ref(sp_n, ia: int, ib: int) -> tuple:
@@ -321,7 +285,7 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     dir{n} (1), mv0{n} ([B_n, 2] quarter-pel) and ref0{n} ([B_n] ref
     index), with list 1's mv1{n} and ref1{n} zero, each in block raster
     order."""
-    _, _, satd, tq_cost = _ops(plain)
+    _, _, tq_cost = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -344,10 +308,11 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     dp = None
     for n in sizes:
         me_cost, mv, pred, sel = _pick_ref(sp[n], 0, ib)
-        mv, ridx, pred, _, rate_bits = _with_merge_cands(
-            st, _blocks(y[None], n), 0, ib, mv, sel.to(torch.int32), pred,
-            me_cost, me.mv_rate_bits(mv), n, ls, satd, plain, mpm_edge_x,
-            mpm_edge_on)
+        # the merge candidates, folded in one K11 launch
+        (mv, ridx, pred, _, rate_bits), = me.mc_merge(
+            st, [(0, ib, mv, sel.to(torch.int32), pred, me_cost,
+                  me.mv_rate_bits(mv))], n, lambda_sqrt,
+            _merge_edge(mpm_edge_x, mpm_edge_on, n, w), plain=plain)
         icost = _inter_leaf(y, n, pred, rate_bits, qp_i, lam, tq_cost)
         raw_intra = intra_dec[f"rawcost{n}"]
         out[f"mode{n}"] = intra_dec[f"mode{n}"]
@@ -384,7 +349,7 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     (1 L0, 2 L1, 3 BI; 1 for intra), mv0{n}, mv1{n} ([B_n, 2]
     quarter-pel), ref0{n} and ref1{n} ([B_n] ref index), each in block
     raster order."""
-    _, _, satd, tq_cost = _ops(plain)
+    _, _, tq_cost = _ops(plain)
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -409,15 +374,16 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     out = {}
     dp = None
     for n in sizes:
-        src_b = _blocks(y[None], n)
-        per_list = []
+        lists = []
         for ia, ib in ((0, i0b), (i1a, i1b)):
             c, mv, pred, sel = _pick_ref(sp[n], ia, ib)
-            per_list.append(_with_merge_cands(
-                st, src_b, ia, ib, mv, sel.to(torch.int32), pred, c,
-                me.mv_rate_bits(mv), n, ls, satd, plain, mpm_edge_x,
-                mpm_edge_on))
-        (mv0, r0idx, p0, c0, r0bits), (mv1, r1idx, p1, c1, r1bits) = per_list
+            lists.append((ia, ib, mv, sel.to(torch.int32), pred, c,
+                          me.mv_rate_bits(mv)))
+        # both lists' merge candidates, folded in one K11 launch
+        (mv0, r0idx, p0, c0, r0bits), (mv1, r1idx, p1, c1, r1bits) = \
+            me.mc_merge(st, lists, n, lambda_sqrt,
+                        _merge_edge(mpm_edge_x, mpm_edge_on, n, w),
+                        plain=plain)
         pbi, cbi = me.bi_cost(
             st.y, st.refs, mv0, torch.where(r0idx > 0, i0b, 0), mv1,
             torch.where(r1idx > 0, i1b, i1a), r0bits, r1bits, lambda_sqrt,

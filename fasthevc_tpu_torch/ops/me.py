@@ -1,23 +1,32 @@
 """Batched motion estimation and exact motion compensation.
 
 Counterpart of fasthevc_tpu/ops/me.py.  Four kernels carry it on the card:
-  * K9 (csrc/me_int.cu), the integer stage: `downsample4` (the 4x
-    decimation of the coarse search) and `sad_search`, one CTA per (ref,
-    block), which serves both the dense full search (the reference's
-    `_full_search_int`) and the +-3 refinement around a per-block centre
-    (`me_state`'s tier and 8-block refinements);
+  * K9 (csrc/me_int.cu), the integer stage, three launches a picture:
+    `downsample4` (the 4x decimation of the coarse search), `me_coarse`
+    (every tier's full search at a zero centre, the larger tiers' SADs as
+    sums of their tier-16 children's) and `me_fine` (every +-3
+    refinement, the 16-blocks' SADs as sums of their 8-children's).  The
+    earlier form, `sad_search` (one search a launch, counted as
+    `me_full_search` or `me_refine`), stays callable; no route launches
+    it;
   * K10 (csrc/subpel.cu), the sub-pel stage (`_subpel_core`): 9 half-pel
     then 8 quarter-pel candidates with the exact 8-tap filter, each costed
     SATD + lambda_sqrt * mv-rate;
-  * K11 (csrc/mc.cu), exact MC: `mc_sel`, the raw 14-bit prediction of
-    every n-block from per-block (qpel MV, ref) with the reference's window
-    test (`mc_raw_from_state_sel`), and `inter_pred`, the commit's
-    prediction planes (`inter_pred_planes`: luma 8-tap, chroma 4-tap,
-    uni/bi rounding; counted as `inter_pred_bi` when list 1 is given);
+  * K11 (csrc/mc.cu), exact MC: `mc_merge`, the merge candidates of one
+    block size for one or both lists, their MC, SATD and fold in one
+    launch (the searches' `with_merge_cands`); `mc_sel`, the earlier form
+    (the raw 14-bit prediction and the window test,
+    `mc_raw_from_state_sel`; no route launches it); and `inter_pred`, the
+    commit's prediction planes (`inter_pred_planes`: luma 8-tap, chroma
+    4-tap, uni/bi rounding; counted as `inter_pred_bi` when list 1 is
+    given);
   * K12 (csrc/bi.cu), `bi_cost`: the B search's BI candidate, the bi
     average of both lists' exact predictions and its SATD cost, on K11's
     filter (csrc/mc_common.cuh).
-Each has a plain PyTorch twin (`*_plain`) in this module.
+Each has a plain PyTorch twin (`*_plain`) in this module.  The twins of
+`me_coarse`, `me_fine` and `mc_merge` compute as the reference does, one
+tier or one candidate at a time, so the card tests hold the kernels' sums
+against a computation that does not use them.
 
 The JAX package gathers per-tier reference windows once (edge-clamped, at
 a +-80 overhang) and serves every consumer from them through one-hot
@@ -301,6 +310,107 @@ def sad_search(src, refs, center, n: int, rng: int, base_n: int, scale: int,
     return out
 
 
+def me_coarse_plain(src, refs, search_range: int, tiers, scale: int
+                    ) -> dict:
+    """K9 twin, coarse stage (me.py:233-248): each tier's full search at a
+    zero centre over [-rng, rng]^2 on the search planes src [H, W] and refs
+    [R, H, W] (the 1/4 planes at scale 4, rng = ceil(SR / 4); full
+    resolution at scale 1, rng = SR), one tier at a time.  Returns {tier:
+    [R, B_tier, 2] int32} = clip(d * scale, -SR, SR)."""
+    rng = search_range if scale == 1 else -(-search_range // 4)
+    return {n: sad_search_plain(src, refs, None, n // scale, rng,
+                                n // scale, scale, search_range)
+            for n in tiers}
+
+
+def _tier_list(tiers) -> list:
+    tiers = list(tiers)
+    if tiers != [16, 32, 64][:len(tiers)] or not tiers:
+        raise ValueError(f"K9: tiers {tiers} must be 16, 32[, 64]")
+    return tiers
+
+
+def me_coarse(src, refs, search_range: int, tiers, scale: int,
+              plain: bool = False) -> dict:
+    """The coarse stage of `me_coarse_plain` in one launch: CUDA tensors go
+    through K9 unless `plain`.  The planes' sides must be multiples of the
+    largest tier's block on them.  The kernel keeps samples as 16 bits in
+    shared memory, which holds any HEVC sample (bit depths up to 16)."""
+    if plain or not src.is_cuda:
+        return me_coarse_plain(src, refs, search_range, tiers, scale)
+    tiers = _tier_list(tiers)
+    src = src.to(torch.int32).contiguous()
+    refs = refs.to(torch.int32).contiguous()
+    _build.require_cuda("me_coarse", src, refs, dtype=torch.int32)
+    r, h, w = refs.shape
+    c, k = 16 // scale, tiers[-1] // 16
+    rng = search_range if scale == 1 else -(-search_range // 4)
+    ts = c * k
+    if (scale not in (1, 4) or src.shape != (h, w) or h % ts or w % ts
+            or 2 * (ts * ts + (ts + 2 * rng) ** 2) > 48 * 1024):
+        raise ValueError("me_coarse: src [H, W] and refs [R, H, W] with "
+                         "sides multiples of the largest tier on them, "
+                         "scale 1 or 4, the window within 48 KB")
+    out = {n: torch.empty((r, (h * scale // n) * (w * scale // n), 2),
+                          dtype=torch.int32, device=src.device)
+           for n in tiers}
+    rc = _build.lib().fhv_me_coarse(
+        src.data_ptr(), refs.data_ptr(), out[16].data_ptr(),
+        out[32].data_ptr() if 32 in out else None,
+        out[64].data_ptr() if 64 in out else None, r, h, w, c, k, rng,
+        scale, search_range, _build.stream_handle(src))
+    _build.launched("me_coarse")
+    _build.check(rc, "me_coarse")
+    return out
+
+
+def me_fine_plain(y, refs, base: dict, search_range: int, tiers) -> dict:
+    """K9 twin, refinement stage (me.py:265-306): each tier's +-3
+    refinement around its base, then the 8-blocks' around their
+    16-parent's base, one at a time.  y [H, W], refs [R, H, W], base
+    {tier: [R, B_tier, 2]}.  Returns {n: [R, B_n, 2] int32} for the tiers,
+    then 8: clip(base + d, -SR, SR)."""
+    mv = {n: sad_search_plain(y, refs, base[n], n, 3, n, 1, search_range)
+          for n in tiers}
+    mv[8] = sad_search_plain(y, refs, base[16], 8, 3, 16, 1, search_range)
+    return mv
+
+
+def me_fine(y, refs, base: dict, search_range: int, tiers,
+            plain: bool = False) -> dict:
+    """The refinements of `me_fine_plain` in one launch: CUDA tensors go
+    through K9 unless `plain`.  H and W must be multiples of the largest
+    tier."""
+    if plain or not y.is_cuda:
+        return me_fine_plain(y, refs, base, search_range, tiers)
+    tiers = _tier_list(tiers)
+    y = y.to(torch.int32).contiguous()
+    refs = refs.to(torch.int32).contiguous()
+    bases = {n: base[n].to(torch.int32).contiguous() for n in tiers}
+    _build.require_cuda("me_fine", y, refs, *bases.values(),
+                        dtype=torch.int32)
+    r, h, w = refs.shape
+    t = tiers[-1]
+    if y.shape != (h, w) or h % t or w % t or any(
+            b.shape != (r, (h // n) * (w // n), 2) for n, b in bases.items()):
+        raise ValueError("me_fine: y [H, W], refs [R, H, W] with H, W "
+                         "multiples of the largest tier, base {tier: [R, "
+                         "B_tier, 2]}")
+    out = {n: torch.empty((r, (h // n) * (w // n), 2), dtype=torch.int32,
+                          device=y.device) for n in tiers + [8]}
+
+    def ptr(d, n):
+        return d[n].data_ptr() if n in d else None
+
+    rc = _build.lib().fhv_me_fine(
+        y.data_ptr(), refs.data_ptr(), ptr(bases, 16), ptr(bases, 32),
+        ptr(bases, 64), ptr(out, 8), ptr(out, 16), ptr(out, 32),
+        ptr(out, 64), r, h, w, t, search_range, _build.stream_handle(y))
+    _build.launched("me_fine")
+    _build.check(rc, "me_fine")
+    return out
+
+
 class MEState:
     """Integer ME state of one source frame against R reference planes
     (me.py:187): base {tier: [R, B, 2]} coarse bases and mv_int {n: [R,
@@ -319,8 +429,10 @@ class MEState:
 
 def me_state(y_plane, ref_planes, search_range: int, max_size: int = 32,
              plain: bool = False, decimated=None) -> MEState:
-    """Coarse bases per tier, then the +-3 refinement of every tier around
-    its base and of the 8-blocks around their 16-parent's base (me.py:220).
+    """Coarse bases per tier (`me_coarse`), then the +-3 refinement of
+    every tier around its base and of the 8-blocks around their 16-parent's
+    base (`me_fine`) (me.py:220): K9 in three launches (two when SR <= 8
+    or `decimated` is given).
     y_plane [H, W]; ref_planes [R, H, W] or a list of [H, W].  decimated:
     the 4x4-decimated [source, refs...] [1 + R, H/4, W/4] to search above
     SR 8 in place of decimating y_plane and the refs here (a tile shard's,
@@ -338,21 +450,12 @@ def me_state(y_plane, ref_planes, search_range: int, max_size: int = 32,
     st.tiers = [n for n in (16, 32, 64) if n <= max_size]
     sr = search_range
     if sr <= 8:
-        for n in st.tiers:
-            st.base[n] = sad_search(y, refs, None, n, sr, n, 1, sr,
-                                    plain=plain)
+        st.base = me_coarse(y, refs, sr, st.tiers, 1, plain=plain)
     else:
         ds = (downsample4(torch.cat([y[None], refs]), plain=plain)
               if decimated is None else decimated.to(torch.int32))
-        sr4 = -(-sr // 4)
-        for n in st.tiers:
-            st.base[n] = sad_search(ds[0], ds[1:], None, n // 4, sr4, n // 4,
-                                    4, sr, plain=plain)
-    for n in st.tiers:
-        st.mv_int[n] = sad_search(y, refs, st.base[n], n, 3, n, 1, sr,
-                                  plain=plain)
-    st.mv_int[8] = sad_search(y, refs, st.base[16], 8, 3, 16, 1, sr,
-                              plain=plain)
+        st.base = me_coarse(ds[0], ds[1:], sr, st.tiers, 4, plain=plain)
+    st.mv_int = me_fine(y, refs, st.base, sr, st.tiers, plain=plain)
     return st
 
 
@@ -510,6 +613,117 @@ def mc_raw_from_state_sel(st: MEState, r_lo: int, r_hi: int, sel, n: int,
     refsel = torch.where(sel.bool(), r_hi, r_lo)
     tier = 16 if n == 8 else n
     return mc_sel(st.refs, st.base[tier], mvq, refsel, n, tier, plain=plain)
+
+
+def neighbor_fields(field: torch.Tensor, gy: int, gx: int,
+                    edge_col: int = -1) -> tuple:
+    """The left and top same-size-grid neighbours of a [B, C] block field
+    (zero at the frame edge): the searches' stand-ins for the merge
+    candidates A1/B1 (fasthevc_tpu/codec/search.py:54 `_neighbor_mvs`).
+    edge_col >= 0: the grid column whose left neighbour is the picture's
+    edge inside a halo-extended shard, where the left field is zero too
+    (:61-75)."""
+    c = field.shape[-1]
+    m = field.reshape(gy, gx, c)
+    left = torch.cat([torch.zeros_like(m[:, :1]), m[:, :-1]], dim=1)
+    if edge_col >= 0:
+        left[:, edge_col] = 0
+    top = torch.cat([torch.zeros_like(m[:1]), m[:-1]], dim=0)
+    return left.reshape(-1, c), top.reshape(-1, c)
+
+
+def mc_merge_plain(st: MEState, lists, n: int, lambda_sqrt: float,
+                   edge_col: int = -1, mc=mc_sel_plain,
+                   satd=cost.satd_plain) -> list:
+    """K11 twin, merge form: the merge fold as the reference composes it
+    (search.py:438 `with_merge_cands`; the P search's loop at :318-334 is
+    the same), one candidate at a time on `mc` (mc_sel's signature) and
+    `satd` (K2's), their twins by default (`mc_sel` and `cost.satd` give
+    the earlier form's path on the card):
+    for each list (ia, ib, mv [B, 2], ridx [B], pred [B, n, n], cost [B],
+    rate_bits [B]) of ME winners, the left and then the top same-size
+    neighbour's (MV, ref) is predicted from state ref ia (ref 0) or ib,
+    priced SATD + 2 lambda_sqrt in f32 (inf where `valid` fails) and taken
+    by strict <; a winner adopts the neighbour's ref and 2 rate bits.
+    Returns [(mv, ridx, pred, cost, rate_bits)] per list."""
+    ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
+    src_b = _blocks(st.y.to(torch.int32), n)
+    tier = 16 if n == 8 else n
+    out = []
+    for ia, ib, mv, ridx, pred, cost_, rate_bits in lists:
+        field = torch.cat([mv, ridx[:, None]], dim=1)
+        for cand in neighbor_fields(field, st.h // n, st.w // n, edge_col):
+            cmv, cref = cand[:, :2].contiguous(), cand[:, 2]
+            raw_c, valid = mc(st.refs, st.base[tier], cmv,
+                              torch.where(cref > 0, ib, ia), n, tier)
+            predc = ((raw_c + 32) >> 6).clamp(0, 255)
+            costc = torch.where(
+                valid, satd(src_b, predc[:, None])[:, 0].to(torch.float32)
+                + ls * 2.0, float("inf"))
+            better = costc < cost_
+            cost_ = torch.where(better, costc, cost_)
+            mv = torch.where(better[:, None], cmv, mv)
+            ridx = torch.where(better, cref, ridx)
+            pred = torch.where(better[:, None, None], predc, pred)
+            rate_bits = torch.where(better, 2.0, rate_bits)
+        out.append((mv, ridx, pred, cost_, rate_bits))
+    return out
+
+
+def mc_merge(st: MEState, lists, n: int, lambda_sqrt: float,
+             edge_col: int = -1, plain: bool = False) -> list:
+    """The merge fold of `mc_merge_plain` for one or two lists in one
+    launch: CUDA tensors go through K11 unless `plain`.  Returns [(mv [B,
+    2] int32, ridx [B] int32, pred [B, n, n] int32, cost [B] f32,
+    rate_bits [B] f32)] per list."""
+    if plain or not st.y.is_cuda:
+        return mc_merge_plain(st, lists, n, lambda_sqrt, edge_col)
+    if not 1 <= len(lists) <= 2 or n not in (8, 16, 32, 64):
+        raise ValueError("mc_merge: one or two lists, n in 8..64")
+    tier = 16 if n == 8 else n
+    y = st.y.to(torch.int32).contiguous()
+    refs = st.refs.to(torch.int32).contiguous()
+    base = st.base[tier].to(torch.int32).contiguous()
+    h, w = y.shape
+    b = (h // n) * (w // n)
+    ins, pairs = [], []
+    for ia, ib, mv, ridx, pred, cost_, rate_bits in lists:
+        i32 = [t.to(torch.int32).contiguous() for t in (mv, ridx, pred)]
+        f32 = [t.to(torch.float32).contiguous() for t in (cost_, rate_bits)]
+        if (i32[0].shape != (b, 2) or i32[1].shape != (b,)
+                or i32[2].shape != (b, n, n)
+                or any(t.shape != (b,) for t in f32)):
+            raise ValueError("mc_merge: mv [B, 2], ridx [B], pred [B, n, "
+                             "n], cost and rate [B] per list")
+        ins.append(i32 + f32)
+        pairs += [int(ia), int(ib)]
+    _build.require_cuda("mc_merge", y, refs, base, *(t for li in ins
+                                                      for t in li[:3]),
+                        dtype=torch.int32)
+    _build.require_cuda("mc_merge", *(t for li in ins for t in li[3:]),
+                        dtype=torch.float32)
+    if h % tier or w % tier or base.shape != (refs.shape[0], (h // tier)
+                                              * (w // tier), 2):
+        raise ValueError("mc_merge: H, W multiples of the tier, base [R, "
+                         "Bt, 2]")
+    nl, dev = len(lists), y.device
+    out = [torch.empty((nl, b, 2), dtype=torch.int32, device=dev),
+           torch.empty((nl, b), dtype=torch.int32, device=dev),
+           torch.empty((nl, b, n, n), dtype=torch.int32, device=dev),
+           torch.empty((nl, b), dtype=torch.float32, device=dev),
+           torch.empty((nl, b), dtype=torch.float32, device=dev)]
+    l1 = ins[1] if nl > 1 else [None] * 5
+    pairs += [0, 0] * (2 - nl)
+    ls2 = float(np.float32(lambda_sqrt) * np.float32(2.0))
+    rc = _build.lib().fhv_mc_merge(
+        y.data_ptr(), refs.data_ptr(), base.data_ptr(),
+        *(t.data_ptr() for t in ins[0]),
+        *(None if t is None else t.data_ptr() for t in l1),
+        *(t.data_ptr() for t in out), nl, *pairs, h, w, n, tier,
+        TIER_W[tier], edge_col, ls2, _build.stream_handle(y))
+    _build.launched("mc_merge")
+    _build.check(rc, "mc_merge")
+    return [tuple(t[i] for t in out) for i in range(nl)]
 
 
 # ---------------------------------------------------------------------------

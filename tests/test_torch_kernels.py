@@ -122,7 +122,8 @@ def test_library_is_keyed_by_the_sources():
         "satd_common.cuh", "rate_common.cuh", "cnn.cu", "halo.cu"}
     assert set(_build._SIGNATURES) >= {
         "fhv_tq_roundtrip", "fhv_tq_cost", "fhv_cnn_bwd_plan",
-        "fhv_downsample4", "fhv_sad_search", "fhv_subpel", "fhv_mc_sel",
+        "fhv_downsample4", "fhv_sad_search", "fhv_me_coarse",
+        "fhv_me_fine", "fhv_subpel", "fhv_mc_sel", "fhv_mc_merge",
         "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf",
         "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam", "fhv_halo"}
 
@@ -363,13 +364,35 @@ def _p_inputs(w, h, seed, device):
     return fr[2].to(device), torch.stack([fr[1], fr[0]]).to(device)
 
 
+def _old_me_state(y, refs, sr, ctu, plain):
+    """The earlier integer stage: downsample4 and the five sad_search
+    calls (the coarse tiers, the tier refinements, the 8-blocks), one
+    search a launch.  Returns ({tier: base}, {n: mv_int})."""
+    tiers = [n for n in (16, 32, 64) if n <= ctu]
+    if sr <= 8:
+        base = {n: me.sad_search(y, refs, None, n, sr, n, 1, sr,
+                                 plain=plain) for n in tiers}
+    else:
+        ds = me.downsample4(torch.cat([y[None], refs]), plain=plain)
+        sr4 = -(-sr // 4)
+        base = {n: me.sad_search(ds[0], ds[1:], None, n // 4, sr4, n // 4,
+                                 4, sr, plain=plain) for n in tiers}
+    mv = {n: me.sad_search(y, refs, base[n], n, 3, n, 1, sr, plain=plain)
+          for n in tiers}
+    mv[8] = me.sad_search(y, refs, base[16], 8, 3, 16, 1, sr, plain=plain)
+    return base, mv
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sr,nref,ctu", [(8, 1, 32), (8, 2, 32),
                                          (64, 1, 32), (64, 2, 32),
                                          (64, 2, 64)])
 def test_me_kernels_match_twins(cuda_device, sr, nref, ctu):
     """K9 and K10 against their twins; at CTU 64 the tier-64 search and
-    K10's 64-blocks (shared memory above the 48 KB default)."""
+    K10's 64-blocks (shared memory above the 48 KB default).  me_state
+    runs K9's fused form (me_coarse, me_fine); the earlier form
+    (sad_search, five launches) is held against its twin and against the
+    fused form."""
     y, refs = _p_inputs(128, 96 if ctu == 32 else 128, 60 + sr, cuda_device)
     refs = refs[:nref].contiguous()
     before = dict(_build.LAUNCHES)
@@ -386,10 +409,66 @@ def test_me_kernels_match_twins(cuda_device, sr, nref, ctu):
     for n in sk:
         for a, b in zip(sk[n], sp[n]):
             assert torch.equal(a, b)        # f32 costs bit for bit
-    names = ["me_refine", "subpel"] + (["me_downsample4", "me_full_search"]
-                                       if sr > 8 else ["me_full_search"])
+    names = ["me_coarse", "me_fine", "subpel"] + (["me_downsample4"]
+                                                  if sr > 8 else [])
     for name in names:
-        assert _build.LAUNCHES[name] > before.get(name, 0), name
+        assert _build.LAUNCHES[name] == before.get(name, 0) + (
+            len(sk) if name == "subpel" else 1), name
+    for name in ("me_full_search", "me_refine"):
+        assert _build.LAUNCHES.get(name, 0) == before.get(name, 0), name
+    old = _old_me_state(y, refs, sr, ctu, False)
+    old_twin = _old_me_state(y, refs, sr, ctu, True)
+    for a, b, c in zip(old, old_twin, (want.base, want.mv_int)):
+        for n in c:
+            assert torch.equal(a[n], b[n]) and torch.equal(a[n], c[n])
+    assert _build.LAUNCHES["me_full_search"] == before.get(
+        "me_full_search", 0) + len(got.base)
+    assert _build.LAUNCHES["me_refine"] == before.get(
+        "me_refine", 0) + len(got.base) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctu", [32, 64])
+@pytest.mark.parametrize("sr", [8, 64])
+@pytest.mark.parametrize("r", [1, 2, 4])
+def test_me_coarse_and_fine_kernels_match_twins(cuda_device, r, sr, ctu):
+    """K9's fused form against its twins, which search one tier at a time:
+    me_state on R references of a 192x128 picture; me_fine on seeded
+    bases within +-64, every third block's at +-64 on both axes, so that
+    the windows of the blocks at the picture's edges leave it; and a flat
+    picture, where every offset ties and the first must win.  One launch
+    of each a call."""
+    w, h = 192, 128
+    clip = synthesize_yuv(w, h, r + 1, seed=100 + r + sr + ctu)
+    fr = [torch.from_numpy(np.asarray(c[0], np.int32)) for c in clip]
+    y, refs = fr[r].to(cuda_device), torch.stack(fr[:r]).to(cuda_device)
+    tiers = [n for n in (16, 32, 64) if n <= ctu]
+    flat = torch.full_like(y, 77)
+    rng = np.random.default_rng(r + sr + ctu)
+    base = {}
+    for n in tiers:
+        b = rng.integers(-64, 65, (r, (h // n) * (w // n), 2))
+        b[:, ::3] = np.where(b[:, ::3] < 0, -64, 64)
+        base[n] = torch.from_numpy(b.astype(np.int32)).to(cuda_device)
+    before = dict(_build.LAUNCHES)
+    calls = 0
+    for yy, rr in ((y, refs), (flat, flat[None].repeat(r, 1, 1))):
+        got = me.me_state(yy, rr, sr, max_size=ctu)
+        want = me.me_state(yy, rr, sr, max_size=ctu, plain=True)
+        for n in want.base:
+            assert torch.equal(got.base[n], want.base[n]), n
+        assert list(got.mv_int) == list(want.mv_int)
+        for n in want.mv_int:
+            assert torch.equal(got.mv_int[n], want.mv_int[n]), n
+        calls += 1
+    # the flat picture: the first offset wins, the corner of the range
+    assert int(got.base[16].min()) == -sr and int(got.mv_int[8].min()) == -sr
+    got = me.me_fine(y, refs, base, 64, tiers)
+    want = me.me_fine(y, refs, base, 64, tiers, plain=True)
+    for n in want:
+        assert torch.equal(got[n], want[n]), n
+    assert _build.LAUNCHES["me_coarse"] == before.get("me_coarse", 0) + calls
+    assert _build.LAUNCHES["me_fine"] == before.get("me_fine", 0) + calls + 1
 
 
 @pytest.mark.cuda
@@ -453,6 +532,59 @@ def test_mc_kernels_match_twins(cuda_device):
                                     plain=True)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("lists", [1, 2])
+@pytest.mark.parametrize("edge", [-1, 1])
+def test_mc_merge_kernel_matches_twin(cuda_device, n, lists, edge):
+    """K11's merge form against its twin (mc_sel's and K2's twins and the
+    fold's strict <, one candidate at a time) on a four-reference state of
+    a 192x128 picture: MVs near the base and far out of the picture (the
+    tier window test fails, `valid` false), mixed refs, one or both lists
+    in a launch, a shard's picture edge at grid column 1 or none, and in
+    every fourth block an ME cost equal to the best candidate's, which
+    must not win.  Costs bit for bit; one launch a call."""
+    w, h = 192, 128
+    clip = synthesize_yuv(w, h, 5, seed=120 + n)
+    fr = [torch.from_numpy(np.asarray(c[0], np.int32)) for c in clip]
+    refs = torch.stack([fr[1], fr[0], fr[3], fr[4]]).to(cuda_device)
+    st = me.me_state(fr[2].to(cuda_device), refs, 64, max_size=64,
+                     plain=True)
+    b = (h // n) * (w // n)
+    rng = np.random.default_rng(n + lists + edge)
+    args = []
+    for ia, ib in ((0, 1), (2, 3))[:lists]:
+        mv = rng.integers(-24, 25, (b, 2))
+        mv[::4] = rng.integers(-259, 260, (b, 2))[::4]
+        t = [torch.from_numpy(a).to(cuda_device) for a in (
+            mv.astype(np.int32), rng.integers(0, 2, b).astype(np.int32),
+            rng.integers(0, 256, (b, n, n)).astype(np.int32),
+            rng.uniform(0, 40 * n * n, b).astype(np.float32))]
+        t.append(me.mv_rate_bits(t[0]))
+        # the cost the fold reaches from inf, as the ME cost of every
+        # fourth block: a tie, which strict < leaves to the ME winner
+        inf = torch.full_like(t[3], float("inf"))
+        best = me.mc_merge_plain(st, [(ia, ib, *t[:3], inf, t[4])], n,
+                                 9.75, edge)[0][3]
+        tie = (torch.arange(b, device=cuda_device) % 4 == 0) & best.isfinite()
+        t[3] = torch.where(tie, best, t[3])
+        args.append((ia, ib, *t))
+    before = _build.LAUNCHES["mc_merge"]
+    got = me.mc_merge(st, args, n, 9.75, edge)
+    assert _build.LAUNCHES["mc_merge"] == before + 1
+    want = me.mc_merge(st, args, n, 9.75, edge, plain=True)
+    assert len(got) == lists
+    merged = 0
+    for g, wl, a in zip(got, want, args):
+        for x, y in zip(g, wl):
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y)
+        merged += int((g[4] == 2.0).sum())
+        assert torch.equal(g[2][g[4] != 2.0], a[4][g[4] != 2.0])
+    assert merged > 0
 
 
 def _p_group(w, h, seed, device, nref=2):
@@ -537,8 +669,9 @@ def test_bi_cost_kernel_matches_twin(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["p", "b"])
 def test_ctu64_searches_match_twins(cuda_device, kind):
-    """The P and B searches at CTU 64 on the card against their twins: K2,
-    K10 and K12 on 64-blocks, K9 at tier 64."""
+    """The P and B searches at CTU 64 on the card against their twins:
+    K11's merge form, K10 and K12 on 64-blocks, K9's fused form at tier
+    64; the earlier forms (sad_search, mc_sel, K2) are not launched."""
     clip = synthesize_yuv(128, 128, 5, seed=12)
     fr = [torch.from_numpy(np.asarray(c[0], np.int32)).to(cuda_device)
           for c in clip]
@@ -556,9 +689,12 @@ def test_ctu64_searches_match_twins(cuda_device, kind):
                                  64, plain=plain)
     before = dict(_build.LAUNCHES)
     got = run(False)
-    names = ["satd", "subpel"] + (["bi_cost"] if kind == "b" else [])
+    names = ["me_coarse", "me_fine", "mc_merge", "subpel"] + (
+        ["bi_cost"] if kind == "b" else [])
     for name in names:
         assert _build.LAUNCHES[name] > before.get(name, 0), name
+    for name in ("me_full_search", "me_refine", "mc_sel", "satd"):
+        assert _build.LAUNCHES.get(name, 0) == before.get(name, 0), name
     assert torch.equal(got, run(True))
     assert (got[..., 2] > 0).any()
 
