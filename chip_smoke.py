@@ -8,8 +8,10 @@
     python3 chip_smoke.py --profile-mesh   # only phase 16's cases, profiled
     python3 chip_smoke.py --bench-kernels [--root DIR]
                                        # K9's integer stage and the merge
-                                       # candidates, K10, K1 + K2 and K1's
-                                       # fused form, then phases 3, 7, 10,
+                                       # candidates, K12 and its glue, K10,
+                                       # K1 + K2 and K1's fused form, the RD
+                                       # shortlist and its glue, then
+                                       # phases 3, 7, 10,
                                        # 14 and 16's encodes, no twins (DIR:
                                        # another checkout's package; --root
                                        # is refused in every other mode)
@@ -26,8 +28,15 @@ Phases (any failure raises, and the script exits non-zero):
      a. K1-K4 (the search) on a group of 8 frames, exactly (K4's rate
         within 1e-5 relative), and K1's fused form (the intra search's
         35-mode SATDs) against its twin and against K1 + K2 at n = 8, 16
-        and 32, each timed beside K1 + K2, and K1's selected form on each
-        block's 3 least-SATD modes against the gather of the 35 (K2 is
+        and 32, each timed beside K1 + K2; K1's rd form (intra_rd_cands,
+        the RD shortlist: the 3 least RMD costs of each block's SATDs and
+        MPM bits, their modes, bits and residuals) against its twin and
+        against the parent's path (the stable sort, K1's selected form and
+        the subtract), at n = 8, 16 and 32, and its form given the modes
+        on the chroma DM blocks (n = 4, 8, 16) against the selected form
+        and the subtract, each timed with events and alone (torch.profiler)
+        beside the parent's path and the bound; the superseded selected
+        form at n = 8 against its twin and the gather of the 35 (K2 is
         timed here at [B, 35] only beside K1 + K2: no route launches that
         form); K3's costed form (tq_cost, the search's T/Q/IQ/IT with K4's
         SSE and rate inside) on the residuals of those 3 rd candidates
@@ -60,15 +69,18 @@ Phases (any failure raises, and the script exits non-zero):
      c. the B kernels on POC 4 of phase 10's clip with two references per
         list (0, 8 and 8, 16) at SR 64: K9's fused form over the four
         state references and K11's merge form over both lists (n = 8, 16,
-        32), as in b; K12 (the bi-prediction cost) for the 8-, 16- and
-        32-blocks, each with its time, twin time and bound, and K11's
-        bi-predicting planes on that frame's B decisions, exactly (the
-        f32 costs bit for bit);
+        32), as in b; K12's selected form (bi_select: the BI candidate and
+        the direction, with the chosen prediction and rate) on the 8-, 16-
+        and 32-blocks' merge winners, against its twin and against the
+        parent's path (bi_cost, then stack, argmin and where), each timed
+        with events and alone beside the bound; the superseded bi_cost at
+        n = 8; and K11's bi-predicting planes on that frame's B decisions,
+        exactly (the f32 costs and rates bit for bit);
      e. the forms the CTU-64 classic route adds, on that B frame padded
         to the CTU-64 grid: K9's fused form with its tier 64 (and the
-        earlier form's tier-64 searches), K10, K2, K12 and K11's merge
-        form on the 64-blocks, exactly, each with its time, twin time and
-        bound (run before d, which needs the card's memory);
+        earlier form's tier-64 searches), K10, K2, K11's merge form and
+        K12's selected form on the 64-blocks, exactly, each with its time,
+        twin time and bound (run before d, which needs the card's memory);
      d. the partition CNN with seeded random weights: K13 on a 1080p group
         of 8 at CTU 32 (and one 1080p frame at CTU 64), its training-mode
         logits within CNN_TOL of the conv2d chain's and its depth maps
@@ -230,16 +242,21 @@ TWIN_FRAMES = 2          # K5's twin at 1080p: the first frames of the group
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 33.5e12
 PEAK_F32_FLOPS_S = 67e12     # the partition CNN's f32 work, no tensor core
-# the intra search: K1's fused form (all 35 modes' SATDs), K1's selected
-# form (the rd candidates, chroma DM), K3's costed form (T/Q/IQ/IT with K4's
-# SSE and rate inside)
-SEARCH_KERNELS = ("intra_pred_selected", "intra_satd", "tq_cost")
+# the intra search: K1's fused form (all 35 modes' SATDs), K1's rd form (the
+# RD shortlist and its residuals, the chroma DM residual), K3's costed form
+# (T/Q/IQ/IT with K4's SSE and rate inside)
+SEARCH_KERNELS = ("intra_rd_cands", "intra_satd", "tq_cost")
 # the superseded forms, which no route launches: K3's plain form and K4
 # (tq_cost replaced the pair), K9's one-search-a-launch form (me_coarse and
 # me_fine replaced it), K11's merge-candidate MC and K2 (mc_merge replaced
-# them with the fold); every route's launches must show none of them
+# them with the fold), K1's selected form (intra_rd_cands replaced it with
+# the sort and the subtract) and K12's bi_cost (bi_select replaced it with
+# the direction choice); every route's launches must show none of them
 UNLAUNCHED = ("tq_roundtrip", "sse_rate", "me_full_search", "me_refine",
-              "mc_sel", "satd")
+              "mc_sel", "satd", "intra_pred_selected", "bi_cost")
+# K1's rd form a search batch of the all-intra route: the three luma sizes
+# and both chroma planes at each
+RD_PER_GROUP = 9
 INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
 # the P search's K9 (three launches a picture), K10 and K11's merge form
 # (one launch a block size), then the commit's
@@ -249,7 +266,7 @@ P_KERNELS = ME_KERNELS + ("inter_pred", "commit_mixed", "deblock_bs",
                           "deblock_cbf")
 LDP_ROUTE = INTRA_ROUTE + P_KERNELS
 RA_FRAMES = 17           # random access: the IDR and one GOP-16
-B_KERNELS = ("bi_cost", "inter_pred_bi")
+B_KERNELS = ("bi_select", "inter_pred_bi")
 RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
             + B_KERNELS)
 # the classic per-frame route's P search: K1 (fused and selected forms),
@@ -269,6 +286,8 @@ K14_PAIRS = 41           # phase 2d: K14 and autograd through the chain
 BENCH_ENCODES = 5        # --bench-kernels: timed encodes of each route
 CNN_QPS = (22, 27, 32, 37)   # config 4's rate points (cli/evaluate.py QPS)
 META = {
+    "intra_rd_cands": ("csrc/intra_pred.cu",
+                       "fasthevc_tpu/codec/search.py:170"),
     "intra_pred_selected": ("csrc/intra_pred.cu",
                             "fasthevc_tpu/ops/intra.py:239"),
     "intra_satd": ("csrc/intra_pred.cu", "fasthevc_tpu/codec/search.py:163"),
@@ -291,6 +310,7 @@ META = {
     "commit_mixed": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:570"),
     "deblock_bs": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:177"),
     "deblock_cbf": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
+    "bi_select": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
     "bi_cost": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
     "inter_pred_bi": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "cnn_depth": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:82"),
@@ -534,6 +554,102 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
         faster.append((name, ms < k3 + k4_ms))
         return ms, k3, k4_ms, (lk, rk)
 
+    ls = torch.tensor(_lambda_sqrt(QP), dtype=torch.float32)
+
+    def both_ms(fn):
+        """(CUDA-event median ms, torch.profiler's device ms alone) of fn."""
+        return _median_ms(fn), _device_ms(fn)
+
+    def rd_check(n, top, left, src, d, timed_, work_):
+        """K1's rd form on the group's n-blocks, 3 candidates (the search's
+        count) from their SATDs d and MPM bits: bit for bit against its
+        twin and against the parent's path (the unfused RMD cost, a stable
+        sort, K1's selected form, the subtract and the bits' gather) where
+        their shortlists agree (the rounding repair may move a near tie);
+        each timed, with events and alone, beside the bound.  Returns the
+        shortlist."""
+        from fasthevc_tpu_torch.codec.search import _intra_mode_bits
+        lg = n.bit_length() - 1
+        bits = _intra_mode_bits(torch.argmin(d, dim=1).to(torch.int32),
+                                GROUP, y.shape[1] // n, y.shape[2] // n)
+        b = src.shape[0]
+
+        def new():
+            return intra.intra_rd_cands(top, left, lg, src, d, bits, ls, 3)
+
+        def parent():
+            return _shortlist_parent(torch, intra, top, left, lg, src, d,
+                                     bits, ls)
+
+        got = new()
+        want = intra.intra_rd_cands_plain(top, left, lg, src, d, bits, ls, 3)
+        for i, (a, w) in enumerate(zip(got, want)):
+            if a.dtype == torch.float32:
+                a, w = a.view(torch.int32), w.view(torch.int32)
+            _same(torch, f"intra_rd_cands n={n} output {i}", a, w)
+        old = parent()
+        agree = (old[0] == got[0]).all(dim=1)
+        moved = int((~agree).sum().item())
+        _same(torch, f"intra_rd_cands against the parent's path n={n}",
+              got[2].reshape(b, 3, n, n)[agree],
+              old[2].reshape(b, 3, n, n)[agree])
+        del old
+        ms, dev = both_ms(new)
+        p_ms, p_dev = both_ms(parent)
+        w = (4 * (2 * b * (2 * n + 1) + b * n * n + 2 * b * 35
+                  + b * 3 * n * n + 2 * b * 3),
+             b * (35 * 4 + 3 * 10 * n * n))
+        b_ms, b_by = _bound(*w)
+        # the selected form's count: the refs and modes in, the
+        # predictions out
+        s_ms, s_by = _bound(4 * (2 * b * (2 * n + 1) + b * 3
+                                 + b * 3 * n * n), 6 * b * 3 * n * n)
+        print(f"kernel intra_rd_cands n={n} ({b} blocks, 3 candidates): "
+              f"{ms:.4f} ms, alone {_ms_text(dev)}; the parent's path (sort"
+              f", intra_pred_selected, subtract) {p_ms:.4f} ms, alone "
+              f"{_ms_text(p_dev)}; bound {b_ms:.4f} ms ({b_by}), "
+              f"{_share_text(b_ms, dev)} of the kernel alone "
+              f"(intra_pred_selected's own count: {s_ms:.4f} ms, {s_by}); "
+              f"shortlists moved by the RMD rounding repair: {moved} of {b}")
+        if timed_ is not None:
+            timed_["intra_rd_cands"] = (ms, _median_ms(
+                lambda: intra.intra_rd_cands_plain(top, left, lg, src, d,
+                                                   bits, ls, 3)))
+            work_["intra_rd_cands"] = w
+        return got[0]
+
+    def chroma_check(cn, top, left, src, modes):
+        """K1's rd form given the modes (the chroma DM residual): against
+        its twin and the parent's path (K1's selected form, the subtract),
+        timed as rd_check's.  Returns the residuals."""
+        lg = cn.bit_length() - 1
+
+        def new():
+            return intra.intra_rd_residuals(top, left, lg, src, modes, False)
+
+        def parent():
+            return src - intra.predict_selected(top, left, lg, modes[:, 0],
+                                                False)
+
+        got = new()
+        _same(torch, f"intra_rd_cands chroma n={cn}", got,
+              intra.intra_rd_residuals_plain(top, left, lg, src, modes,
+                                             False))
+        _same(torch, f"intra_rd_cands chroma against the parent's path "
+              f"n={cn}", got, parent())
+        ms, dev = both_ms(new)
+        p_ms, p_dev = both_ms(parent)
+        b = src.shape[0]
+        w = (4 * (2 * b * (2 * cn + 1) + 2 * b * cn * cn + b),
+             b * 10 * cn * cn)
+        b_ms, b_by = _bound(*w)
+        print(f"kernel intra_rd_cands chroma n={cn} ({b} blocks): {ms:.4f} "
+              f"ms, alone {_ms_text(dev)}; the parent's path "
+              f"(intra_pred_selected, subtract) {p_ms:.4f} ms, alone "
+              f"{_ms_text(p_dev)}; bound {b_ms:.4f} ms ({b_by}), "
+              f"{_share_text(b_ms, dev)} of the kernel alone")
+        return got
+
     # luma: all 35 modes, SATD, then the true-RD pass on the top 3 modes
     for n in (8, 16, 32):
         lg = n.bit_length() - 1
@@ -563,21 +679,26 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
               f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / fused[0]:.1f}% of the "
               f"bound; K1 all-mode + K2 {k12[0]:.4f} + {k12[1]:.4f} = "
               f"{sum(k12):.4f} ms")
-        # the rd candidates: K1's selected form on the 3 least SATDs
-        take = torch.sort(fk, dim=1, stable=True).indices[:, :3]
-        ck = intra.predict(top, left, lg, take)
-        _same(torch, f"K1 selected n={n}", ck,
-              intra.predict_plain(top, left, lg, take))
-        _same(torch, f"K1 selected against the gather n={n}", ck,
-              torch.take_along_dim(pk, take[:, :, None, None], dim=1))
+        # the RD shortlist: K1's rd form on the group's SATDs and MPM bits
+        take = rd_check(n, top, left, src, fk, timed if n == 8 else None,
+                        work)
+        if n == 8:
+            # the superseded selected form, on the same shortlist
+            ck = intra.predict(top, left, lg, take)
+            _same(torch, f"K1 selected n={n}", ck,
+                  intra.predict_plain(top, left, lg, take))
+            _same(torch, f"K1 selected against the gather n={n}", ck,
+                  torch.take_along_dim(pk, take[:, :, None, None].long(),
+                                       dim=1))
+            del ck
         res = (src[:, None] - pk[:, :3]).reshape(-1, n, n).contiguous()
         ms, k3, k4_ms, (lk, rk) = tq_check(f"luma n={n}", res, lg, True)
         if n == 8:  # the largest batch: B = 8 * 136 * 240 blocks
             bt = res.shape[0]
             timed["intra_satd"], work["intra_satd"] = fused, w
-            # the kernels line has K1's selected form, the only one the
-            # routes launch; the all-mode form and K2 at [B, 35] (phase
-            # 2b has K2's entry) are printed beside it
+            # the kernels line keeps K1's selected form, which no route
+            # launches since the rd form; the all-mode form and K2 at [B,
+            # 35] (phase 2b has K2's entry) are printed beside it
             timed["intra_pred_selected"] = (
                 _median_ms(lambda: intra.predict(top, left, lg, take)),
                 _median_ms(lambda: intra.predict_plain(top, left, lg, take)))
@@ -609,18 +730,16 @@ def phase_search_kernels(torch, y, c, errs, timed, work):
             timed["tq_cost"] = (ms, _median_ms(
                 lambda: transform.tq_cost_plain(res, qp, lg)))
             work["tq_cost"] = _tq_work(bt, n, True)
-        del pk, sk, fk, ck, res, lk, rk
+        del pk, sk, fk, res, lk, rk
     # chroma DM: one selected mode per block, at both dead-zone offsets
     gen = torch.Generator(device="cpu").manual_seed(7)
     for cn in (4, 8, 16):
         lg = cn.bit_length() - 1
         top, left = intra.grid_refs(c, cn)
-        modes = torch.randint(0, 35, (top.shape[0],), generator=gen).to(
+        modes = torch.randint(0, 35, (top.shape[0], 1), generator=gen).to(
             c.device)
-        pk = intra.predict_selected(top, left, lg, modes, is_luma=False)
-        pp = intra.predict_plain(top, left, lg, modes[:, None], False)[:, 0]
-        _same(torch, f"K1 chroma n={cn}", pk, pp)
-        res = (_blocks(c, cn) - pk).contiguous()
+        res = chroma_check(cn, top, left, _blocks(c, cn).contiguous(),
+                           modes)
         for intra_dz in (True, False):
             tq_check(f"chroma n={cn} {'intra' if intra_dz else 'inter'}",
                      res, lg, intra_dz)
@@ -1200,11 +1319,12 @@ def _ra_cfg(frames: int):
 
 def phase_b_kernels(torch, timed, work):
     """K9's fused form over the four state references, K11's merge form
-    over both lists (n = 8, 16, 32), K12 and K11's bi-predicting planes
-    against their twins on POC 4 of the random-access clip, with
+    over both lists (n = 8, 16, 32), K12's selected form (and bi_cost at
+    n = 8) and K11's bi-predicting planes against their twins on POC 4 of
+    the random-access clip, with
     references 0, 8 (list 0) and 8, 16 (list 1) as the GOP-16 gives them,
     at SR 64 and POC 4's QP (32 + 2)."""
-    from fasthevc_tpu_torch.codec.search import _pick_ref, search_b_maps
+    from fasthevc_tpu_torch.codec.search import search_b_maps
     from fasthevc_tpu_torch.ops import me
 
     dev = torch.device("cuda")
@@ -1230,31 +1350,25 @@ def phase_b_kernels(torch, timed, work):
     for n in (8, 16, 32):
         _merge_check(torch, "1080p B frame", st,
                      _merge_lists(torch, st, sp, n, [(0, 1), (2, 3)]), n, ls)
-    hw = ph * WIDTH
     for n in (8, 16, 32):
-        _, mv0, _, sel0 = _pick_ref(sp[n], 0, 1)
-        _, mv1, _, sel1 = _pick_ref(sp[n], 2, 3)
-        rates = (me.mv_rate_bits(mv0), me.mv_rate_bits(mv1))
-        args = (st.y, st.refs, mv0, sel0.to(torch.int32), mv1,
-                sel1.to(torch.int32) + 2, *rates, ls, n)
-        (pk, ck), (pp, cp) = me.bi_cost(*args), me.bi_cost(*args, plain=True)
-        _same(torch, f"K12 pbi n={n}", pk, pp)
-        _same(torch, f"K12 cbi bits n={n}", ck.view(torch.int32),
-              cp.view(torch.int32))
-        ms = _median_ms(lambda: me.bi_cost(*args))
-        plain_ms = _median_ms(lambda: me.bi_cost(*args, plain=True))
-        b = hw // (n * n)
-        # the reference planes and the source read once (the blocks'
-        # windows overlap), each block's MVs, refs and rates in, pbi and
-        # cbi out.  Two lists' separable filters, the average (4
-        # operations a sample) and the 8x8 Hadamard (6 butterfly operations
-        # a sample, the difference and the absolute sum)
-        w = (4 * (refs.shape[0] * hw + hw + b * (8 + n * n + 1)),
-             b * (2 * _interp_ops(n, 8) + n * n * (4 + 8)))
-        b_ms, b_by = _bound(*w)
-        print(f"kernel bi_cost n={n}: {ms:.4f} ms, plain twin "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        args = _bi_args(torch, st, sp, n, ls)
+        _bi_select_check(torch, "1080p B frame", args, timed, work)
         if n == 8:
+            # the superseded bi_cost, on the same lists' winners
+            cargs = args[:8] + args[12:]
+            (pk, ck), (pp, cp) = (me.bi_cost(*cargs),
+                                  me.bi_cost(*cargs, plain=True))
+            _same(torch, f"K12 pbi n={n}", pk, pp)
+            _same(torch, f"K12 cbi bits n={n}", ck.view(torch.int32),
+                  cp.view(torch.int32))
+            ms = _median_ms(lambda: me.bi_cost(*cargs))
+            plain_ms = _median_ms(lambda: me.bi_cost(*cargs, plain=True))
+            b = ph * WIDTH // (n * n)
+            w = _bi_cost_work(refs.shape[0], ph * WIDTH, b, n)
+            b_ms, b_by = _bound(*w)
+            print(f"kernel bi_cost n={n} (no route launches it): {ms:.4f} "
+                  f"ms, plain twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})")
             timed["bi_cost"], work["bi_cost"] = (ms, plain_ms), w
 
     # K11's bi-predicting planes on this frame's B decisions
@@ -1286,6 +1400,103 @@ def phase_b_kernels(torch, timed, work):
     torch.cuda.synchronize()
 
 
+def _bi_args(torch, st, sp, n: int, ls: float) -> tuple:
+    """bi_select's arguments as search_b_frame gives them, on an ME state
+    of the references l0a l0b l1a l1b: each list's sub-pel winner of its
+    two references, folded with the merge candidates (one mc_merge)."""
+    from fasthevc_tpu_torch.ops import me
+    (mv0, r0, p0, c0, b0), (mv1, r1, p1, c1, b1) = me.mc_merge(
+        st, _merge_lists(torch, st, sp, n, [(0, 1), (2, 3)]), n, ls)
+    return (st.y, st.refs, mv0, torch.where(r0 > 0, 1, 0), mv1,
+            torch.where(r1 > 0, 3, 2), b0, b1, c0, c1, p0, p1, ls, n)
+
+
+def _bi_parent(torch, me, args: tuple) -> tuple:
+    """bi_select's function on the parent's path: bi_cost, then stack,
+    argmin and the selects in PyTorch, as search_b_frame ran them."""
+    pbi, cbi = me.bi_cost(*args[:8], *args[12:])
+    dchoice = torch.argmin(torch.stack([args[8], args[9], cbi]), dim=0)
+    d3 = dchoice[:, None, None]
+    return (torch.where(d3 == 0, args[10],
+                        torch.where(d3 == 1, args[11], pbi)),
+            torch.where(dchoice == 0, args[6],
+                        torch.where(dchoice == 1, args[7],
+                                    args[6] + args[7])), dchoice)
+
+
+def _shortlist_parent(torch, intra, top, left, lg: int, src, d, bits, ls):
+    """The intra search's RD shortlist on the parent's path (3 candidates):
+    the RMD cost in PyTorch, a stable sort, K1's selected form, the
+    subtract and the bits' gather."""
+    n, b = 1 << lg, src.shape[0]
+    cost_rmd = d.to(torch.float32) + ls * bits
+    take = torch.sort(cost_rmd, dim=1, stable=True).indices[:, :3]
+    cands = intra.predict(top, left, lg, take)
+    return (take, torch.take_along_dim(bits, take, dim=1),
+            (src[:, None] - cands).reshape(b * 3, n, n))
+
+
+def _bi_cost_work(rr: int, hw: int, b: int, n: int) -> tuple:
+    """(bytes, operations) of K12's BI candidate on b n-blocks: the
+    reference planes and the source read once (the blocks' windows
+    overlap), each block's MVs, refs and rates in, pbi and cbi out; two
+    lists' separable filters, the average (4 operations a sample) and the
+    8x8 Hadamard (6 butterfly operations a sample, the difference and the
+    absolute sum)."""
+    return (4 * (rr * hw + hw + b * (8 + n * n + 1)),
+            b * (2 * _interp_ops(n, 8) + n * n * (4 + 8)))
+
+
+def _bi_select_check(torch, label: str, args: tuple, timed=None,
+                     work=None) -> None:
+    """K12's selected form against its twin, bit for bit, and against the
+    parent's path (bi_cost, then stack, argmin and the selects in
+    PyTorch); each timed with events and alone, beside the bound: bi_cost's
+    bytes without pbi, plus c0 and c1, the p0 / p1 samples of the blocks
+    where a list wins (this run's choices), and pred_sel, rate_sel and
+    dchoice."""
+    from fasthevc_tpu_torch.ops import me
+
+    y, refs, n = args[0], args[1], args[-1]
+
+    def new():
+        return me.bi_select(*args)
+
+    def parent():
+        return _bi_parent(torch, me, args)
+
+    got = new()
+    want = me.bi_select_plain(*args)
+    old = parent()
+    for i, (a, w, o) in enumerate(zip(got, want, old)):
+        o = o.to(a.dtype)
+        if a.dtype == torch.float32:
+            a, w, o = (t.view(torch.int32) for t in (a, w, o))
+        _same(torch, f"bi_select n={n} output {i}", a, w)
+        _same(torch, f"bi_select against the parent's path n={n} output {i}",
+              a, o)
+    share = [float((got[2] == d).float().mean().item()) for d in (0, 1, 2)]
+    ms, dev = _median_ms(new), _device_ms(new)
+    p_ms, p_dev = _median_ms(parent), _device_ms(parent)
+    hw, b = y.numel(), got[2].numel()
+    cb_bytes, ops = _bi_cost_work(refs.shape[0], hw, b, n)
+    listwins = float((got[2] < 2).sum().item())
+    w = (cb_bytes - 4 * b * n * n + 4 * b * (2 + n * n + 2)
+         + 4 * listwins * n * n, ops)
+    b_ms, b_by = _bound(*w)
+    c_ms, c_by = _bound(cb_bytes, ops)
+    print(f"kernel bi_select n={n} ({label}, {b} blocks; L0 / L1 / BI "
+          f"{share[0]:.3f} / {share[1]:.3f} / {share[2]:.3f}): {ms:.4f} ms, "
+          f"alone {_ms_text(dev)}; the parent's path (bi_cost, stack, "
+          f"argmin, where) {p_ms:.4f} ms, alone {_ms_text(p_dev)}; bound "
+          f"{b_ms:.4f} ms ({b_by}), {_share_text(b_ms, dev)} of the kernel "
+          f"alone (bi_cost's own count: {c_ms:.4f} ms, {c_by})")
+    if timed is not None and n == 8:
+        timed["bi_select"] = (ms, _median_ms(
+            lambda: me.bi_select_plain(*args)))
+        work["bi_select"] = w
+
+
 def _b64_inputs(torch):
     """Phase 2e's B frame (POC 4 of phase 10's clip) and its references (0,
     8 and 8, 16) padded to the CTU-64 grid, int32 on the card, its
@@ -1314,10 +1525,10 @@ def phase_ctu64_kernels(torch) -> None:
     frame and references padded to the CTU-64 grid, SR 64: K9's fused form
     with its tier 64 (and the earlier form's tier-64 searches), K10 on
     the 64-blocks, K2 on the 64-blocks (the earlier merge candidates'
-    SATD), K12 and K11's merge form on the 64-blocks, each against its
-    twin, exactly (K10's, K12's and K11's f32 costs bit for bit), with its
-    time, twin time and bound."""
-    from fasthevc_tpu_torch.codec.search import _blocks, _pick_ref
+    SATD), K11's merge form and K12's selected form on the 64-blocks, each
+    against its twin, exactly (K10's and K11's f32 costs and K12's rates
+    bit for bit), with its time, twin time and bound."""
+    from fasthevc_tpu_torch.codec.search import _blocks
     from fasthevc_tpu_torch.ops import cost, me
 
     y, refs, ls, st = _b64_inputs(torch)
@@ -1359,18 +1570,11 @@ def phase_ctu64_kernels(torch) -> None:
     check("satd", lambda: (cost.satd(src, pred),),
           lambda: (cost.satd_plain(src, pred),),
           (4 * (2 * b * n * n + b), 9 * b * n * n))
-    _, mv0, _, sel0 = _pick_ref(sp, 0, 1)
-    _, mv1, _, sel1 = _pick_ref(sp, 2, 3)
-    bargs = (st.y, st.refs, mv0, sel0.to(torch.int32), mv1,
-             sel1.to(torch.int32) + 2, me.mv_rate_bits(mv0),
-             me.mv_rate_bits(mv1), ls, n)
-    check("bi_cost", lambda: me.bi_cost(*bargs),
-          lambda: me.bi_cost(*bargs, plain=True),
-          (4 * (rr * hw + hw + b * (8 + n * n + 1)),
-           b * (2 * _interp_ops(n, 8) + n * n * (4 + 8))))
     _merge_check(torch, "CTU 64, 1088x1920 B frame", st,
                  _merge_lists(torch, st, {n: sp}, n, [(0, 1), (2, 3)]), n,
                  ls)
+    _bi_select_check(torch, "CTU 64, 1088x1920 B frame",
+                     _bi_args(torch, st, {n: sp}, n, ls))
     for name, ms, plain_ms, w in rows:
         if name == "subpel":
             text = _subpel_bound_text(n, rr * b, w, ms)
@@ -1603,16 +1807,20 @@ def _require(launches: dict, names, what: str) -> None:
                                  f"superseded it")
 
 
-def _per_picture(launches: dict, pictures: int, sizes: int,
-                 what: str) -> None:
+def _per_picture(launches: dict, pictures: int, sizes: int, what: str,
+                 intra_rd: int, b_pictures: int = 0) -> None:
     """K9 at three launches an inter picture (the decimation, me_coarse,
-    me_fine) and K11's merge form at one a block size (SR 64)."""
+    me_fine), K11's merge form at one a block size (SR 64), K12's selected
+    form at one a B picture and block size, and K1's rd form `intra_rd`
+    times."""
     want = {"me_downsample4": pictures, "me_coarse": pictures,
-            "me_fine": pictures, "mc_merge": pictures * sizes}
+            "me_fine": pictures, "mc_merge": pictures * sizes,
+            "bi_select": b_pictures * sizes, "intra_rd_cands": intra_rd}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
-        raise AssertionError(f"{what}: K9 / K11 launches {got}, expected "
-                             f"{want} for {pictures} inter pictures")
+        raise AssertionError(f"{what}: K1 / K9 / K11 / K12 launches {got}, "
+                             f"expected {want} for {pictures} inter "
+                             f"pictures")
 
 
 def _ai_clip():
@@ -1680,6 +1888,11 @@ def phase_device_route(torch, params=None):
     _require(launches, INTRA_ROUTE + (() if params is None
                                       else ("cnn_depth",)),
              f"all-intra device-route encode ({_label(params)})")
+    want = RD_PER_GROUP * (TIMED // GROUP)
+    if launches["intra_rd_cands"] != want:
+        raise AssertionError(f"all-intra encode: {launches['intra_rd_cands']}"
+                             f" intra_rd_cands launches, expected {want} "
+                             f"({RD_PER_GROUP} a group of {GROUP})")
     return launches, st
 
 
@@ -1832,8 +2045,11 @@ def phase_ldp_route(torch, params=None):
     _require(launches, LDP_ROUTE + (() if params is None
                                     else ("cnn_depth",)),
              f"low-delay P encode ({_label(params)})")
+    # the P searches' luma shortlists, three sizes a picture, and the I
+    # picture's all-intra batch
     _per_picture(launches, n - 1, 3,
-                 f"low-delay P encode ({_label(params)})")
+                 f"low-delay P encode ({_label(params)})",
+                 3 * (n - 1) + RD_PER_GROUP)
     return launches, st
 
 
@@ -1874,7 +2090,8 @@ def phase_ra_route(torch, params=None):
                                    else ("cnn_depth",)),
              f"random-access encode ({_label(params)})")
     _per_picture(launches, RA_FRAMES - 1, 3,
-                 f"random-access encode ({_label(params)})")
+                 f"random-access encode ({_label(params)})",
+                 3 * (RA_FRAMES - 1) + RD_PER_GROUP, RA_FRAMES - 1)
     return launches, st
 
 
@@ -1918,7 +2135,10 @@ def phase_classic_route(torch):
           f"host C++ commit {tm['commit_s']:.4f} s")
     print(f"launches in the timed classic-route encode: {launches}")
     _require(launches, CLASSIC_ROUTE, "classic-route encode")
-    _per_picture(launches, n - 1, 4, "classic-route encode")
+    # four luma sizes a P picture; the I picture's search adds the chroma
+    # DM residuals of both planes at 8, 16 and 32
+    _per_picture(launches, n - 1, 4, "classic-route encode",
+                 4 * (n - 1) + 4 + 6)
     return launches, st
 
 
@@ -1991,7 +2211,7 @@ def _classic_small(torch, name: str):
     if name == "RA GOP-16 at CTU 64":
         return (random_access_gop16(width=w, height=h, qp=QP,
                                     frames=RA_FRAMES, log2_ctu=6),
-                clip(RA_FRAMES), None, False, CLASSIC_ROUTE + ("bi_cost",))
+                clip(RA_FRAMES), None, False, CLASSIC_ROUTE + ("bi_select",))
     if name == "fast-partition LDP at CTU 64":
         return (low_delay_p(width=w, height=h, qp=QP, frames=4, log2_ctu=6,
                             fast_partition=True), clip(4),
@@ -2298,6 +2518,14 @@ def profile_route(torch, label, clip, cfg, warm) -> None:
             ("K9's decimation", ("downsample4_kernel",)),
             ("the merge candidates (mc_sel + K2, or mc_merge)",
              ("mc_sel_kernel", "::satd_kernel", "mc_merge_kernel")),
+            ("the RD shortlist's K1 (the selected form, or intra_rd_cands)",
+             ("intra_pred_kernel", "intra_rd_cands_kernel")),
+            ("K12 (bi_cost, or bi_select)",
+             ("bi_cost_kernel", "bi_select_kernel")),
+            ("PyTorch's sorts (the shortlist's stable sort)", ("sort",
+                                                             "Sort")),
+            ("PyTorch's where / argmin / stack (the direction's glue "
+             "among them)", ("where", "ArgMin", "CatArrayBatchedCopy")),
             ("PyTorch's own kernels (at::native)", ("at::native",))):
         grp = [v for name, v in by_name.items()
                if any(k in name for k in keys)]
@@ -2509,8 +2737,8 @@ def phase_mesh(torch) -> dict:
               f"and NAL glue {tm['entropy_s']:.3f} s), single-device "
               f"{len(clip) / sdt:.4f} fps (both after a warm-up)")
     print(f"launches in the mesh encodes: {launches}")
-    _require(launches, MESH_KERNELS + ("deblock_cbf", "intra_satd")
-             + ME_KERNELS, "mesh encodes")
+    _require(launches, MESH_KERNELS + ("deblock_cbf", "bi_select")
+             + SEARCH_KERNELS + ME_KERNELS, "mesh encodes")
     return launches
 
 
@@ -2797,13 +3025,65 @@ def bench_kernels(torch) -> None:
     `_with_merge_cands` a list, on mc_sel, K2 and the fold's torch ops, or
     one mc_merge for the lists) on phase 2b's P frame (two references, one
     list) and phase 2c's B frame (four state references, two lists), at n
-    = 8, 16, 32."""
+    = 8, 16, 32, and on that B frame K12 (the parent's path, bi_cost and
+    the stack / argmin / where glue, and bi_select where the package has
+    it); beside K1's fused form, the RD shortlist on 3 candidates a block
+    (the parent's path, the cost / sort / gather / subtract glue around K1's
+    selected form, and intra_rd_cands where the package has it); every
+    path's glue is the device time of the path alone less its kernel's."""
     import hashlib
 
     from fasthevc_tpu_torch.codec import search
     from fasthevc_tpu_torch.codec.encoder import TorchEncoder
     from fasthevc_tpu_torch.codec.search import _blocks, search_qp
     from fasthevc_tpu_torch.ops import cnn, cost, intra, me, transform
+
+    def bench_bi(st, sp, n, ls):
+        """K12 on the B frame's merge winners: the parent's path (bi_cost,
+        stack, argmin, where), its glue's device time apart, and
+        bi_select where the package has it."""
+        args = _bi_args(torch, st, sp, n, ls)
+        ms, dev = (_median_ms(lambda: _bi_parent(torch, me, args)),
+                   _device_ms(lambda: _bi_parent(torch, me, args)))
+        k12 = _device_ms(lambda: _bi_parent(torch, me, args),
+                         keys=("bi_cost_kernel",))
+        glue = None if dev is None or k12 is None else dev - k12
+        text = (f"bench BI and direction n={n} (B frame): the parent's path "
+                f"{ms:.4f} ms, the card's own {_ms_text(dev)} (bi_cost "
+                f"{_ms_text(k12)}, the stack / argmin / where glue "
+                f"{_ms_text(glue)})")
+        if hasattr(me, "bi_select"):
+            text += (f"; bi_select {_median_ms(lambda: me.bi_select(*args)):.4f}"
+                     f" ms, the card's own "
+                     f"{_ms_text(_device_ms(lambda: me.bi_select(*args)))}")
+        print(text)
+
+    def bench_shortlist(gy, n, top, left, src, d):
+        """The intra search's RD shortlist on the group's n-blocks: the
+        parent's path (sort, K1's selected form, subtract), its glue's
+        device time apart, and intra_rd_cands where the package has it."""
+        lg = n.bit_length() - 1
+        bits = search._intra_mode_bits(torch.argmin(d, dim=1).to(
+            torch.int32), GROUP, gy.shape[1] // n, gy.shape[2] // n)
+        ls = torch.tensor(_lambda_sqrt(QP), dtype=torch.float32)
+
+        def par():
+            return _shortlist_parent(torch, intra, top, left, lg, src, d,
+                                     bits, ls)
+        ms, dev = _median_ms(par), _device_ms(par)
+        k1 = _device_ms(par, keys=("intra_pred_kernel",))
+        glue = None if dev is None or k1 is None else dev - k1
+        text = (f"bench RD shortlist n={n} ({src.shape[0]} blocks, 3 "
+                f"candidates): the parent's path {ms:.4f} ms, the card's own "
+                f"{_ms_text(dev)} (intra_pred_selected {_ms_text(k1)}, the "
+                f"cost / sort / gather / subtract glue {_ms_text(glue)})")
+        if hasattr(intra, "intra_rd_cands"):
+            def new():
+                return intra.intra_rd_cands(top, left, lg, src, d, bits, ls,
+                                            3)
+            text += (f"; intra_rd_cands {_median_ms(new):.4f} ms, the card's"
+                     f" own {_ms_text(_device_ms(new))}")
+        print(text)
 
     src, refs = _p_frames(torch, torch.device("cuda"))
     pad = (0, 0, 0, -(-HEIGHT // 32) * 32 - HEIGHT)
@@ -2850,6 +3130,8 @@ def bench_kernels(torch) -> None:
                   f"list(s)): {ms:.4f} ms, the card's own {_ms_text(dev)} ("
                   + ("mc_merge" if fused else "mc_sel + satd + the fold, a "
                      "list at a time") + ")")
+            if len(pairs) == 2:
+                bench_bi(st, sp, n, ls)
         del st, sp
     del yb, rb
     cases = [(n, y, r, me.me_state(y, r, SR).mv_int[n], _lambda_sqrt(QP))
@@ -2876,6 +3158,8 @@ def bench_kernels(torch) -> None:
                 lambda: intra.predict_satd(top, left, lg, src)))
         print(f"bench n={n}: intra_pred all-mode {k1:.4f} ms + satd "
               f"{k2:.4f} ms = {k1 + k2:.4f} ms{fused}")
+        bench_shortlist(gy, n, top, left, src,
+                        intra.predict_satd(top, left, lg, src))
         qp = search_qp(_lambda_sqrt(QP))
         lk, rk = transform.tq_roundtrip(res, qp, lg)
         k3 = _median_ms(lambda: transform.tq_roundtrip(res, qp, lg))
@@ -3088,15 +3372,16 @@ def main() -> int:
               f"{launches.get(name, 0)}")
     print("(phase 2a: 1080p group-of-8 shapes, K3's costed form (tq_cost) "
           "and K1's fused form (intra_satd) at luma n=8, "
-          "intra_pred_selected and tq_cost on the 3 rd candidates "
-          "a block, commit_intra "
+          "intra_rd_cands, intra_pred_selected (no route launches it) "
+          "and tq_cost on the 3 rd candidates a block, commit_intra "
           f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
           "frame, SR 64, two references, me_coarse and me_fine on the "
           "whole frame, the earlier forms me_full_search and me_refine on "
           "the coarse tier 16 and the 8-blocks, subpel and mc_merge on the "
           "8-blocks, mc_sel and satd on their merge candidates, "
           "commit_mixed with RDOQ; phase 2c: one 1080p B frame, two "
-          "references per list, bi_cost on the 8-blocks, inter_pred_bi on "
+          "references per list, bi_select and bi_cost (no route launches "
+          "it) on the 8-blocks' merge winners, inter_pred_bi on "
           "its B decisions; phase 2d: cnn_depth on the 1080p group of 8 "
           f"at CTU 32, cnn_train, cnn_backward and adam on {CNN_BATCH} "
           "CTUs of 32; the K5 twins' times were taken beside the other "

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "fhv_intra_pred": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # top, left, src, mode_tab, out, B, n, lg, edge, max_val, stream
     "fhv_intra_satd": [_P] * 5 + [_I] * 5 + [_P],
+    # top, left, src, satd|NULL, mode_bits|NULL, modes|NULL, mode_tab,
+    # top_idx|NULL, cand_bits|NULL, res, B, n, K, edge, max_val, ls, stream
+    "fhv_intra_rd_cands": [_P] * 10 + [_I] * 5 + [_F, _P],
     # src, preds, out, B, M, n, stream
     "fhv_satd": [_P, _P, _P, _I, _I, _I, _P],
     # res, levels, recon, B, lg, qp, bit_depth, dz, stream
@@ -104,6 +107,9 @@ _SIGNATURES = {
     # src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls, pbi, cbi, R, H,
     # W, n, stream
     "fhv_bi_cost": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],
+    # src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, c0, c1, p0, p1, ls,
+    # pred_sel, rate_sel, dchoice, R, H, W, n, stream
+    "fhv_bi_select": [_P] * 12 + [_F] + [_P] * 3 + [_I] * 4 + [_P],
     # plane, dtype, qv, qp, theta, depth, logits, acts, F, PH, PW, log2_ctu,
     # T, smem bytes, stream
     "fhv_cnn_fwd": [_P, _I, _P, _F, _P, _P, _P, _P] + [_I] * 6 + [_P],

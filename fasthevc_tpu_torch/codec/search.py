@@ -2,25 +2,29 @@
 fasthevc_tpu/codec/search.py.
 
 Intra, for every aligned block of every CU size of every frame: SATD over
-the 35 intra modes (K1's fused form), MPM-aware mode bits, a true-RD pass
-over the top-k shortlist, predicted again in K1's selected form, through
-the exact T/Q/IQ/IT with SSE and the level-rate proxy (K3's costed form,
-`tq_cost`: K3 and K4's arithmetic in one launch), the chroma DM cost (K1,
-`tq_cost`), then the bottom-up
+the 35 intra modes (K1's fused form), MPM-aware mode bits, the top-k
+shortlist picked and its residuals formed in K1's rd form, a true-RD pass
+over it through the exact T/Q/IQ/IT with SSE and the level-rate proxy
+(K3's costed form, `tq_cost`: K3 and K4's arithmetic in one launch), the
+chroma DM cost (K1's rd form given the mode, `tq_cost`), then the
+bottom-up
 quadtree DP and the packed int16 [gh, gw, 9] decision maps of the C++
 slice engine.  P frames add, per block, the best of up to two references
 from integer ME (K9) and sub-pel refinement (K10), two merge candidates
 priced through exact MC (K11) and SATD, and the inter RD leaf at the inter
 dead-zone offset; the DP then runs over the per-block minimum.  B frames
 run one ME state over both lists' references, the P candidates per list,
-and the bi-prediction of the two lists' winners costed by K12; the
-direction is chosen in the SATD domain before the one inter RD leaf.
+and the bi-prediction of the two lists' winners costed by K12, which also
+chooses the direction in the SATD domain before the one inter RD leaf.
 With a partition CNN (the fast-partition path) every batch's packing
 takes the CNN's depth maps (K13) in place of the DP's splits; the search
 itself runs whole, as the reference runs it.
 
 The f32 costs are built with the same operations, in the same order, as
-the JAX search, so both take the same decisions.  `plain=True` runs the
+the JAX search, so both take the same decisions; where XLA's CPU backend
+contracts `c + a * b` into one fused multiply-add (the RMD cost, the RD
+costs of the shortlist and of the chroma DM, the inter leaf), so does the
+port (`cost.fma_f32`, `__fmaf_rn` in the kernels).  `plain=True` runs the
 kernels' PyTorch twins instead of the kernels (on any device).
 """
 
@@ -38,12 +42,14 @@ INTER_OVERHEAD_BITS = 2.0
 
 
 def _ops(plain: bool) -> tuple:
-    """The search's kernel entry points (predict, predict_satd, tq_cost):
-    the wrappers, or with `plain` their twins."""
+    """The search's kernel entry points (intra_rd_cands,
+    intra_rd_residuals, predict_satd, tq_cost): the wrappers, or with
+    `plain` their twins."""
     if plain:
-        return (intra.predict_plain, intra.predict_satd_plain,
-                transform.tq_cost_plain)
-    return (intra.predict, intra.predict_satd, transform.tq_cost)
+        return (intra.intra_rd_cands_plain, intra.intra_rd_residuals_plain,
+                intra.predict_satd_plain, transform.tq_cost_plain)
+    return (intra.intra_rd_cands, intra.intra_rd_residuals,
+            intra.predict_satd, transform.tq_cost)
 
 
 def _blocks(planes: torch.Tensor, n: int) -> torch.Tensor:
@@ -124,7 +130,7 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
     [F, B_n] in block raster order: mode{n}, cost{n} and split{n} (n above
     the min CU size), rawcost{n}.
     """
-    predict, predict_satd, tq_cost = _ops(plain)
+    shortlist, rd_residuals, predict_satd, tq_cost = _ops(plain)
     f, h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     # f32 scalars stay on the host: a 0-dim CPU tensor enters a CUDA op as
@@ -148,36 +154,31 @@ def search_intra_frames(y: torch.Tensor, lambda_sqrt: float,
         prov = torch.argmin(d, dim=1).to(torch.int32)
         mode_bits = _intra_mode_bits(prov, f, h // n, w // n,
                                      mpm_edge_x // n, mpm_edge_on)
-        cost_rmd = d.to(torch.float32) + ls * mode_bits
         b = src.shape[0]
-        # lower index first among equal costs, as jax.lax.top_k orders
-        # them (torch.topk does not)
-        top_idx = torch.sort(cost_rmd, dim=1, stable=True).indices[:, :kk]
-        cands = predict(top, left, plg, top_idx)             # [B,kk,pn,pn]
-        res = (src[:, None] - cands).reshape(b * kk, pn, pn)
+        # the kk least RMD costs fma(ls, mode_bits, d), lower mode first
+        # among equal costs (jax.lax.top_k's order), and their residuals
+        top_idx, cand_bits, res = shortlist(top, left, plg, src, d,
+                                            mode_bits, ls, kk)
         dist, rate = tq_cost(res, qp_i, plg)
-        dist = dist.reshape(b, kk)
-        rate = rate.reshape(b, kk)
-        cand_bits = torch.take_along_dim(mode_bits, top_idx, dim=1)
-        rd_k = dist + lam * (rate + cand_bits)
+        # XLA contracts dist + lam * (rate + bits) into one fused
+        # multiply-add; the one-hot sums of the reference's pick are exact,
+        # so the block's cost is its winner's rd_k
+        rd_k = cost.fma_f32(lam, rate.reshape(b, kk) + cand_bits,
+                            dist.reshape(b, kk))
         kbest = torch.argmin(rd_k, dim=1, keepdim=True)
-        best_mode = torch.take_along_dim(top_idx, kbest, dim=1)[:, 0]
-        dist = torch.take_along_dim(dist, kbest, dim=1)[:, 0]
-        rate = torch.take_along_dim(rate, kbest, dim=1)[:, 0]
-        sel_bits = torch.take_along_dim(cand_bits, kbest, dim=1)[:, 0]
-        modes[n] = best_mode.to(torch.int32)
-        cost_n = dist + lam * (rate + sel_bits)
+        modes[n] = torch.take_along_dim(top_idx, kbest, dim=1)[:, 0]
+        cost_n = torch.take_along_dim(rd_k, kbest, dim=1)[:, 0]
         if cb is not None and pn == n:
-            # chroma DM cost of both planes
+            # chroma DM cost of both planes (cost_n + fma(lam, crate,
+            # cdist), as XLA contracts it)
             cn = pn // 2
             clg = cn.bit_length() - 1
             for cp, rcp in ((cb, ref_cb), (cr, ref_cr)):
                 ctop, cleft = intra.grid_refs(cp if rcp is None else rcp, cn)
-                cpred = predict(ctop, cleft, clg, modes[n][:, None],
-                                is_luma=False)[:, 0]
-                cres = _blocks(cp, cn) - cpred
+                cres = rd_residuals(ctop, cleft, clg, _blocks(cp, cn),
+                                    modes[n][:, None], is_luma=False)
                 cdist, crate = tq_cost(cres, qp_i, clg)
-                cost_n = cost_n + (cdist + lam * crate)
+                cost_n = cost_n + cost.fma_f32(lam, crate, cdist)
         costs[n] = cost_n * (4.0 if pn != n else 1.0)
 
     # quadtree DP, bottom-up; the four children are summed in raster order
@@ -285,7 +286,7 @@ def search_p_frame(y: torch.Tensor, refs: torch.Tensor, lambda_sqrt: float,
     dir{n} (1), mv0{n} ([B_n, 2] quarter-pel) and ref0{n} ([B_n] ref
     index), with list 1's mv1{n} and ref1{n} zero, each in block raster
     order."""
-    _, _, tq_cost = _ops(plain)
+    tq_cost = _ops(plain)[3]
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -343,13 +344,14 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
     [l0b] l1a [l1b]: a second reference that its list's count masks out
     changes nothing (cost inf, never chosen, no neighbour carries its
     index), so it is left out and list 1's state indices move with it.
-    BI (K12) averages the two lists' exact predictions at their final MVs.
+    BI (K12) averages the two lists' exact predictions at their final MVs
+    and chooses the direction.
     mpm_edge_x, mpm_edge_on, me_decimated: as search_p_frame's.
     Returns the intra outputs' mode{n} and split{n} plus inter{n}, dir{n}
     (1 L0, 2 L1, 3 BI; 1 for intra), mv0{n}, mv1{n} ([B_n, 2]
     quarter-pel), ref0{n} and ref1{n} ([B_n] ref index), each in block
     raster order."""
-    _, _, tq_cost = _ops(plain)
+    tq_cost = _ops(plain)[3]
     h, w = y.shape
     sizes = [1 << lg for lg in range(log2_min_cu, log2_ctu + 1)]
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -384,19 +386,14 @@ def search_b_frame(y: torch.Tensor, refs0: torch.Tensor, refs1: torch.Tensor,
             me.mc_merge(st, lists, n, lambda_sqrt,
                         _merge_edge(mpm_edge_x, mpm_edge_on, n, w),
                         plain=plain)
-        pbi, cbi = me.bi_cost(
+        # BI and the direction in the SATD domain (the first of equal
+        # costs, as jnp.argmin) in one K12 launch, then one T/Q on the
+        # winner; the reference's one-hot einsum of the predictions and
+        # rates is exact, so a select
+        pred_sel, rate_sel, dchoice = me.bi_select(
             st.y, st.refs, mv0, torch.where(r0idx > 0, i0b, 0), mv1,
-            torch.where(r1idx > 0, i1b, i1a), r0bits, r1bits, lambda_sqrt,
-            n, plain=plain)
-        # direction in the SATD domain (the first of equal costs, as
-        # jnp.argmin), then one T/Q on the winner; the reference's one-hot
-        # einsum of the predictions and rates is exact, so a select
-        dchoice = torch.argmin(torch.stack([c0, c1, cbi]), dim=0)
-        d3 = dchoice[:, None, None]
-        pred_sel = torch.where(d3 == 0, p0, torch.where(d3 == 1, p1, pbi))
-        rate_sel = torch.where(dchoice == 0, r0bits,
-                               torch.where(dchoice == 1, r1bits,
-                                           r0bits + r1bits))
+            torch.where(r1idx > 0, i1b, i1a), r0bits, r1bits, c0, c1, p0,
+            p1, lambda_sqrt, n, plain=plain)
         icost = _inter_leaf(y, n, pred_sel, rate_sel, qp_i, lam, tq_cost)
         raw_intra = intra_dec[f"rawcost{n}"]
         use_inter = icost < raw_intra

@@ -31,6 +31,38 @@
 // the residual against the source in shared memory and runs K2's
 // transform (satd_common.cuh) there; the S lanes of a block sum with
 // shuffles, and the CTA writes its [P, 35] costs in one coalesced pass.
+//
+// The rd form (fhv_intra_rd_cands) replaces the intra search's RD
+// shortlist (fasthevc_tpu/codec/search.py:170-185: cost_rmd, jax.lax.top_k,
+// the one-hot gather of the candidates' predictions and src - cands) and,
+// given the modes, the chroma DM residual (predict_selected, ops/intra.py:
+// 239, then the subtract, search.py:209-212).  From the fused form's SATDs
+// d [B, 35] and the MPM mode bits it ranks the 35 costs fma(ls, bits,
+// float(d)) (one rounding, as XLA contracts the reference's expression),
+// takes the K least, lower mode first among equal costs (top_k's order),
+// and writes each candidate's residual src - prediction [B, K, n, n], its
+// mode and bits; no prediction reaches device memory.  It took the place
+// of the selected form (fhv_intra_pred with modes), a stable sort, a
+// gather and the subtract in PyTorch; the selected form stays callable.
+// Bound on the H100: bytes (per block the references, the source, d, the
+// bits, the K residuals, modes and bits: 1.46 kB at n = 8, K = 3).  The
+// selected form spent a CTA of 256 threads on one block at n = 8 (64 idle),
+// every CTA smoothed all four reference arrays and took DC behind two
+// barriers, and every sample paid two integer divisions and a global load
+// of its mode.  Design: a warp per block (two blocks at n = 4; a warp per
+// block rather than per candidate, so that the selection runs once and
+// the K candidates share the warp's references), so that a mode, and
+// every branch on it, is uniform across the warp, and the kernel
+// needs no barrier but the one after the mode table: the warp loads its
+// references into its own shared slot, each lane keeps its source samples
+// in registers, and the warp selects the K least (cost, mode) keys by
+// repeated shuffle minima over its lanes (a lane holds 2-3 of the 35), one
+// candidate at a time, predicting each as soon as it is chosen.  The
+// smoothed references and DC are made by the warp the first time a chosen
+// mode needs them.  A lane's column is fixed (n divides 32), so the
+// angular terms of a horizontal mode are hoisted out of its samples; a
+// vertical mode's are a multiply and two bit operations a row.  The
+// residual rows go out coalesced, 32 consecutive samples a store.
 
 #include <cuda_runtime.h>
 
@@ -243,6 +275,190 @@ __global__ void __launch_bounds__(kSatdWarps * 32)
     out[(size_t)b0 * 35 + i] = outs[i];
 }
 
+
+// ---------------------------------------------------------------------------
+// The rd form: the RD shortlist's residuals
+
+constexpr int kRdWarps = 8;
+
+template <int PN>
+struct RdCfg {
+  static constexpr int LG = PN == 4 ? 2 : PN == 8 ? 3 : PN == 16 ? 4 : 5;
+  static constexpr int NN = PN * PN;
+  static constexpr int WB = NN >= 32 ? 1 : 32 / NN;  // blocks a warp
+  static constexpr int SEG = 32 / WB;                 // lanes a block
+  static constexpr int SPL = NN >= 32 ? NN / 32 : 1;  // samples a lane
+  static constexpr int KPL = (35 + SEG - 1) / SEG;    // modes a lane ranks
+  static constexpr int L = 2 * PN + 1;
+  static constexpr int STRIDE = 4 * L + 1;  // t, l, tf, lf (odd: banks)
+};
+
+// A rank key of a cost and its mode: the costs are fma(ls, bits, satd) >=
+// +0 (never -0, never NaN), whose IEEE bits order as unsigned integers,
+// and the mode in the low word puts the lower mode first among equal
+// costs.
+__device__ __forceinline__ unsigned long long rd_key(float cost, int mode) {
+  return ((unsigned long long)__float_as_uint(cost) << 32) | (unsigned)mode;
+}
+
+__device__ __forceinline__ unsigned long long key_min(unsigned long long a,
+                                                      unsigned long long b) {
+  return b < a ? b : a;
+}
+
+// satd/mode_bits [B, 35] with top_idx/cand_bits [B, K] out (the luma
+// shortlist), or modes [B, K] in (satd == nullptr); res [B, K, PN, PN].
+template <int PN>
+__global__ void __launch_bounds__(kRdWarps * 32)
+    intra_rd_cands_kernel(const int* __restrict__ top,
+                          const int* __restrict__ left,
+                          const int* __restrict__ src,
+                          const int* __restrict__ satd,
+                          const float* __restrict__ mode_bits,
+                          const int* __restrict__ modes,
+                          const int* __restrict__ mode_tab,
+                          int* __restrict__ top_idx,
+                          float* __restrict__ cand_bits,
+                          int* __restrict__ res, int B, int K, float ls,
+                          int edge, int max_val) {
+  using C = RdCfg<PN>;
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr unsigned long long kTaken = ~0ull;
+  __shared__ int tab[3 * 35];
+  __shared__ int refs[kRdWarps][C::WB][C::STRIDE];
+  for (int i = threadIdx.x; i < 3 * 35; i += blockDim.x) tab[i] = mode_tab[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = lane / C::SEG, sl = lane - j * C::SEG;
+  const int bj = (blockIdx.x * kRdWarps + warp) * C::WB + j;
+  const bool live = bj < B;
+  const int b = live ? bj : B - 1;  // past the end: computed, not written
+  int* t = refs[warp][j];
+  int* l = t + C::L;
+  int* tf = t + 2 * C::L;
+  int* lf = t + 3 * C::L;
+  for (int k = sl; k < C::L; k += C::SEG) {
+    t[k] = top[(size_t)b * C::L + k];
+    l[k] = left[(size_t)b * C::L + k];
+  }
+  int sv[C::SPL];
+#pragma unroll
+  for (int i = 0; i < C::SPL; ++i)
+    sv[i] = src[(size_t)b * C::NN + sl + i * C::SEG];
+  unsigned long long key[C::KPL];
+  if (satd != nullptr) {
+#pragma unroll
+    for (int q = 0; q < C::KPL; ++q) {
+      const int m = sl + q * C::SEG;
+      key[q] = m < 35 ? rd_key(__fmaf_rn(ls, mode_bits[(size_t)b * 35 + m],
+                                         __int2float_rn(satd[(size_t)b * 35 +
+                                                             m])),
+                               m)
+                      : kTaken;
+    }
+  }
+  __syncwarp();
+  // a lane's column; its rows are sl / PN + i * (32 / PN)
+  const int x = sl & (PN - 1);
+  bool have_f = false, have_dc = false;
+  int dc = 0;
+  for (int c = 0; c < K; ++c) {
+    int mode;
+    if (satd != nullptr) {
+      unsigned long long best = key[0];
+#pragma unroll
+      for (int q = 1; q < C::KPL; ++q) best = key_min(best, key[q]);
+#pragma unroll
+      for (int o = C::SEG / 2; o > 0; o >>= 1)
+        best = key_min(best, __shfl_xor_sync(kFull, best, o));
+#pragma unroll
+      for (int q = 0; q < C::KPL; ++q)
+        if (key[q] == best) key[q] = kTaken;
+      mode = (int)(best & 0xffffffffu);
+      if (live && sl == 0) {
+        top_idx[(size_t)b * K + c] = mode;
+        cand_bits[(size_t)b * K + c] = mode_bits[(size_t)b * 35 + mode];
+      }
+    } else {
+      mode = modes[(size_t)b * K + c];
+    }
+    const bool filt = tab[70 + mode] != 0;
+    if (!have_f && __any_sync(kFull, filt)) {
+      for (int k = sl; k < C::L; k += C::SEG)
+        intra_filter_ref(t, l, k, C::L, &tf[k], &lf[k]);
+      __syncwarp();
+      have_f = true;
+    }
+    if (!have_dc && __any_sync(kFull, mode == 1)) {
+      int sum = 0;
+      for (int k = sl; k < PN; k += C::SEG) sum += t[1 + k] + l[1 + k];
+#pragma unroll
+      for (int o = C::SEG / 2; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, o);
+      dc = (sum + PN) >> (C::LG + 1);
+      have_dc = true;
+    }
+    const int* ft = filt ? tf : t;
+    const int* fl = filt ? lf : l;
+    const int angle = tab[mode], inv = tab[35 + mode];
+    const bool vert = mode >= 18;
+    const int* mref = vert ? ft : fl;
+    const int* sref = vert ? fl : ft;
+    // a horizontal mode's position along the direction is the column
+    const int hpos = (x + 1) * angle;
+    int* out = res + ((size_t)b * K + c) * C::NN;
+#pragma unroll
+    for (int i = 0; i < C::SPL; ++i) {
+      const int s = sl + i * C::SEG;
+      const int y = s >> C::LG;
+      int v;
+      if (mode == 0) {
+        v = ((PN - 1 - x) * fl[1 + y] + (x + 1) * ft[PN + 1] +
+             (PN - 1 - y) * ft[1 + x] + (y + 1) * fl[PN + 1] + PN) >>
+            (C::LG + 1);
+      } else if (mode == 1) {
+        v = dc;
+        if (edge) {
+          if (x == 0 && y == 0)
+            v = (l[1] + 2 * dc + t[1] + 2) >> 2;
+          else if (y == 0)
+            v = (t[1 + x] + 3 * dc + 2) >> 2;
+          else if (x == 0)
+            v = (l[1 + y] + 3 * dc + 2) >> 2;
+        }
+      } else {
+        const int pos = vert ? (y + 1) * angle : hpos;
+        const int idx = pos >> 5, fact = pos & 31;
+        const int ka = (vert ? x : y) + idx + 1;
+        const int kb = min(ka + 1, 2 * PN);
+        const int a = ka >= 0 ? mref[ka] : sref[(ka * inv + 128) >> 8];
+        const int e = kb >= 0 ? mref[kb] : sref[(kb * inv + 128) >> 8];
+        v = ((32 - fact) * a + fact * e + 16) >> 5;
+        if (edge && mode == 26 && x == 0)
+          v = min(max(t[1] + ((l[1 + y] - l[0]) >> 1), 0), max_val);
+        if (edge && mode == 10 && y == 0)
+          v = min(max(l[1] + ((t[1 + x] - t[0]) >> 1), 0), max_val);
+      }
+      if (live) out[s] = sv[i] - v;
+    }
+  }
+}
+
+template <int PN>
+int launch_rd(const int* top, const int* left, const int* src,
+              const int* satd, const float* mode_bits, const int* modes,
+              const int* mode_tab, int* top_idx, float* cand_bits, int* res,
+              int B, int K, float ls, int edge, int max_val,
+              cudaStream_t stream) {
+  using C = RdCfg<PN>;
+  const int warps = (B + C::WB - 1) / C::WB;
+  const int grid = (warps + kRdWarps - 1) / kRdWarps;
+  intra_rd_cands_kernel<PN><<<grid, kRdWarps * 32, 0, stream>>>(
+      top, left, src, satd, mode_bits, modes, mode_tab, top_idx, cand_bits,
+      res, B, K, ls, edge, max_val);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // src [B, n, n], top/left [B, 2n + 1], mode_tab [3, 35] (luma); out [B, 35]
@@ -280,4 +496,42 @@ extern "C" int fhv_intra_pred(const int* top, const int* left,
   intra_pred_kernel<<<grid, kThreads, smem, stream>>>(
       top, left, modes, mode_tab, out, B, n, lg, M, edge, max_val, bpc);
   return (int)cudaGetLastError();
+}
+
+// top/left [B, 2n + 1], src [B, n, n], mode_tab [3, 35]; either satd and
+// mode_bits [B, 35] (the luma shortlist: top_idx [B, K] int32 and
+// cand_bits [B, K] f32 out, the K least fma(ls, bits, float(satd)), lower
+// mode first among equal costs) or modes [B, K] (satd, mode_bits, top_idx
+// and cand_bits NULL); res [B, K, n, n] int32 src - prediction; n in 4..32,
+// K in 1..35.
+extern "C" int fhv_intra_rd_cands(const int* top, const int* left,
+                                  const int* src, const int* satd,
+                                  const float* mode_bits, const int* modes,
+                                  const int* mode_tab, int* top_idx,
+                                  float* cand_bits, int* res, int B, int n,
+                                  int K, int edge, int max_val, float ls,
+                                  cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (K < 1 || K > 35 || (satd == nullptr) == (modes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (n) {
+    case 4:
+      return launch_rd<4>(top, left, src, satd, mode_bits, modes, mode_tab,
+                          top_idx, cand_bits, res, B, K, ls, edge, max_val,
+                          stream);
+    case 8:
+      return launch_rd<8>(top, left, src, satd, mode_bits, modes, mode_tab,
+                          top_idx, cand_bits, res, B, K, ls, edge, max_val,
+                          stream);
+    case 16:
+      return launch_rd<16>(top, left, src, satd, mode_bits, modes, mode_tab,
+                           top_idx, cand_bits, res, B, K, ls, edge, max_val,
+                           stream);
+    case 32:
+      return launch_rd<32>(top, left, src, satd, mode_bits, modes, mode_tab,
+                           top_idx, cand_bits, res, B, K, ls, edge, max_val,
+                           stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

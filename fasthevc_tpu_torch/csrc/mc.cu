@@ -44,10 +44,10 @@
 //     thread an 8-sample row segment with its phase's taps in registers;
 //     the vertical pass runs 8 lanes to an 8x8 sub-block, a lane a column,
 //     into registers, where the residual's Hadamard runs: the columns in
-//     each lane, the rows across the 8 lanes by shuffles (K2's transform,
-//     satd_common.cuh, in another order of the same exact sums).  The
-//     prediction goes back over the spent window, and only the winner's
-//     prediction is written.
+//     each lane, the rows across the 8 lanes by shuffles (satd8_lanes,
+//     satd_common.cuh: K2's transform in another order of the same exact
+//     sums).  The prediction goes back over the spent window, and only
+//     the winner's prediction is written.
 //   * mc_sel and inter_pred: one thread per sample recomputes its 8
 //     horizontal rows (72 multiply-adds a luma sample, three times the
 //     separable work), reading through L1/L2.
@@ -56,6 +56,7 @@
 
 #include "copy_common.cuh"
 #include "mc_common.cuh"
+#include "satd_common.cuh"
 
 namespace {
 
@@ -327,28 +328,8 @@ __global__ void __launch_bounds__(MergeCfg<N>::kThreads)
       pp[y * N] = pred;
       d[y] = sp[y * N] - pred;
     }
-#pragma unroll
-    for (int hh = 1; hh < 8; hh <<= 1)
-#pragma unroll
-      for (int y = 0; y < 8; ++y)
-        if ((y & hh) == 0) {
-          const int a = d[y], e = d[y + hh];
-          d[y] = a + e;
-          d[y + hh] = a - e;
-        }
-#pragma unroll
-    for (int hh = 1; hh < 8; hh <<= 1)
-#pragma unroll
-      for (int y = 0; y < 8; ++y) {
-        const int o = __shfl_xor_sync(0xffffffffu, d[y], hh);
-        d[y] = (c & hh) ? o - d[y] : d[y] + o;
-      }
-    int sum = 0;
-#pragma unroll
-    for (int y = 0; y < 8; ++y) sum += abs(d[y]);
-#pragma unroll
-    for (int m = 1; m < 8; m <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
-    if (c == 0) atomicAdd(&c_satd[j][k], sum / 8);
+    const int v = satd8_lanes(d, c);
+    if (c == 0) atomicAdd(&c_satd[j][k], v);
   }
   __syncthreads();
   // the fold: left, then top, by strict <

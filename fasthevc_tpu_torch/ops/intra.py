@@ -7,7 +7,12 @@ modes) or `intra_pred_selected`; `predict_plain` is its PyTorch twin.
 `predict_satd`, K1's fused form, is the intra search's all-mode
 step: the SATD of every mode's prediction (predict_all_modes, then
 fasthevc_tpu/ops/cost.py satd), with `predict_satd_plain` as its twin.
-`grid_refs` is plain tensor glue.
+`intra_rd_cands`, K1's rd form (counter `intra_rd_cands`), is the search's
+RD shortlist: the K least RMD costs' modes, bits and residuals
+(fasthevc_tpu/codec/search.py:170-185); `intra_rd_residuals`, its second
+form, takes the modes (the chroma DM residual, search.py:209-212).  Their
+twins are `intra_rd_cands_plain` and `intra_rd_residuals_plain`.  No route
+launches the selected form any more.  `grid_refs` is plain tensor glue.
 
 Reference layout (the spec oracle's): top[b] = [corner, p[0][-1] ..
 p[2N-1][-1]], left[b] = [corner, p[-1][0] .. p[-1][2N-1]], both [B, 2N+1]
@@ -243,6 +248,118 @@ def predict_satd(top: torch.Tensor, left: torch.Tensor, log2_size: int,
     _build.launched("intra_satd")
     _build.check(rc, "intra_satd")
     return out
+
+
+def intra_rd_residuals_plain(top: torch.Tensor, left: torch.Tensor,
+                             log2_size: int, src: torch.Tensor,
+                             modes: torch.Tensor, is_luma: bool = True,
+                             bit_depth: int = 8) -> torch.Tensor:
+    """The rd form's twin given the modes: src [B, N, N] minus the
+    prediction of each of modes [B, K], as [B * K, N, N] int32 in (block,
+    mode) order."""
+    n = 1 << log2_size
+    cands = predict_plain(top, left, log2_size, modes, is_luma, bit_depth)
+    return (src.to(torch.int32)[:, None] - cands).reshape(-1, n, n)
+
+
+def intra_rd_cands_plain(top: torch.Tensor, left: torch.Tensor,
+                         log2_size: int, src: torch.Tensor, d: torch.Tensor,
+                         mode_bits: torch.Tensor, lambda_sqrt, kk: int,
+                         bit_depth: int = 8) -> tuple:
+    """The rd form's twin, the intra search's RD shortlist as the reference
+    composes it (search.py:170-185): the RMD costs fma(lambda_sqrt,
+    mode_bits, float(d)), rounded once as XLA contracts the reference's
+    `d + lambda_sqrt * mode_bits`; the kk least, lower mode first among
+    equal costs (a stable sort, jax.lax.top_k's order); their residuals.
+    Returns (top_idx [B, kk] int32, cand_bits [B, kk] f32, residuals
+    [B * kk, N, N] int32)."""
+    ls = torch.as_tensor(lambda_sqrt, dtype=torch.float32)
+    cost_rmd = cost.fma_f32(ls, mode_bits, d.to(torch.float32))
+    top_idx = torch.sort(cost_rmd, dim=1, stable=True).indices[:, :kk]
+    res = intra_rd_residuals_plain(top, left, log2_size, src, top_idx, True,
+                                   bit_depth)
+    return (top_idx.to(torch.int32),
+            torch.take_along_dim(mode_bits, top_idx, dim=1), res)
+
+
+def _rd_launch(top, left, log2_size, src, d, mode_bits, modes, ls, kk,
+               is_luma, bit_depth):
+    """One launch of K1's rd form (counter `intra_rd_cands`): the luma
+    shortlist from d and mode_bits, or the residuals of the given modes."""
+    n = 1 << log2_size
+    b = top.shape[0]
+    top = top.to(torch.int32).contiguous()
+    left = left.to(torch.int32).contiguous()
+    src = src.to(torch.int32).contiguous()
+    if modes is not None:
+        modes = modes.to(torch.int32).contiguous()
+        _build.require_cuda("intra_rd_cands", top, left, src, modes)
+    else:
+        d = d.to(torch.int32).contiguous()
+        mode_bits = mode_bits.to(torch.float32).contiguous()
+        _build.require_cuda("intra_rd_cands", top, left, src, d, mode_bits)
+    if (top.shape != (b, 2 * n + 1) or left.shape != top.shape
+            or src.shape != (b, n, n) or not 2 <= log2_size <= 5
+            or not 1 <= kk <= 35
+            or (modes is not None and modes.shape != (b, kk))
+            or (modes is None and (d.shape != (b, 35)
+                                   or mode_bits.shape != (b, 35)))):
+        raise ValueError("intra_rd_cands: refs [B, 2N+1], src [B, N, N], "
+                         "N in 4..32, d and mode_bits [B, 35] or modes "
+                         "[B, K], K in 1..35")
+    dev = top.device
+    res = torch.empty((b * kk, n, n), dtype=torch.int32, device=dev)
+    top_idx = cand_bits = None
+    if modes is None:
+        top_idx = torch.empty((b, kk), dtype=torch.int32, device=dev)
+        cand_bits = torch.empty((b, kk), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    tab = _mode_table(n, is_luma, dev)
+    rc = _build.lib().fhv_intra_rd_cands(
+        top.data_ptr(), left.data_ptr(), src.data_ptr(), ptr(d),
+        ptr(mode_bits), ptr(modes), tab.data_ptr(), ptr(top_idx),
+        ptr(cand_bits), res.data_ptr(), b, n,
+        kk, int(is_luma and n < 32), (1 << bit_depth) - 1, ls,
+        _build.stream_handle(top))
+    _build.launched("intra_rd_cands")
+    _build.check(rc, "intra_rd_cands")
+    return top_idx, cand_bits, res
+
+
+def intra_rd_cands(top: torch.Tensor, left: torch.Tensor, log2_size: int,
+                   src: torch.Tensor, d: torch.Tensor,
+                   mode_bits: torch.Tensor, lambda_sqrt, kk: int,
+                   bit_depth: int = 8) -> tuple:
+    """K1's rd form, the intra search's RD shortlist (search.py:170-185):
+    from the fused form's SATDs d [B, 35] int32 and the MPM mode bits [B,
+    35] f32 of luma blocks src [B, N, N] with [B, 2N+1] refs, the kk least
+    costs fma(lambda_sqrt, mode_bits, float(d)), lower mode first among
+    equal costs.  Returns (top_idx [B, kk] int32, cand_bits [B, kk] f32,
+    residuals src - prediction [B * kk, N, N] int32); no prediction
+    reaches device memory."""
+    if not top.is_cuda:
+        return intra_rd_cands_plain(top, left, log2_size, src, d, mode_bits,
+                                    lambda_sqrt, kk, bit_depth)
+    ls = float(torch.as_tensor(lambda_sqrt, dtype=torch.float32))
+    return _rd_launch(top, left, log2_size, src, d, mode_bits, None, ls, kk,
+                      True, bit_depth)
+
+
+def intra_rd_residuals(top: torch.Tensor, left: torch.Tensor,
+                       log2_size: int, src: torch.Tensor,
+                       modes: torch.Tensor, is_luma: bool = True,
+                       bit_depth: int = 8) -> torch.Tensor:
+    """K1's rd form given the modes [B, K] (the chroma DM cost's, K = 1):
+    the residuals src [B, N, N] - prediction as [B * K, N, N] int32, one
+    launch counted as `intra_rd_cands`."""
+    if not top.is_cuda:
+        return intra_rd_residuals_plain(top, left, log2_size, src, modes,
+                                        is_luma, bit_depth)
+    return _rd_launch(top, left, log2_size, src, None, None, modes, 0.0,
+                      modes.shape[1], is_luma, bit_depth)[2]
 
 
 def predict_all_modes(top: torch.Tensor, left: torch.Tensor, log2_size: int,

@@ -20,9 +20,12 @@ Counterpart of fasthevc_tpu/ops/me.py.  Four kernels carry it on the card:
     commit's prediction planes (`inter_pred_planes`: luma 8-tap, chroma
     4-tap, uni/bi rounding; counted as `inter_pred_bi` when list 1 is
     given);
-  * K12 (csrc/bi.cu), `bi_cost`: the B search's BI candidate, the bi
+  * K12 (csrc/bi.cu), `bi_select`: the B search's BI candidate, the bi
     average of both lists' exact predictions and its SATD cost, on K11's
-    filter (csrc/mc_common.cuh).
+    filter (csrc/mc_common.cuh), and the direction chosen from it and the
+    lists' costs, with the chosen prediction and rate.  The earlier form,
+    `bi_cost` (the candidate alone), stays callable; no route launches
+    it.
 Each has a plain PyTorch twin (`*_plain`) in this module.  The twins of
 `me_coarse`, `me_fine` and `mc_merge` compute as the reference does, one
 tier or one candidate at a time, so the card tests hold the kernels' sums
@@ -782,6 +785,68 @@ def bi_cost(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits,
     _build.launched("bi_cost")
     _build.check(rc, "bi_cost")
     return pbi, cbi
+
+
+def bi_select_plain(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, c0,
+                    c1, p0, p1, lambda_sqrt: float, n: int):
+    """K12's selected form's twin (search.py:476-491): bi_cost_plain's
+    (pbi, cbi), then the direction as the B search chose it in PyTorch:
+    the first least of (c0, c1, cbi) (argmin over the stack, as
+    jnp.argmin), and the reference's exact one-hot selects of the
+    prediction and the rate.  c0/c1 [B] f32 and p0/p1 [B, n, n] are the
+    lists' merge winners.  Returns (pred_sel [B, n, n] int32, rate_sel [B]
+    f32, dchoice [B] int32: 0 list 0, 1 list 1, 2 BI)."""
+    pbi, cbi = bi_cost_plain(src, refs, mv0, sel0, mv1, sel1, r0bits,
+                             r1bits, lambda_sqrt, n)
+    dchoice = torch.argmin(torch.stack([c0, c1, cbi]), dim=0)
+    d3 = dchoice[:, None, None]
+    pred_sel = torch.where(d3 == 0, p0, torch.where(d3 == 1, p1, pbi))
+    rate_sel = torch.where(dchoice == 0, r0bits,
+                           torch.where(dchoice == 1, r1bits,
+                                       r0bits + r1bits))
+    return (pred_sel.to(torch.int32), rate_sel,
+            dchoice.to(torch.int32))
+
+
+def bi_select(src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, c0, c1, p0,
+              p1, lambda_sqrt: float, n: int, plain: bool = False):
+    """The BI candidate and the direction of `bi_select_plain` in one
+    launch of K12's selected form: CUDA tensors go through it unless
+    `plain`.  pbi reaches device memory only where BI wins, and p0 / p1 are
+    read only where their list wins."""
+    if plain or not src.is_cuda:
+        return bi_select_plain(src, refs, mv0, sel0, mv1, sel1, r0bits,
+                               r1bits, c0, c1, p0, p1, lambda_sqrt, n)
+    i32 = [t.to(torch.int32).contiguous()
+           for t in (src, refs, mv0, sel0, mv1, sel1, p0, p1)]
+    f32 = [t.to(torch.float32).contiguous() for t in (r0bits, r1bits, c0,
+                                                       c1)]
+    src, refs, mv0, sel0, mv1, sel1, p0, p1 = i32
+    _build.require_cuda("bi_select", *i32, *f32)
+    r, h, w = refs.shape
+    b = (h // n) * (w // n)
+    if (src.shape != (h, w) or n not in (8, 16, 32, 64) or h % n or w % n
+            or mv0.shape != (b, 2) or mv1.shape != (b, 2)
+            or sel0.shape != (b,) or sel1.shape != (b,)
+            or p0.shape != (b, n, n) or p1.shape != (b, n, n)
+            or any(t.shape != (b,) for t in f32)):
+        raise ValueError("bi_select: src [H, W], refs [R, H, W], mv0/mv1 "
+                         "[B, 2], p0/p1 [B, n, n], sel0/sel1/r0bits/r1bits/"
+                         "c0/c1 [B], n in 8..64")
+    dev = src.device
+    pred_sel = torch.empty((b, n, n), dtype=torch.int32, device=dev)
+    rate_sel = torch.empty((b,), dtype=torch.float32, device=dev)
+    dchoice = torch.empty((b,), dtype=torch.int32, device=dev)
+    ls = float(torch.as_tensor(lambda_sqrt, dtype=torch.float32))
+    rc = _build.lib().fhv_bi_select(
+        src.data_ptr(), refs.data_ptr(), mv0.data_ptr(), sel0.data_ptr(),
+        mv1.data_ptr(), sel1.data_ptr(), *(t.data_ptr() for t in f32),
+        p0.data_ptr(), p1.data_ptr(), ls, pred_sel.data_ptr(),
+        rate_sel.data_ptr(), dchoice.data_ptr(), r, h, w, n,
+        _build.stream_handle(src))
+    _build.launched("bi_select")
+    _build.check(rc, "bi_select")
+    return pred_sel, rate_sel, dchoice
 
 
 def _as_stack(p: torch.Tensor, frames: bool) -> torch.Tensor:

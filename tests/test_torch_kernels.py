@@ -77,6 +77,21 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch():
     for a, b in zip(transform.tq_cost(res, 32, 3, is_intra=False),
                     transform.tq_cost_plain(res, 32, 3, is_intra=False)):
         assert torch.equal(a, b)
+    d = intra.predict_satd(top, left, 3, src)
+    bits = torch.from_numpy(np.random.default_rng(3).choice(
+        np.float32([2, 3, 6]), (20, 35)))
+    for a, b in zip(intra.intra_rd_cands(top, left, 3, src, d, bits, 7.5, 3),
+                    intra.intra_rd_cands_plain(top, left, 3, src, d, bits,
+                                               7.5, 3)):
+        assert torch.equal(a, b)
+    modes = torch.arange(20, dtype=torch.int32)[:, None] % 35
+    assert torch.equal(
+        intra.intra_rd_residuals(top, left, 3, src, modes, False),
+        intra.intra_rd_residuals_plain(top, left, 3, src, modes, False))
+    y, refs = _p_inputs(32, 32, 4, torch.device("cpu"))
+    args = _bi_select_args(y, torch.cat([refs, refs]), 16, seed=5)
+    for a, b in zip(me.bi_select(*args), me.bi_select_plain(*args)):
+        assert torch.equal(a, b)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -119,8 +134,11 @@ def test_library_is_keyed_by_the_sources():
         "intra_pred.cu", "satd.cu", "tq_roundtrip.cu", "sse_rate.cu",
         "commit.cu", "deblock.cu", "sao.cu", "checksum.cu", "me_int.cu",
         "subpel.cu", "mc.cu", "intra_common.cuh", "tq_common.cuh",
-        "satd_common.cuh", "rate_common.cuh", "cnn.cu", "halo.cu"}
+        "satd_common.cuh", "rate_common.cuh", "cnn.cu", "halo.cu", "bi.cu",
+        "copy_common.cuh", "mc_common.cuh"}
     assert set(_build._SIGNATURES) >= {
+        "fhv_intra_satd", "fhv_intra_rd_cands", "fhv_bi_cost",
+        "fhv_bi_select",
         "fhv_tq_roundtrip", "fhv_tq_cost", "fhv_cnn_bwd_plan",
         "fhv_downsample4", "fhv_sad_search", "fhv_me_coarse",
         "fhv_me_fine", "fhv_subpel", "fhv_mc_sel", "fhv_mc_merge",
@@ -181,6 +199,58 @@ def test_selected_candidates_match_the_gather(cuda_device, lg):
     assert torch.equal(got, torch.take_along_dim(allm, take[:, :, None, None],
                                                  dim=1))
     assert torch.equal(got, intra.predict_plain(top, left, lg, take))
+
+
+def _ls(qp):
+    return float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [1, 3, 8])
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+def test_intra_rd_cands_kernel_matches_twin(cuda_device, lg, kk):
+    """K1's rd form (the RD shortlist) against its twin at QP 29, bit for
+    bit: top_idx, the f32 bits of cand_bits and the residuals, on noise
+    blocks with their own SATDs and on flat blocks (all 35 SATDs 0, every
+    cost tied within its bits: lower mode first); 301 blocks, a partial
+    CTA at the end, one launch each."""
+    n = 1 << lg
+    rng = np.random.default_rng(80 + lg * 10 + kk)
+    top, left = (t.to(cuda_device) for t in _refs(lg, 301, seed=60 + lg))
+    src = torch.from_numpy(rng.integers(0, 256, (301, n, n)).astype(
+        np.int32)).to(cuda_device)
+    flat_t = torch.full_like(top, 128)
+    flat_s = torch.full_like(src, 128)
+    bits = torch.from_numpy(rng.choice(np.float32([2, 3, 6]), (301, 35))).to(
+        cuda_device)
+    before = _build.LAUNCHES["intra_rd_cands"]
+    for t, l, s in ((top, left, src), (flat_t, flat_t, flat_s)):
+        d = intra.predict_satd(t, l, lg, s)
+        got = intra.intra_rd_cands(t, l, lg, s, d, bits, _ls(29), kk)
+        want = intra.intra_rd_cands_plain(t, l, lg, s, d, bits, _ls(29), kk)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+        assert torch.equal(got[2], want[2])
+    assert _build.LAUNCHES["intra_rd_cands"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("lg", [2, 3, 4, 5])
+def test_intra_rd_residuals_kernel_matches_twin(cuda_device, lg, luma):
+    """K1's rd form given the modes (the chroma DM residual at n = 4, 8,
+    16, and luma), one and three modes a block, every mode taken."""
+    n = 1 << lg
+    top, left = (t.to(cuda_device) for t in _refs(lg, 301, seed=90 + lg))
+    src = torch.from_numpy(np.random.default_rng(lg).integers(
+        0, 256, (301, n, n)).astype(np.int32)).to(cuda_device)
+    modes = torch.arange(301 * 3, device=cuda_device).reshape(301, 3) % 35
+    before = _build.LAUNCHES["intra_rd_cands"]
+    for m in (modes[:, :1], modes):
+        assert torch.equal(
+            intra.intra_rd_residuals(top, left, lg, src, m, luma),
+            intra.intra_rd_residuals_plain(top, left, lg, src, m, luma))
+    assert _build.LAUNCHES["intra_rd_cands"] == before + 2
 
 
 @pytest.mark.cuda
@@ -666,6 +736,58 @@ def test_bi_cost_kernel_matches_twin(cuda_device):
     assert _build.LAUNCHES["bi_cost"] == before + 4
 
 
+def _bi_select_args(y, refs, n, seed):
+    """bi_select's inputs on an ME state's y and refs (two lists of
+    len(refs) / 2 references): MVs far enough out to clamp at every
+    picture edge, each list's reference drawn per block, and the lists'
+    costs planted around the BI cost (its twin's): ties c0 == cbi, c1 ==
+    cbi, c0 == c1, an inf c1, both inf, and outright wins of each
+    direction; p0 and p1 noise."""
+    dev = y.device
+    h, w = y.shape
+    b = (h // n) * (w // n)
+    half = refs.shape[0] // 2
+    rng = np.random.default_rng(seed)
+    mvs = [torch.from_numpy(rng.integers(-259, 260, (b, 2)).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    sel0 = torch.from_numpy(rng.integers(0, half, b).astype(np.int32)).to(dev)
+    sel1 = torch.from_numpy(rng.integers(half, 2 * half, b).astype(
+        np.int32)).to(dev)
+    rates = [me.mv_rate_bits(m) for m in mvs]
+    ls = _ls(32)
+    _, cbi = me.bi_cost_plain(y, refs, mvs[0], sel0, mvs[1], sel1, *rates,
+                              ls, n)
+    plant = torch.tensor([[0, 5], [1, float("inf")], [1, 0], [-1, -1],
+                          [float("inf"), float("inf")], [-1, 5], [1, -2],
+                          [1, 5]], device=dev)[torch.arange(b, device=dev)
+                                               % 8]
+    c0, c1 = cbi + plant[:, 0], cbi + plant[:, 1]
+    p0, p1 = (torch.from_numpy(rng.integers(0, 256, (b, n, n)).astype(
+        np.int32)).to(dev) for _ in range(2))
+    return (y, refs, mvs[0], sel0, mvs[1], sel1, *rates, c0, c1, p0, p1, ls,
+            n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nref", [1, 2])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_bi_select_kernel_matches_twin(cuda_device, n, nref):
+    """K12's selected form against its twin, bit for bit (pred_sel,
+    dchoice and the f32 bits of rate_sel), with one and two references a
+    list, far MVs and ties and inf among c0, c1 and cbi; one launch."""
+    y, refs = _p_inputs(128, 128, 94, cuda_device)
+    refs = refs[:nref]
+    st = me.me_state(y, torch.cat([refs, refs.flip(0)]), 64, plain=True)
+    args = _bi_select_args(st.y, st.refs, n, seed=95 + n)
+    before = _build.LAUNCHES["bi_select"]
+    got, want = me.bi_select(*args), me.bi_select_plain(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(got[2], want[2])
+    assert set(want[2].tolist()) == {0, 1, 2}
+    assert _build.LAUNCHES["bi_select"] == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["p", "b"])
 def test_ctu64_searches_match_twins(cuda_device, kind):
@@ -689,11 +811,12 @@ def test_ctu64_searches_match_twins(cuda_device, kind):
                                  64, plain=plain)
     before = dict(_build.LAUNCHES)
     got = run(False)
-    names = ["me_coarse", "me_fine", "mc_merge", "subpel"] + (
-        ["bi_cost"] if kind == "b" else [])
+    names = ["me_coarse", "me_fine", "mc_merge", "subpel",
+             "intra_rd_cands"] + (["bi_select"] if kind == "b" else [])
     for name in names:
         assert _build.LAUNCHES[name] > before.get(name, 0), name
-    for name in ("me_full_search", "me_refine", "mc_sel", "satd"):
+    for name in ("me_full_search", "me_refine", "mc_sel", "satd",
+                 "intra_pred_selected", "bi_cost"):
         assert _build.LAUNCHES.get(name, 0) == before.get(name, 0), name
     assert torch.equal(got, run(True))
     assert (got[..., 2] > 0).any()
