@@ -4,13 +4,16 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile [--root DIR]
                                        # only the profiled 1080p LDP and RA
-                                       # encodes
+                                       # encodes (device time by kernel
+                                       # family: K3/K4, K9, K11, K12, K7's
+                                       # forms, K11's planes, K6, K8)
     python3 chip_smoke.py --profile-mesh   # only phase 16's cases, profiled
     python3 chip_smoke.py --bench-kernels [--root DIR]
                                        # K9's integer stage and the merge
                                        # candidates, K12 and its glue, K10,
                                        # K1 + K2 and K1's fused form, the RD
-                                       # shortlist and its glue, then
+                                       # shortlist and its glue, K7 and
+                                       # K11's commit planes, then
                                        # phases 3, 7, 10,
                                        # 14 and 16's encodes, no twins (DIR:
                                        # another checkout's package; --root
@@ -48,8 +51,13 @@ Phases (any failure raises, and the script exits non-zero):
         the decision maps of one search of that group, K5 (the wavefront
         commit with the RDOQ trellis; its twin on the first 2 frames; its
         time on 1, 2 and 8 frames and per dependent CTU step, and its
-        latency bound: the steps times the least CTU step), K6 (deblock),
-        K7 (SAO) and K8 (checksum), exactly;
+        latency bound: the steps times the least CTU step), K6 (deblock;
+        it, its BS and cbf passes in b and K8 also timed alone), K7's
+        fused form (sao_fused: estimate and apply in one launch) on
+        the group and on its first picture, against its twin and against
+        the earlier two-launch form (sao_stats + sao_apply), each timed
+        with events and alone beside its bound, and K8 (checksum),
+        exactly;
      b. the P kernels on one P frame of phase 7's clip with two
         references at SR 64: K9 (decimation; the fused form, me_coarse
         and me_fine, each against its twin, which searches one tier at a
@@ -60,7 +68,10 @@ Phases (any failure raises, and the script exits non-zero):
         (mc_merge at n = 8, 16, 32, against its twin and against the
         earlier path of mc_sel, K2 on the candidates' predictions and the
         fold's torch ops, timed beside it; mc_sel and K2 on their own) and
-        the commit's MC planes, K5's mixed form (RDOQ on; its time per
+        K11's planes form (the commit's MC planes of the three components
+        in one launch) against its twin and the earlier form a component,
+        timed with events and alone beside its bound, K5's mixed form
+        (RDOQ on; its time per
         dependent step beside the frame's share of intra granules and
         CTUs, and its latency bound: the steps times the least CTU step,
         the slope of one-row P pictures) and K6 with boundary strengths,
@@ -74,8 +85,9 @@ Phases (any failure raises, and the script exits non-zero):
         and 32-blocks' merge winners, against its twin and against the
         parent's path (bi_cost, then stack, argmin and where), each timed
         with events and alone beside the bound; the superseded bi_cost at
-        n = 8; and K11's bi-predicting planes on that frame's B decisions,
-        exactly (the f32 costs and rates bit for bit);
+        n = 8; and K11's planes form with both lists on that frame's B
+        decisions, against its twin and the earlier form a component, as
+        in b, exactly (the f32 costs and rates bit for bit);
      e. the forms the CTU-64 classic route adds, on that B frame padded
         to the CTU-64 grid: K9's fused form with its tier 64 (and the
         earlier form's tier-64 searches), K10, K2, K11's merge form and
@@ -98,15 +110,16 @@ Phases (any failure raises, and the script exits non-zero):
      f. the multi-device layer's kernels at the shapes of an interior rank
         of the 1080p (2, 4) mesh (a 480-column tile): K16 (the halo
         exchange: the search's source halo, and its packed form), K6's
-        tile-column form with P strengths and its CU cbf pass, K7's halo
-        form with both neighbours' columns, exactly, each with its time,
-        twin time and bound;
+        tile-column form with P strengths and its CU cbf pass, K7's fused
+        halo form with both neighbours' columns (against its twin and the
+        earlier two-launch halo form, as in a), exactly, each with its
+        time, twin time and bound;
   3. encodes synthesized 1920x1080 QP32 frames with TorchEncoder on its
      all-intra device route (bench.py's tools: default tools,
      auto_tile_grid tiles, hash type 2): one warm-up group, then 16 timed
      frames; prints fps, kbit/frame, Y-PSNR and the device / host-wait /
      entropy split, and requires every kernel of the route to have been
-     launched by that encode;
+     launched by that encode, K7's fused form once a group;
   4. encodes the first 8 of those frames with the kernels and with the
      twins on the card: the streams must be byte-identical;
   5. encodes a 416x240 2-frame clip on the device route on the card and
@@ -115,15 +128,16 @@ Phases (any failure raises, and the script exits non-zero):
   6. the pipelined route (CTU 64: device search, host C++ commit): the
      same 416x240 check, then 8 timed 1080p frames after a warm-up, fps
      printed beside phase 3's, requiring the intra search's kernels (K1's
-     fused and selected forms, K3's costed form) to have been launched;
+     fused and rd forms, K3's costed form) to have been launched;
   7. the low-delay P device route: low_delay_p(1920, 1080, qp=32,
      hash_type=2) on synthesized frames, a warm-up, then one I frame and 8
      P frames timed;
      prints fps, kbit/frame, Y-PSNR and the split, and requires every
      kernel of the route (K1, K3, K5-K11 with K5's mixed form and K6's
      strengths) to have been launched by that encode, K9 at three
-     launches a P picture and K11's merge form at one a block size, and
-     none of the superseded forms (UNLAUNCHED);
+     launches a P picture, K11's merge form at one a block size, K7's
+     fused form at one a picture batch (9) and K11's planes form at one a
+     P batch (8), and none of the superseded forms (UNLAUNCHED);
   8. the first 2 frames of that clip through the kernels and through the
      twins on the card: byte-identical streams;
   9. a 416x240 4-frame low-delay P clip on the card and with the twins on
@@ -136,8 +150,9 @@ Phases (any failure raises, and the script exits non-zero):
      kbit/frame, Y-PSNR (I and B), each batch's span on the card and the
      host-wait / entropy split, and requires every kernel of the route
      (K12 and K11's bi-predicting planes included) to have been launched
-     by that encode, K9 at three launches a B picture and K11's merge form
-     at one a block size for both lists;
+     by that encode, K9 at three launches a B picture, K11's merge form
+     at one a block size for both lists, K7's fused form at one a batch
+     (7) and K11's planes form at one a B batch (6);
  11. a 416x240 17-frame random-access clip through the kernels and through
      the twins on the card, and through the twins on the CPU: identical
      streams that decode hash-clean in SpecDecoder;
@@ -178,9 +193,11 @@ Phases (any failure raises, and the script exits non-zero):
      480-column tiles), and IDR + P + B with the two-entry GOP (2
      segments of 3); each sharded stream must equal TorchEncoder's
      single-device route byte for byte, both fps printed, and K16, K6's
-     tile-column form and cbf pass, K7's halo form, K9's fused form, K10
-     and K11's merge form must have been launched, and none of the
-     superseded forms; the streams are decoded in the mesh-decode jobs;
+     tile-column form and cbf pass, K7's fused halo form (once a rank and
+     step), K9's fused form, K10, K11's merge form and its planes form
+     (once a rank and inter step) must have been launched, and none of
+     the superseded forms; the streams are decoded in the mesh-decode
+     jobs;
  17. BASELINE config 5 through parallel.multiproc.gop_parallel_encode_check:
      3840x2160, 16 frames, 2 processes on the card, tiles 2x2, intra
      period 8: the concatenated stream must equal one process's byte for
@@ -250,25 +267,31 @@ SEARCH_KERNELS = ("intra_rd_cands", "intra_satd", "tq_cost")
 # (tq_cost replaced the pair), K9's one-search-a-launch form (me_coarse and
 # me_fine replaced it), K11's merge-candidate MC and K2 (mc_merge replaced
 # them with the fold), K1's selected form (intra_rd_cands replaced it with
-# the sort and the subtract) and K12's bi_cost (bi_select replaced it with
-# the direction choice); every route's launches must show none of them
+# the sort and the subtract), K12's bi_cost (bi_select replaced it with
+# the direction choice), K7's two-launch form and its halo form (sao_fused
+# and sao_fused_halo replaced them) and K11's plane form a component
+# (inter_pred_fused and inter_pred_fused_bi replaced it); every route's
+# launches must show none of them
 UNLAUNCHED = ("tq_roundtrip", "sse_rate", "me_full_search", "me_refine",
-              "mc_sel", "satd", "intra_pred_selected", "bi_cost")
+              "mc_sel", "satd", "intra_pred_selected", "bi_cost", "sao",
+              "sao_halo", "inter_pred", "inter_pred_bi")
 # K1's rd form a search batch of the all-intra route: the three luma sizes
 # and both chroma planes at each
 RD_PER_GROUP = 9
-INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao", "checksum")
+INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao_fused",
+                                "checksum")
 # the P search's K9 (three launches a picture), K10 and K11's merge form
 # (one launch a block size), then the commit's
 ME_KERNELS = ("me_downsample4", "me_coarse", "me_fine", "subpel",
               "mc_merge")
-P_KERNELS = ME_KERNELS + ("inter_pred", "commit_mixed", "deblock_bs",
+P_KERNELS = ME_KERNELS + ("inter_pred_fused", "commit_mixed", "deblock_bs",
                           "deblock_cbf")
 LDP_ROUTE = INTRA_ROUTE + P_KERNELS
 RA_FRAMES = 17           # random access: the IDR and one GOP-16
-B_KERNELS = ("bi_select", "inter_pred_bi")
-RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS if k != "inter_pred")
-            + B_KERNELS)
+RA_BATCHES = 7           # its dependency batches: 1, 1, 1, 2, 4, 4, 4
+B_KERNELS = ("bi_select", "inter_pred_fused_bi")
+RA_ROUTE = (INTRA_ROUTE + tuple(k for k in P_KERNELS
+                                if k != "inter_pred_fused") + B_KERNELS)
 # the classic per-frame route's P search: K1 (fused and selected forms),
 # K3's costed form, K9, K10 and K11's merge form (the C++ engine commits
 # and compensates on the host)
@@ -295,6 +318,7 @@ META = {
     "tq_cost": ("csrc/tq_roundtrip.cu", "fasthevc_tpu/ops/transform.py:151"),
     "commit_intra": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:545"),
     "deblock": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:236"),
+    "sao_fused": ("csrc/sao.cu", "fasthevc_tpu/ops/sao.py:264"),
     "sao": ("csrc/sao.cu", "fasthevc_tpu/ops/sao.py:264"),
     "checksum": ("csrc/checksum.cu",
                  "fasthevc_tpu/codec/device_pipeline.py:55"),
@@ -306,12 +330,14 @@ META = {
     "subpel": ("csrc/subpel.cu", "fasthevc_tpu/ops/me.py:343"),
     "mc_merge": ("csrc/mc.cu", "fasthevc_tpu/codec/search.py:438"),
     "mc_sel": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:671"),
+    "inter_pred_fused": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "inter_pred": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "commit_mixed": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:570"),
     "deblock_bs": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:177"),
     "deblock_cbf": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
     "bi_select": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
     "bi_cost": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
+    "inter_pred_fused_bi": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "inter_pred_bi": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "cnn_depth": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:82"),
     "cnn_train": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:30"),
@@ -321,11 +347,13 @@ META = {
     "halo": ("csrc/halo.cu", "fasthevc_tpu/parallel/sharded.py:46"),
     "deblock_window": ("csrc/deblock.cu",
                        "fasthevc_tpu/parallel/sharded.py:67"),
+    "sao_fused_halo": ("csrc/sao.cu",
+                       "fasthevc_tpu/parallel/sharded.py:186"),
     "sao_halo": ("csrc/sao.cu", "fasthevc_tpu/parallel/sharded.py:186"),
 }
-# the multi-device layer's kernels: K16, K6's tile-column form, K7's halo
-# form (phases 2f and 16; the P/B mesh cases run K6's cbf pass too)
-MESH_KERNELS = ("halo", "deblock_window", "sao_halo")
+# the multi-device layer's kernels: K16, K6's tile-column form, K7's fused
+# halo form (phases 2f and 16; the P/B mesh cases run K6's cbf pass too)
+MESH_KERNELS = ("halo", "deblock_window", "sao_fused_halo")
 MESH = (2, 4)            # phase 16's in-process ("gop", "tile") mesh
 
 
@@ -837,6 +865,89 @@ def _k5_mixed_least_step(torch, d) -> float:
     return best
 
 
+def _alone_text(name: str, label: str, timed: dict, fn, keys) -> None:
+    """Prints a kernel's events time beside its time alone (the card's own
+    time of its kernels, without the wrapper's host work)."""
+    print(f"kernel {name} ({label}): {timed[name][0]:.4f} ms, the kernel "
+          f"alone {_ms_text(_device_ms(fn, keys))}")
+
+
+def _sao_work(px: float) -> tuple:
+    """K7's (bytes, int32 operations) on px luma samples and their chroma:
+    src and rec read and the plane written once, int32 each; about 30
+    operations a sample (4 edge classes and the band)."""
+    return (px * 1.5 * 4 * 3, 30 * px * 1.5)
+
+
+def _sao_check(torch, label: str, args: tuple, kw: dict, px: float,
+               timed=None, work=None, keys=("sao_fused", "sao")) -> None:
+    """K7's fused form against its twin and against the earlier two-launch
+    form (the parent's), bit for bit; both timed with events and alone
+    (torch.profiler's device time of their kernels); prints the bound and
+    the fused form's share of it.  With `timed`, the rows of keys[0] (the
+    fused form) and keys[1] (the earlier form)."""
+    from fasthevc_tpu_torch.ops import sao
+
+    def new():
+        return sao.sao(*args, **kw)
+
+    def old():
+        return sao.sao_two_pass(*args, **kw)
+
+    def twin():
+        return sao.sao(*args, plain=True, **kw)
+
+    got = new()
+    for ref, what in ((twin(), "twin"), (old(), "earlier form")):
+        for name, a, b in zip(("y", "cb", "cr", "params"), got, ref):
+            _same(torch, f"K7 {label} {name} ({what})", a, b)
+    types = torch.bincount(got[3][..., 0].flatten().long(),
+                           minlength=3).tolist()
+    ms, old_ms = _median_ms(new), _median_ms(old)
+    dev = _device_ms(new, ("sao_fused_kernel",))
+    old_dev = _device_ms(old, ("sao_stats_kernel", "sao_apply_kernel"))
+    wk = _sao_work(px)
+    b_ms, b_by = _bound(*wk)
+    print(f"kernel {keys[0]} ({label}; CTB parameters off / band / edge "
+          f"{types}): {ms:.4f} ms (the kernel alone {_ms_text(dev)}), the "
+          f"earlier form {old_ms:.4f} ms (its two kernels alone "
+          f"{_ms_text(old_dev)}); bound {b_ms:.4f} ms ({b_by}), "
+          f"{_share_text(b_ms, dev)} of it alone, {_share_text(b_ms, ms)} by "
+          f"events")
+    if timed is not None:
+        plain_ms = _median_ms(twin)
+        timed[keys[0]], timed[keys[1]] = (ms, plain_ms), (old_ms, plain_ms)
+        work[keys[0]] = work[keys[1]] = wk
+
+
+def _planes_check(torch, label: str, pred, keys: tuple, wk: tuple, timed,
+                  work) -> None:
+    """K11's planes form (pred("fused")) against its twin (pred("twin"))
+    and the earlier form a component (pred("earlier"), the parent's), bit
+    for bit; both timed with events and alone; prints the bound and the
+    planes form's share of it; fills the rows of keys (planes form,
+    earlier form)."""
+    got = pred("fused")
+    for ref, what in ((pred("twin"), "twin"), (pred("earlier"),
+                                               "earlier form")):
+        for name, a, b in zip(("y", "cb", "cr"), got, ref):
+            _same(torch, f"K11 {keys[0]} {name} ({what})", a, b)
+    ms, old_ms = (_median_ms(lambda: pred("fused")),
+                  _median_ms(lambda: pred("earlier")))
+    plain_ms = _median_ms(lambda: pred("twin"))
+    dev = _device_ms(lambda: pred("fused"), ("inter_planes_kernel",))
+    old_dev = _device_ms(lambda: pred("earlier"), ("inter_pred_kernel",))
+    b_ms, b_by = _bound(*wk)
+    print(f"kernel {keys[0]} ({label}, the three components): {ms:.4f} ms "
+          f"(the kernel alone {_ms_text(dev)}), the earlier form a "
+          f"component {old_ms:.4f} ms (its three launches alone "
+          f"{_ms_text(old_dev)}), plain twin {plain_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}), {_share_text(b_ms, dev)} of it alone, "
+          f"{_share_text(b_ms, ms)} by events")
+    timed[keys[0]], timed[keys[1]] = (ms, plain_ms), (old_ms, plain_ms)
+    work[keys[0]] = work[keys[1]] = wk
+
+
 def phase_pixel_kernels(torch, y, c, sp, timed, work):
     """K5-K8 on the decisions of one 1080p search; K6-K8 against their
     twins here, K5 against its twin in the job k5-intra."""
@@ -875,23 +986,24 @@ def phase_pixel_kernels(torch, y, c, sp, timed, work):
     timed["deblock"] = (_median_ms(lambda: deblock.deblock(*dargs)),
                         _median_ms(lambda: deblock.deblock(*dargs,
                                                            plain=True)))
+    _alone_text("deblock", f"1080p group of {GROUP}", timed,
+                lambda: deblock.deblock(*dargs), ("deblock_kernel",))
     gpx = GROUP * HEIGHT * WIDTH
     segs = GROUP * (HEIGHT // 4 * gw + WIDTH // 4 * gh)
     work["deblock"] = (gpx * 1.5 * 4 * 2 + 4 * GROUP * gh * gw, 120 * segs)
     sargs = (sy, scb, scr) + tuple(dk) + (5,)
-    sk = sao.sao(*sargs)
-    for name, a, b in zip(("y", "cb", "cr", "params"), sk,
-                          sao.sao(*sargs, plain=True)):
-        _same(torch, f"K7 {name}", a, b)
-    timed["sao"] = (_median_ms(lambda: sao.sao(*sargs)),
-                    _median_ms(lambda: sao.sao(*sargs, plain=True)))
-    work["sao"] = (gpx * 1.5 * 4 * 3, 30 * gpx * 1.5)
-    y8 = sk[0].to(torch.uint8)
+    _sao_check(torch, f"1080p group of {GROUP}", sargs, {}, gpx, timed,
+               work)
+    _sao_check(torch, "one 1080p picture",
+               tuple(a[:1] for a in sargs[:6]) + (5,), {}, HEIGHT * WIDTH)
+    y8 = sao.sao(*sargs)[0].to(torch.uint8)
     _same(torch, "K8", dp.device_checksum(y8),
           dp.device_checksum(y8, plain=True))
     timed["checksum"] = (
         _median_ms(lambda: dp.device_checksum(y8)),
         _median_ms(lambda: dp.device_checksum(y8, plain=True)))
+    _alone_text("checksum", f"1080p group of {GROUP}, luma", timed,
+                lambda: dp.device_checksum(y8), ("checksum_kernel",))
     work["checksum"] = (gpx + 4 * GROUP, 4 * gpx)
     torch.cuda.synchronize()
 
@@ -1247,18 +1359,22 @@ def phase_inter_kernels(torch, timed, work):
           f"inter, {ref1:.3f} on the second reference")
     ref_stacks = tuple(p[None] for p in refs)
 
-    def pred(plain=False):
+    def pred(form):
+        if form == "earlier":
+            return me.inter_pred_planes_by_comp(ref_stacks, None, im, mv,
+                                                ref_map=rm)
         return me.inter_pred_planes(ref_stacks, None, im, mv, ref_map=rm,
-                                    plain=plain)
+                                    plain=form == "twin")
 
-    for name, a, b in zip(("y", "cb", "cr"), d["pred"], pred(True)):
-        _same(torch, f"K11 inter_pred {name}", a, b)
-    timed["inter_pred"] = (_median_ms(pred), _median_ms(lambda: pred(True)))
+    for name, a, b in zip(("y", "cb", "cr"), d["pred"], pred("twin")):
+        _same(torch, f"K11 inter_pred_fused {name} (route's call)", a, b)
     fpx = HEIGHT * WIDTH
     # uni-prediction: one luma 8x8 and two chroma 4x4 granules each
-    work["inter_pred"] = (
-        4 * (rr * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
-        gh * gw * (_interp_ops(8, 8) + 2 * _interp_ops(4, 4)))
+    _planes_check(torch, "1080p P frame, 2 refs", pred,
+                  ("inter_pred_fused", "inter_pred"),
+                  (4 * (rr * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
+                   gh * gw * (_interp_ops(8, 8) + 2 * _interp_ops(4, 4))),
+                  timed, work)
 
     # K5's mixed form, one frame, RDOQ on (its twin in the job k5-mixed)
     qc = QP
@@ -1289,6 +1405,8 @@ def phase_inter_kernels(torch, timed, work):
     timed["deblock_cbf"] = (
         _median_ms(lambda: deblock.tu_cbf(lv, dm, 5)),
         _median_ms(lambda: deblock.tu_cbf(lv, dm, 5, plain=True)))
+    _alone_text("deblock_cbf", "1080p P frame", timed,
+                lambda: deblock.tu_cbf(lv, dm, 5), ("cbf_kernel",))
     work["deblock_cbf"] = (2 * fpx + 8 * gh * gw, fpx)
     dargs = (*rec[:3], dm, [QP], [qc], [qc], 5)
     kw = dict(dir_map=im, mv_map=mv, ref_map=rm, cbf=cbf)
@@ -1299,6 +1417,8 @@ def phase_inter_kernels(torch, timed, work):
     timed["deblock_bs"] = (
         _median_ms(lambda: deblock.deblock(*dargs, **kw)),
         _median_ms(lambda: deblock.deblock(*dargs, plain=True, **kw)))
+    _alone_text("deblock_bs", "1080p P frame", timed,
+                lambda: deblock.deblock(*dargs, **kw), ("deblock_kernel",))
     segs = HEIGHT // 4 * gw + WIDTH // 4 * gh
     work["deblock_bs"] = (fpx * 1.5 * 4 * 2 + 4 * gh * gw * 8,
                           (120 + 40) * segs)
@@ -1384,19 +1504,22 @@ def phase_b_kernels(torch, timed, work):
     stacks = [tuple(torch.stack([plane(k, i) for k in lst])[None]
                     for i in range(3)) for lst in lists]
 
-    def pred(plain=False):
+    def pred(form):
+        if form == "earlier":
+            return me.inter_pred_planes_by_comp(stacks[0], stacks[1], im, mv,
+                                                ref_map=rm)
         return me.inter_pred_planes(stacks[0], stacks[1], im, mv,
-                                    ref_map=rm, plain=plain)
+                                    ref_map=rm, plain=form == "twin")
 
-    for name, a, b in zip(("y", "cb", "cr"), pred(), pred(True)):
-        _same(torch, f"K11 inter_pred_bi {name}", a, b)
-    timed["inter_pred_bi"] = (_median_ms(pred), _median_ms(lambda: pred(True)))
     fpx = HEIGHT * WIDTH
     # each granule filters its lists: two for BI, one otherwise
     lists_per_granule = float((1 + (im == 3).to(torch.int64)).sum().item())
-    work["inter_pred_bi"] = (
-        4 * (4 * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
-        lists_per_granule * (_interp_ops(8, 8) + 2 * _interp_ops(4, 4)))
+    _planes_check(torch, "1080p B frame, 2 refs a list", pred,
+                  ("inter_pred_fused_bi", "inter_pred_bi"),
+                  (4 * (4 * 1.5 * fpx + 1.5 * fpx) + 4 * 7 * gh * gw,
+                   lists_per_granule * (_interp_ops(8, 8)
+                                        + 2 * _interp_ops(4, 4))),
+                  timed, work)
     torch.cuda.synchronize()
 
 
@@ -1808,18 +1931,22 @@ def _require(launches: dict, names, what: str) -> None:
 
 
 def _per_picture(launches: dict, pictures: int, sizes: int, what: str,
-                 intra_rd: int, b_pictures: int = 0) -> None:
+                 intra_rd: int, b_pictures: int = 0, batches: int = 0,
+                 p_batches: int = 0, b_batches: int = 0) -> None:
     """K9 at three launches an inter picture (the decimation, me_coarse,
     me_fine), K11's merge form at one a block size (SR 64), K12's selected
-    form at one a B picture and block size, and K1's rd form `intra_rd`
-    times."""
+    form at one a B picture and block size, K1's rd form `intra_rd` times,
+    K7's fused form at one launch a picture batch (`batches`) and K11's
+    planes form at one a P batch and one a B batch."""
     want = {"me_downsample4": pictures, "me_coarse": pictures,
             "me_fine": pictures, "mc_merge": pictures * sizes,
-            "bi_select": b_pictures * sizes, "intra_rd_cands": intra_rd}
+            "bi_select": b_pictures * sizes, "intra_rd_cands": intra_rd,
+            "sao_fused": batches, "inter_pred_fused": p_batches,
+            "inter_pred_fused_bi": b_batches}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
-        raise AssertionError(f"{what}: K1 / K9 / K11 / K12 launches {got}, "
-                             f"expected {want} for {pictures} inter "
+        raise AssertionError(f"{what}: K1 / K7 / K9 / K11 / K12 launches "
+                             f"{got}, expected {want} for {pictures} inter "
                              f"pictures")
 
 
@@ -1888,11 +2015,14 @@ def phase_device_route(torch, params=None):
     _require(launches, INTRA_ROUTE + (() if params is None
                                       else ("cnn_depth",)),
              f"all-intra device-route encode ({_label(params)})")
-    want = RD_PER_GROUP * (TIMED // GROUP)
-    if launches["intra_rd_cands"] != want:
-        raise AssertionError(f"all-intra encode: {launches['intra_rd_cands']}"
-                             f" intra_rd_cands launches, expected {want} "
-                             f"({RD_PER_GROUP} a group of {GROUP})")
+    # K1's rd form RD_PER_GROUP times and K7's fused form once a group
+    groups = TIMED // GROUP
+    want = {"intra_rd_cands": RD_PER_GROUP * groups, "sao_fused": groups}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"all-intra encode: launches {got}, expected "
+                             f"{want} ({RD_PER_GROUP} and 1 a group of "
+                             f"{GROUP})")
     return launches, st
 
 
@@ -2049,7 +2179,7 @@ def phase_ldp_route(torch, params=None):
     # picture's all-intra batch
     _per_picture(launches, n - 1, 3,
                  f"low-delay P encode ({_label(params)})",
-                 3 * (n - 1) + RD_PER_GROUP)
+                 3 * (n - 1) + RD_PER_GROUP, batches=n, p_batches=n - 1)
     return launches, st
 
 
@@ -2089,9 +2219,13 @@ def phase_ra_route(torch, params=None):
     _require(launches, RA_ROUTE + (() if params is None
                                    else ("cnn_depth",)),
              f"random-access encode ({_label(params)})")
+    if len(enc.spans) != RA_BATCHES:
+        raise AssertionError(f"random-access encode: {len(enc.spans)} "
+                             f"batches, expected {RA_BATCHES}")
     _per_picture(launches, RA_FRAMES - 1, 3,
                  f"random-access encode ({_label(params)})",
-                 3 * (RA_FRAMES - 1) + RD_PER_GROUP, RA_FRAMES - 1)
+                 3 * (RA_FRAMES - 1) + RD_PER_GROUP, RA_FRAMES - 1,
+                 batches=RA_BATCHES, b_batches=RA_BATCHES - 1)
     return launches, st
 
 
@@ -2136,7 +2270,8 @@ def phase_classic_route(torch):
     print(f"launches in the timed classic-route encode: {launches}")
     _require(launches, CLASSIC_ROUTE, "classic-route encode")
     # four luma sizes a P picture; the I picture's search adds the chroma
-    # DM residuals of both planes at 8, 16 and 32
+    # DM residuals of both planes at 8, 16 and 32; the host commits,
+    # filters and compensates (no K7, no K11 planes)
     _per_picture(launches, n - 1, 4, "classic-route encode",
                  4 * (n - 1) + 4 + 6)
     return launches, st
@@ -2522,6 +2657,13 @@ def profile_route(torch, label, clip, cfg, warm) -> None:
              ("intra_pred_kernel", "intra_rd_cands_kernel")),
             ("K12 (bi_cost, or bi_select)",
              ("bi_cost_kernel", "bi_select_kernel")),
+            ("K7, SAO (sao_stats + sao_apply, or sao_fused)",
+             ("sao_stats_kernel", "sao_apply_kernel", "sao_fused_kernel")),
+            ("K11's commit planes (inter_pred a component, or "
+             "inter_planes)", ("inter_pred_kernel", "inter_planes_kernel")),
+            ("K6, the deblocking (deblock_kernel, cbf_kernel)",
+             ("deblock_kernel", "cbf_kernel")),
+            ("K8, the checksum", ("checksum_kernel",)),
             ("PyTorch's sorts (the shortlist's stable sort)", ("sort",
                                                              "Sort")),
             ("PyTorch's where / argmin / stack (the direction's glue "
@@ -2579,7 +2721,7 @@ def phase_mesh_kernels(torch, timed, work):
     """Phase 2f: K16, K6's tile-column form (with its CU cbf pass) and K7's
     halo form against their twins at the shapes of an interior rank of a
     1080p (2, 4) mesh (tile 1: 480 columns), exactly."""
-    from fasthevc_tpu_torch.ops import deblock, halo, sao
+    from fasthevc_tpu_torch.ops import deblock, halo
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2025)
@@ -2641,7 +2783,7 @@ def phase_mesh_kernels(torch, timed, work):
     segs = HEIGHT // 4 * gw + ew // 4 * gh
     work["deblock_window"] = (px * 1.5 * 4 * 2 + 4 * gh * gw * 7, 120 * segs)
 
-    # K7's halo form on the tile with both neighbours' columns
+    # K7's fused halo form on the tile with both neighbours' columns
     src = [i32(rng.integers(0, 256, (HEIGHT >> (c > 0), tw >> (c > 0))))
            [None] for c in range(3)]
     rec = [(s + i32(rng.integers(-5, 6, s.shape[1:]))[None]).clamp(0, 255)
@@ -2650,15 +2792,9 @@ def phase_mesh_kernels(torch, timed, work):
                   for _ in range(2)) for c in range(3)]
     skw = dict(halo_y=cols[0], halo_cb=cols[1], halo_cr=cols[2],
                l_avail=True, r_avail=True)
-    sk = sao.sao(*src, *rec, 5, **skw)
-    for name, a, b in zip(("y", "cb", "cr", "params"), sk,
-                          sao.sao(*src, *rec, 5, plain=True, **skw)):
-        _same(torch, f"K7 halo {name}", a, b)
-    timed["sao_halo"] = (
-        _median_ms(lambda: sao.sao(*src, *rec, 5, **skw)),
-        _median_ms(lambda: sao.sao(*src, *rec, 5, plain=True, **skw)))
-    tpx = HEIGHT * tw
-    work["sao_halo"] = (tpx * 1.5 * 4 * 3, 30 * tpx * 1.5)
+    _sao_check(torch, f"halo form, a {tw}-column tile, both neighbours",
+               (*src, *rec, 5), skw, HEIGHT * tw, timed, work,
+               ("sao_fused_halo", "sao_halo"))
     torch.cuda.synchronize()
 
 
@@ -2716,9 +2852,20 @@ def phase_mesh(torch) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         steps = -(-len(clip) // MESH[0])
+        ranks = MESH[0] * MESH[1]
         print(f"launches in the mesh {name} encode ({steps} steps of "
-              f"{MESH[0] * MESH[1]} ranks): "
+              f"{ranks} ranks): "
               f"{ {k: v for k, v in _build.LAUNCHES.items()} }")
+        # K7's fused halo form once a rank and step; K11's planes once a
+        # rank and inter step (every step but each segment's IDR)
+        inter = 0 if name == "all-intra" else (steps - 1) * ranks
+        want = {"sao_fused_halo": steps * ranks, "planes": inter}
+        got = {"sao_fused_halo": _build.LAUNCHES.get("sao_fused_halo", 0),
+               "planes": _build.LAUNCHES.get("inter_pred_fused", 0)
+               + _build.LAUNCHES.get("inter_pred_fused_bi", 0)}
+        if got != want:
+            raise AssertionError(f"mesh {name}: K7 / K11 planes launches "
+                                 f"{got}, expected {want}")
         for k, v in _build.LAUNCHES.items():
             launches[k] = launches.get(k, 0) + v
         single, _, sdt, _ = _encode(torch, cfg, clip)
@@ -3142,6 +3289,7 @@ def bench_kernels(torch) -> None:
         ms = _median_ms(lambda: me.subpel(yy, rr, mv, n, ls))
         print(f"bench subpel n={n} ({rr.shape[0]} refs): {ms:.4f} ms")
     del cases, y64, r64, st64
+    bench_filters_and_planes(torch)
     gy, _ = _kernel_inputs(torch, torch.device("cuda"))
     for n in (8, 16, 32):
         lg = n.bit_length() - 1
@@ -3240,6 +3388,53 @@ def bench_kernels(torch) -> None:
               f"{len(clip) / (time.perf_counter() - t0):.4f} fps, "
               f"{len(stream)} bytes, sha256 "
               f"{hashlib.sha256(stream).hexdigest()[:16]}")
+
+
+def bench_filters_and_planes(torch) -> None:
+    """K7 and K11's commit planes through the routes' calls (`sao`,
+    `inter_pred_planes`), whichever form the package launches there: SAO
+    on phase 2a's 1080p group (its frames as the source, a recon within
+    +-6 of them), the planes on phase 2b's P decisions and, from the same
+    maps, seeded directions 1-3 over both lists (the references reversed
+    as list 1); each with events and the card's own time."""
+    from fasthevc_tpu_torch.ops import me, sao
+
+    dev = torch.device("cuda")
+    gy, gc = _kernel_inputs(torch, dev)
+    rng = np.random.default_rng(13)
+
+    def near(p):
+        noise = rng.integers(-6, 7, tuple(p.shape)).astype(np.int32)
+        return (p + torch.from_numpy(noise).to(dev)).clamp(0, 255)
+
+    src = (gy[:, :HEIGHT].contiguous(), gc[:, :HEIGHT // 2].contiguous(),
+           gc.flip(0)[:, :HEIGHT // 2].contiguous())
+    sargs = src + tuple(near(p) for p in src) + (5,)
+    del gy, gc
+
+    def run_sao():
+        return sao.sao(*sargs)
+
+    print(f"bench sao (1080p group of {GROUP}): {_median_ms(run_sao):.4f} "
+          f"ms, the card's own {_ms_text(_device_ms(run_sao))}")
+    del sargs, src
+    d = _p_commit_inputs(torch)
+    l0 = tuple(p[None] for p in d["refs"])
+    l1 = tuple(p.flip(1) for p in l0)
+    bdir = torch.from_numpy(rng.integers(1, 4, tuple(d["im"].shape))
+                            .astype(np.int32)).to(dev)
+
+    def uni():
+        return me.inter_pred_planes(l0, None, d["im"], d["mv"],
+                                    ref_map=d["rm"])
+
+    def bi():
+        return me.inter_pred_planes(l0, l1, bdir, d["mv"], ref_map=d["rm"])
+
+    for label, fn in (("1080p P decisions, 2 refs", uni),
+                      ("seeded directions 1-3 on them, 2 refs a list", bi)):
+        print(f"bench commit planes ({label}): {_median_ms(fn):.4f} ms, "
+              f"the card's own {_ms_text(_device_ms(fn))}")
 
 
 def _stamp(t_start: float, what: str) -> None:
@@ -3374,22 +3569,28 @@ def main() -> int:
           "and K1's fused form (intra_satd) at luma n=8, "
           "intra_rd_cands, intra_pred_selected (no route launches it) "
           "and tq_cost on the 3 rd candidates a block, commit_intra "
-          f"on {TWIN_FRAMES} frame(s) with RDOQ; phase 2b: one 1080p P "
+          f"on {TWIN_FRAMES} frame(s) with RDOQ, sao_fused and sao (the "
+          "earlier two-launch form, no route launches it) on the group; "
+          "phase 2b: one 1080p P "
           "frame, SR 64, two references, me_coarse and me_fine on the "
           "whole frame, the earlier forms me_full_search and me_refine on "
           "the coarse tier 16 and the 8-blocks, subpel and mc_merge on the "
           "8-blocks, mc_sel and satd on their merge candidates, "
-          "commit_mixed with RDOQ; phase 2c: one 1080p B frame, two "
+          "commit_mixed with RDOQ, inter_pred_fused and inter_pred (the "
+          "earlier form a component, no route launches it) on its P "
+          "decisions; phase 2c: one 1080p B frame, two "
           "references per list, bi_select and bi_cost (no route launches "
-          "it) on the 8-blocks' merge winners, inter_pred_bi on "
-          "its B decisions; phase 2d: cnn_depth on the 1080p group of 8 "
+          "it) on the 8-blocks' merge winners, inter_pred_fused_bi and "
+          "inter_pred_bi (no route launches it) on its B decisions; "
+          "phase 2d: cnn_depth on the 1080p group of 8 "
           f"at CTU 32, cnn_train, cnn_backward and adam on {CNN_BATCH} "
           "CTUs of 32; the K5 twins' times were taken beside the other "
           "twin jobs; cnn_depth's launches are phase 13's three timed "
           "encodes', the training kernels' phase 12's; phase 2f: an "
           "interior rank of the 1080p (2, 4) mesh, halo on its source "
           "exchange, deblock_window on its recon extended by 8 columns "
-          "with P maps, sao_halo with both neighbours; their launches are "
+          "with P maps, sao_fused_halo and sao_halo (no route launches it) "
+          "with both neighbours; their launches are "
           "phase 16's three mesh encodes'; deblock_cbf is timed in phase "
           "2b on the whole 1080p P frame)")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")

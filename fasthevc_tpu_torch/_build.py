@@ -81,6 +81,9 @@ _SIGNATURES = {
     # rec y/cb/cr, out y/cb/cr, halo l/r y, cb, cr (or NULL), params, F, H,
     # W, log2_ctu, bit_depth, l_avail, r_avail, stream
     "fhv_sao_apply": [_P] * 13 + [_I] * 7 + [_P],
+    # src y/cb/cr, rec y/cb/cr, out y/cb/cr, halo l/r y, cb, cr (or NULL),
+    # params, F, H, W, log2_ctu, bit_depth, l_avail, r_avail, stream
+    "fhv_sao_fused": [_P] * 16 + [_I] * 7 + [_P],
     # planes, out, F, H, W, stream
     "fhv_checksum": [_P, _P, _I, _I, _I, _P],
     # in, out, N, H, W, stream
@@ -104,6 +107,9 @@ _SIGNATURES = {
     # ref0, ref1, dir, mv, rmap, out, F, R0, R1, H, W, chroma, bit_depth,
     # stream
     "fhv_inter_pred": [_P] * 6 + [_I] * 7 + [_P],
+    # ref0 y/cb/cr, ref1 y/cb/cr (or NULL), dir, mv, rmap (or NULL), out
+    # y/cb/cr, F, R0, R1, H, W, bit_depth, stream
+    "fhv_inter_planes": [_P] * 12 + [_I] * 6 + [_P],
     # src, refs, mv0, sel0, mv1, sel1, r0bits, r1bits, ls, pbi, cbi, R, H,
     # W, n, stream
     "fhv_bi_cost": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],

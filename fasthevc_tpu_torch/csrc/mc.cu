@@ -21,19 +21,27 @@
 //     prediction of every n-block of refs[sel[b]] at its quarter-pel MV
 //     and `valid`, one thread per sample; the SATD (K2) and the fold ran
 //     apart.  No route launches it; it stays as mc_merge's yardstick.
-//   * fhv_inter_pred: the commit's prediction planes of one component for
-//     per-granule motion (8x8 luma granules, 4x4 chroma with the 4-tap
-//     eighth-pel filter): uni-prediction (raw + 32) >> 6 from list 0 or
-//     list 1 by the direction map, or the bi average (raw0 + raw1 + 64) >>
-//     7, clipped; ref_map picks each list's reference per granule.
+//   * fhv_inter_planes, the routes' form: the commit's prediction planes of
+//     all three components in one launch a batch, for per-granule motion
+//     (8x8 luma granules, their 4x4 chroma granules with the 4-tap
+//     eighth-pel filter at the same MV): uni-prediction (raw + 32) >> 6
+//     from list 0 or list 1 by the direction map, or the bi average
+//     (raw0 + raw1 + 64) >> 7, clipped; ref_map picks each list's
+//     reference per granule; intra granules hold the L0 prediction.
+//   * fhv_inter_pred: the earlier form, one component a launch, one thread
+//     per sample.  No route launches it; it stays as fhv_inter_planes'
+//     yardstick.
 //
 // The reference gathers windows from a +-80 edge-padded plane through
 // one-hot selects (TPU workarounds); MVs stay within +-(4 * 64 + 3)
 // quarter pels, so those windows hold edge-clamped samples.
 //
-// Bound on the H100: bytes.  inter_pred: ~50 MB per 1080p frame for the
-// three planes; its separable filter needs (n + 7) * n + n * n 8-tap
-// filters per luma n-block, about 0.1 G operations per frame.  mc_merge
+// Bound on the H100: bytes.  The planes: ~38 MB per 1080p P frame with two
+// references (each read once, the three planes written once); the
+// separable filter needs (n + 7) * n + n * n 8-tap filters per luma
+// n-block, about 0.1 G operations per frame.  inter_planes reaches about a
+// fifth of that bound: a CTA's life is latency (its granules' motion, then
+// their window rows), not bytes.  mc_merge
 // reads the source, the ME winners' predictions and the reference area and
 // writes the winners' predictions: ~34 MB per (1080p picture, n, list),
 // against two candidates x 2.1 M samples x ~32 operations.
@@ -48,6 +56,21 @@
 //     satd_common.cuh: K2's transform in another order of the same exact
 //     sums).  The prediction goes back over the spent window, and only
 //     the winner's prediction is written.
+//   * inter_planes: a CTA a (frame, strip of 8 luma granules in a row),
+//     luma and both chroma planes together, since a luma granule and its
+//     two chroma granules share direction, MV and reference.  Only the
+//     lists a granule uses are read (direction 2: list 1 alone, 3: both,
+//     else list 0).  A thread takes a window row of a (granule, list):
+//     (8 + 7) luma or (4 + 3) chroma edge-clamped samples, loaded straight
+//     into registers (aligned 16-byte loads inside the plane, in flight
+//     together), and runs the horizontal pass once into shared memory (a
+//     switch on the row's offset in its first vector keeps every register
+//     index constant); where both fractions of the MV are 0 it loads only
+//     the block's rows and columns (the zero-phase taps make the copy
+//     exact).  The vertical pass runs into registers, a thread a 4-sample
+//     quad that it writes with one 16-byte store.  A half-warp a window
+//     row into shared memory (coalesced) ran slower: its indexing cost
+//     more than the scattered rows' L1 traffic.
 //   * mc_sel and inter_pred: one thread per sample recomputes its 8
 //     horizontal rows (72 multiply-adds a luma sample, three times the
 //     separable work), reading through L1/L2.
@@ -136,6 +159,237 @@ __global__ void inter_pred_kernel(const int* __restrict__ ref0,
   out[idx] = min(max(pred, 0), (1 << bit_depth) - 1);
 }
 
+
+// ---------------------------------------------------------------------------
+// inter_planes
+
+constexpr int kStrip = 8;                 // luma granules a CTA
+constexpr int kPlaneThreads = 256;
+constexpr int kHorY = 15 * 8, kHorC = 7 * 4;
+constexpr int kHorAll = kHorY + 2 * kHorC;  // one (granule, list)'s pass
+constexpr int kRows = 15 + 2 * 7;           // its window rows
+
+// one list's three component stacks, [F, R, H, W] and [F, R, H/2, W/2]
+struct ListPlanes {
+  const int* p[3];
+};
+
+// The horizontal pass of one window row held in registers, w[OFF..]:
+// N outputs of the TAPS-tap filter tp into out.
+template <int N, int OFF, int NW>
+__device__ __forceinline__ void hpass(const int (&w)[NW], const int* tp,
+                                      int shift1, int* out) {
+  constexpr int TAPS = N == 8 ? 8 : 4;
+  int t[TAPS];
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k) t[k] = tp[k];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) acc += t[k] * w[OFF + c + k];
+    out[c] = acc >> shift1;
+  }
+}
+
+// One window row of a (granule, list) in a component of N-sample
+// granules: its edge-clamped samples straight from the plane into
+// registers, then the horizontal pass into `out` (N values), or, for an
+// integer MV, the row's N samples through the zero-phase taps ((s << 6)
+// >> shift1: the copy).  A row inside the plane is read as aligned 16-byte
+// vectors (`vec`: the plane's rows are 16-byte aligned), one at the edge
+// sample by sample.
+template <int N>
+__device__ __forceinline__ void window_row(const int* __restrict__ rowp,
+                                           int x0, int wc, bool integer,
+                                           bool vec, const int* tp,
+                                           int shift1, int* out) {
+  constexpr int TAPS = N == 8 ? 8 : 4, SIDE = N + TAPS - 1;
+  constexpr int HALF = TAPS / 2 - 1;
+  constexpr int NV = (SIDE + 3 + 3) / 4;      // vectors that cover a row
+  if (integer) {
+    int v[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      v[c] = rowp[min(max(x0 + HALF + c, 0), wc - 1)];
+#pragma unroll
+    for (int c = 0; c < N; ++c) out[c] = (v[c] << 6) >> shift1;
+    return;
+  }
+  const int a = x0 & ~3;
+  if (vec && a >= 0 && a + 4 * NV <= wc) {
+    int w[4 * NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(rowp + a) + i);
+      w[4 * i] = q.x;
+      w[4 * i + 1] = q.y;
+      w[4 * i + 2] = q.z;
+      w[4 * i + 3] = q.w;
+    }
+    switch (x0 - a) {
+      case 0: hpass<N, 0>(w, tp, shift1, out); break;
+      case 1: hpass<N, 1>(w, tp, shift1, out); break;
+      case 2: hpass<N, 2>(w, tp, shift1, out); break;
+      default: hpass<N, 3>(w, tp, shift1, out);
+    }
+    return;
+  }
+  int v[SIDE];
+#pragma unroll
+  for (int k = 0; k < SIDE; ++k) v[k] = rowp[min(max(x0 + k, 0), wc - 1)];
+  hpass<N, 0>(v, tp, shift1, out);
+}
+
+// one 4-sample quad of the prediction: row r, columns c0..c0+3 of granule
+// g of the strip in component comp (N = 8 luma, 4 chroma), from the
+// horizontal pass (an integer MV reads its row through the zero-phase
+// vertical tap); written with one 16-byte store
+template <int N>
+__device__ __forceinline__ void planes_quad(
+    int comp, int r, int g, int c0, const int* hor, const int* g_mv,
+    const int* g_use, const int* g_int, const int* tap,
+    int* __restrict__ out, int f, int gx0, int gy, int H, int W,
+    int bit_depth) {
+  constexpr int TAPS = N == 8 ? 8 : 4, HALF = TAPS / 2 - 1;
+  constexpr int FRAC = N == 8 ? 3 : 7;
+  if (gx0 + g >= (W >> 3)) return;
+  const int ho = comp ? kHorY + (comp - 1) * kHorC : 0;
+  int raw[2][4];
+  int used = 0, lu = 1;
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) raw[l][j] = 0;
+    if (!g_use[2 * g + l]) continue;
+    if (!used) lu = l;
+    ++used;
+    const int* hp = hor + (2 * g + l) * kHorAll + ho + c0;
+    if (g_int[4 * g + 2 * l + (comp > 0)]) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) raw[l][j] = hp[(r + HALF) * N + j];
+    } else {
+      const int* tp = tap + (g_mv[4 * g + 2 * l + 1] & FRAC) * TAPS;
+#pragma unroll
+      for (int k = 0; k < TAPS; ++k) {
+        const int tk = tp[k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) raw[l][j] += tk * hp[(r + k) * N + j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) raw[l][j] >>= 6;
+    }
+  }
+  const int shift = 14 - bit_depth;
+  const int maxv = (1 << bit_depth) - 1;
+  int o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int pred =
+        used == 2 ? (raw[0][j] + raw[1][j] + (1 << shift)) >> (shift + 1)
+                  : (raw[lu][j] + (1 << (shift - 1))) >> shift;
+    o[j] = min(max(pred, 0), maxv);
+  }
+  const int hc = H >> (comp > 0), wc = W >> (comp > 0);
+  const size_t at = ((size_t)f * hc + gy * N + r) * wc + (gx0 + g) * N + c0;
+  *reinterpret_cast<int4*>(out + at) = make_int4(o[0], o[1], o[2], o[3]);
+}
+
+// grid: (strips of a granule row, gh, F)
+__global__ void __launch_bounds__(kPlaneThreads)
+    inter_planes_kernel(const ListPlanes l0, const ListPlanes l1,
+                        const int* __restrict__ dir,
+                        const int* __restrict__ mv,
+                        const int* __restrict__ rmap, int* __restrict__ out_y,
+                        int* __restrict__ out_cb, int* __restrict__ out_cr,
+                        int R0, int R1, int H, int W, int bit_depth) {
+  __shared__ int hor[kStrip * 2][kHorAll];
+  __shared__ int g_mv[kStrip][2][2];      // (x, y) of each list
+  __shared__ int g_plane[kStrip][2];      // frame * R + ref of each list
+  __shared__ int g_use[kStrip][2];        // whether the list is used
+  __shared__ int g_int[kStrip][2][2];     // integer MV: luma, chroma
+  __shared__ int tap_y[4 * 8], tap_c[8 * 4];
+  const int tid = threadIdx.x;
+  const int gw = W >> 3, gh = H >> 3;
+  const int gx0 = blockIdx.x * kStrip, gy = blockIdx.y, f = blockIdx.z;
+  const bool has1 = l1.p[0] != nullptr;
+  const int shift1 = bit_depth - 8;
+  // whether a component's rows are 16-byte aligned in both lists
+  bool vec[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    vec[c] = ((W >> (c > 0)) & 3) == 0 &&
+             ((reinterpret_cast<size_t>(l0.p[c]) |
+               reinterpret_cast<size_t>(has1 ? l1.p[c] : l0.p[c])) & 15) == 0;
+
+  if (tid < 32)
+    tap_y[tid] = kLuma[tid >> 3][tid & 7];
+  else if (tid < 64)
+    tap_c[tid - 32] = kChroma[(tid - 32) >> 2][tid & 3];
+  if (tid < kStrip) {
+    const int gx = gx0 + tid;
+    if (gx < gw) {
+      const size_t gi = ((size_t)f * gh + gy) * gw + gx;
+      const int d = dir[gi];
+      g_use[tid][0] = !has1 || d != 2;
+      g_use[tid][1] = has1 && (d == 2 || d == 3);
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        const int mx = mv[gi * 4 + 2 * l], my = mv[gi * 4 + 2 * l + 1];
+        const int R = l ? R1 : R0;
+        g_mv[tid][l][0] = mx;
+        g_mv[tid][l][1] = my;
+        g_plane[tid][l] = f * R + (rmap != nullptr && R > 1 ? rmap[gi * 2 + l]
+                                                            : 0);
+        g_int[tid][l][0] = ((mx | my) & 3) == 0;
+        g_int[tid][l][1] = ((mx | my) & 7) == 0;
+      }
+    } else {
+      g_use[tid][0] = g_use[tid][1] = 0;
+    }
+  }
+  __syncthreads();
+
+  // 1. each used list's window rows, a thread a row: gathered from the
+  // plane into registers (edge-clamped) and passed horizontally
+  for (int i = tid; i < kStrip * 2 * kRows; i += kPlaneThreads) {
+    const int gl = i / kRows, row = i - gl * kRows;
+    const int g = gl >> 1, l = gl & 1;
+    if (!g_use[g][l]) continue;
+    const int comp = row < 15 ? 0 : (row < 22 ? 1 : 2);
+    const int rr = comp == 0 ? row : (row - 15) % 7;
+    const int n = comp ? 4 : 8, half = comp ? 1 : 3, fb = comp ? 3 : 2;
+    const bool integer = g_int[g][l][comp > 0];
+    if (integer && (rr < half || rr >= half + n)) continue;
+    const int hc = H >> (comp > 0), wc = W >> (comp > 0);
+    const int mx = g_mv[g][l][0], my = g_mv[g][l][1];
+    const int yy = min(max(gy * n + (my >> fb) - half + rr, 0), hc - 1);
+    const int* rowp = (l ? l1 : l0).p[comp] +
+                      ((size_t)g_plane[g][l] * hc + yy) * wc;
+    const int x0 = (gx0 + g) * n + (mx >> fb) - half;
+    if (comp == 0)
+      window_row<8>(rowp, x0, wc, integer, vec[0], tap_y + (mx & 3) * 8,
+                    shift1, hor[gl] + rr * 8);
+    else
+      window_row<4>(rowp, x0, wc, integer, vec[comp], tap_c + (mx & 7) * 4,
+                    shift1, hor[gl] + kHorY + (comp - 1) * kHorC + rr * 4);
+  }
+  __syncthreads();
+
+  // 2. the vertical pass and the prediction, a thread a 4-sample quad:
+  // threads 0-127 luma (8 rows x 16 quads), 128-191 chroma (2 planes x 4
+  // rows x 8 quads)
+  if (tid < 128)
+    planes_quad<8>(0, tid >> 4, (tid & 15) >> 1, (tid & 1) * 4, &hor[0][0],
+                   &g_mv[0][0][0], &g_use[0][0], &g_int[0][0][0], tap_y,
+                   out_y, f, gx0, gy, H, W, bit_depth);
+  else if (tid < 192)
+    planes_quad<4>(1 + ((tid - 128) >> 5), ((tid - 128) & 31) >> 3,
+                   tid & 7, 0, &hor[0][0], &g_mv[0][0][0], &g_use[0][0],
+                   &g_int[0][0][0], tap_c,
+                   (tid - 128) < 32 ? out_cb : out_cr, f, gx0, gy, H, W,
+                   bit_depth);
+}
 
 // ---------------------------------------------------------------------------
 // mc_merge
@@ -421,6 +675,27 @@ extern "C" int fhv_inter_pred(const int* ref0, const int* ref1,
   inter_pred_kernel<<<grid, 256, 0, stream>>>(ref0, ref1, dir, mv, rmap, out,
                                               total, R0, R1, H, W, chroma,
                                               bit_depth);
+  return (int)cudaGetLastError();
+}
+
+// ref0_* [F, R0, H, W] (chroma [F, R0, H/2, W/2]), ref1_* [F, R1, ...] or
+// NULL for P, dir [F, gh, gw], mv [F, gh, gw, 4], rmap [F, gh, gw, 2] or
+// NULL; out_* [F, H, W] and [F, H/2, W/2], every one 16-byte aligned; H
+// and W multiples of 8.
+extern "C" int fhv_inter_planes(const int* ref0_y, const int* ref0_cb,
+                                const int* ref0_cr, const int* ref1_y,
+                                const int* ref1_cb, const int* ref1_cr,
+                                const int* dir, const int* mv,
+                                const int* rmap, int* out_y, int* out_cb,
+                                int* out_cr, int F, int R0, int R1, int H,
+                                int W, int bit_depth, cudaStream_t stream) {
+  if (F <= 0 || H < 8 || W < 8) return 0;
+  if ((H & 7) || (W & 7)) return (int)cudaErrorInvalidValue;
+  const ListPlanes l0{{ref0_y, ref0_cb, ref0_cr}};
+  const ListPlanes l1{{ref1_y, ref1_cb, ref1_cr}};
+  dim3 grid((W / 8 + kStrip - 1) / kStrip, H / 8, F);
+  inter_planes_kernel<<<grid, kPlaneThreads, 0, stream>>>(
+      l0, l1, dir, mv, rmap, out_y, out_cb, out_cr, R0, R1, H, W, bit_depth);
   return (int)cudaGetLastError();
 }
 

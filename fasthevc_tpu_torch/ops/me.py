@@ -16,10 +16,15 @@ Counterpart of fasthevc_tpu/ops/me.py.  Four kernels carry it on the card:
     block size for one or both lists, their MC, SATD and fold in one
     launch (the searches' `with_merge_cands`); `mc_sel`, the earlier form
     (the raw 14-bit prediction and the window test,
-    `mc_raw_from_state_sel`; no route launches it); and `inter_pred`, the
-    commit's prediction planes (`inter_pred_planes`: luma 8-tap, chroma
-    4-tap, uni/bi rounding; counted as `inter_pred_bi` when list 1 is
-    given);
+    `mc_raw_from_state_sel`; no route launches it); and the commit's
+    prediction planes (`inter_pred_planes`: luma 8-tap, chroma 4-tap,
+    uni/bi rounding), all three components in one separable launch a
+    batch (`fhv_inter_planes`: a thread a window row in registers, the
+    horizontal pass in shared memory; counted as
+    `inter_pred_fused`, or `inter_pred_fused_bi` when list 1 is given).
+    The earlier form, a launch a component (`inter_pred_planes_by_comp`,
+    counted as `inter_pred` / `inter_pred_bi`), stays callable; no route
+    launches it;
   * K12 (csrc/bi.cu), `bi_select`: the B search's BI candidate, the bi
     average of both lists' exact predictions and its SATD cost, on K11's
     filter (csrc/mc_common.cuh), and the direction chosen from it and the
@@ -927,6 +932,61 @@ def _inter_comp_cuda(ref0, ref1, d, mv, rmap, chroma: bool,
     return out
 
 
+def _planes_inputs(ref0, ref1, dir_map, mv_map, ref_map):
+    """inter_pred_planes' arguments as (frames, [F, R, H, W] stacks of
+    each list's three components (ref1's None for P), d, mv, rmap)."""
+    frames = dir_map.dim() == 3
+    d = dir_map if frames else dir_map[None]
+    mv = mv_map if frames else mv_map[None]
+    rm = None if ref_map is None else (ref_map if frames else ref_map[None])
+    r0 = [_as_stack(ref0[ci], frames) for ci in range(3)]
+    r1 = None if ref1 is None else [_as_stack(ref1[ci], frames)
+                                    for ci in range(3)]
+    return frames, r0, r1, d, mv, rm
+
+
+def _by_comp(comp, r0, r1, d, mv, rm, bit_depth: int) -> list:
+    """The three planes, one `comp` call (twin or kernel) a component."""
+    return [comp(r0[ci], None if r1 is None else r1[ci], d, mv, rm, ci > 0,
+                 bit_depth) for ci in range(3)]
+
+
+def _planes_cuda(r0, r1, d, mv, rm, bit_depth: int) -> list:
+    """K11's planes form: the three components in one launch."""
+    i32 = torch.int32
+    r0 = [r.to(i32).contiguous() for r in r0]
+    r1 = None if r1 is None else [r.to(i32).contiguous() for r in r1]
+    d, mv = d.to(i32).contiguous(), mv.to(i32).contiguous()
+    rm = None if rm is None else rm.to(i32).contiguous()
+    tensors = r0 + (r1 or []) + [d, mv] + ([] if rm is None else [rm])
+    _build.require_cuda("inter_pred", *tensors, dtype=i32)
+    nf, nr0, h, w = r0[0].shape
+    gh, gw = d.shape[1:]
+    nr1 = 0 if r1 is None else r1[0].shape[1]
+    want = [(nf, nr0, h, w)] + [(nf, nr0, h // 2, w // 2)] * 2
+    if r1 is not None:
+        want += [(nf, nr1, h, w)] + [(nf, nr1, h // 2, w // 2)] * 2
+    if ((gh * 8, gw * 8) != (h, w) or mv.shape != (nf, gh, gw, 4)
+            or [tuple(r.shape) for r in r0 + (r1 or [])] != want
+            or (rm is not None and rm.shape != (nf, gh, gw, 2))):
+        raise ValueError("inter_pred: refs [F, R, H, W] (chroma [F, R, H/2,"
+                         " W/2]) with H, W = 8 luma samples per granule of "
+                         "the maps")
+    outs = [torch.empty((nf, h >> (c > 0), w >> (c > 0)), dtype=i32,
+                        device=d.device) for c in range(3)]
+    ptr1 = [None] * 3 if r1 is None else [r.data_ptr() for r in r1]
+    rc = _build.lib().fhv_inter_planes(
+        *(r.data_ptr() for r in r0), *ptr1, d.data_ptr(), mv.data_ptr(),
+        None if rm is None else rm.data_ptr(),
+        *(o.data_ptr() for o in outs), nf, nr0, nr1, h, w, bit_depth,
+        _build.stream_handle(d))
+    # the bi-predicting form of B pictures counts apart from P's
+    name = "inter_pred_fused" if r1 is None else "inter_pred_fused_bi"
+    _build.launched(name)
+    _build.check(rc, name)
+    return outs
+
+
 def inter_pred_planes(ref0, ref1, dir_map, mv_map, bit_depth: int = 8,
                       ref_map=None, plain: bool = False):
     """Exact MC prediction planes for decided per-granule motion
@@ -936,17 +996,24 @@ def inter_pred_planes(ref0, ref1, dir_map, mv_map, bit_depth: int = 8,
     [(F,) gh, gw, 4] quarter-pel, ref_map [(F,) gh, gw, 2] per-list ref
     index into the stacks.  Returns (pred_y, pred_cb, pred_cr) int32;
     intra granules hold the L0 prediction at their (zero) MVs, as in the
-    reference.  CUDA tensors go through K11 unless `plain`."""
-    frames = dir_map.dim() == 3
-    d = dir_map if frames else dir_map[None]
-    mv = mv_map if frames else mv_map[None]
-    rm = None if ref_map is None else (ref_map if frames else ref_map[None])
-    comp = (_inter_comp_plain if plain or not d.is_cuda
-            else _inter_comp_cuda)
-    out = []
-    for ci in range(3):
-        r0 = _as_stack(ref0[ci], frames)
-        r1 = None if ref1 is None else _as_stack(ref1[ci], frames)
-        p = comp(r0, r1, d, mv, rm, ci > 0, bit_depth)
-        out.append(p if frames else p[0])
-    return tuple(out)
+    reference.  CUDA tensors go through K11's planes form, one launch for
+    the three components, unless `plain`."""
+    frames, r0, r1, d, mv, rm = _planes_inputs(ref0, ref1, dir_map, mv_map,
+                                               ref_map)
+    if plain or not d.is_cuda:
+        out = _by_comp(_inter_comp_plain, r0, r1, d, mv, rm, bit_depth)
+    else:
+        out = _planes_cuda(r0, r1, d, mv, rm, bit_depth)
+    return tuple(p if frames else p[0] for p in out)
+
+
+def inter_pred_planes_by_comp(ref0, ref1, dir_map, mv_map,
+                              bit_depth: int = 8, ref_map=None):
+    """`inter_pred_planes` through K11's earlier plane form, one launch a
+    component (`fhv_inter_pred`); arguments and result as
+    `inter_pred_planes`.  CPU tensors run the twin."""
+    frames, r0, r1, d, mv, rm = _planes_inputs(ref0, ref1, dir_map, mv_map,
+                                               ref_map)
+    comp = _inter_comp_cuda if d.is_cuda else _inter_comp_plain
+    out = _by_comp(comp, r0, r1, d, mv, rm, bit_depth)
+    return tuple(p if frames else p[0] for p in out)

@@ -4,9 +4,14 @@
 Counterpart of fasthevc_tpu/ops/sao.py `sao_device`, with its tile halo
 (`has_halo`: a tile shard's 1-px deblocked neighbour columns and their
 availability, so that a column-sharded SAO equals the full-plane pass).
-`sao` goes through kernel K7 (csrc/sao.cu: `fhv_sao_stats`, one CTA per frame and CTB, then
-`fhv_sao_apply`, one thread per sample) for CUDA tensors; `sao_plain` is
-its PyTorch twin.
+`sao` goes through kernel K7's fused form for CUDA tensors (csrc/sao.cu
+`fhv_sao_fused`: one launch a picture batch, a CTA a frame and CTB that
+estimates and applies all three components from a shared-memory tile;
+launch counters `sao_fused`, and `sao_fused_halo` for the halo form);
+`sao_plain` is its PyTorch twin.  `sao_two_pass` is K7's earlier form
+(`fhv_sao_stats`, a CTA a frame and CTB, then `fhv_sao_apply`, a thread a
+sample; counters `sao` and `sao_halo`, two a call): no route launches it,
+it stays as the fused form's yardstick.
 
 Estimation reproduces the reference's choices exactly: categories are
 classified on the CTB-padded plane (zeros beyond the coded picture, the
@@ -231,17 +236,35 @@ def sao(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu: int,
     rcol), each plane's deblocked neighbour columns [F, H] (chroma
     [F, H/2]), and l_avail, r_avail whether each side classifies against
     them; the width must be a multiple of the CTB.  CUDA tensors go
-    through K7 unless `plain`."""
+    through K7's fused form (one launch, CTU 16, 32 or 64) unless
+    `plain`."""
     if plain or not rec_y.is_cuda:
         return sao_plain(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr,
                          log2_ctu, bit_depth, halo_y, halo_cb, halo_cr,
                          l_avail, r_avail)
     return _sao_cuda(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu,
-                     bit_depth, (halo_y, halo_cb, halo_cr), l_avail, r_avail)
+                     bit_depth, (halo_y, halo_cb, halo_cr), l_avail, r_avail,
+                     fused=True)
+
+
+def sao_two_pass(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu: int,
+                 bit_depth: int = 8, halo_y=None, halo_cb=None,
+                 halo_cr=None, l_avail: bool = False,
+                 r_avail: bool = False):
+    """`sao` through K7's earlier form, two launches a call (the stats
+    pass, then the apply); arguments and result as `sao`.  CPU tensors run
+    the twin."""
+    if not rec_y.is_cuda:
+        return sao_plain(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr,
+                         log2_ctu, bit_depth, halo_y, halo_cb, halo_cr,
+                         l_avail, r_avail)
+    return _sao_cuda(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu,
+                     bit_depth, (halo_y, halo_cb, halo_cr), l_avail, r_avail,
+                     fused=False)
 
 
 def _sao_cuda(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu,
-              bit_depth, halos, l_avail, r_avail):
+              bit_depth, halos, l_avail, r_avail, fused: bool):
     i32 = torch.int32
     srcs = [p.to(i32).contiguous() for p in (src_y, src_cb, src_cr)]
     recs = [p.to(i32).contiguous() for p in (rec_y, rec_cb, rec_cr)]
@@ -251,6 +274,8 @@ def _sao_cuda(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu,
         raise ValueError("sao: src and rec planes differ in shape")
     if any(p.shape != (f, h // 2, w // 2) for p in srcs[1:] + recs[1:]):
         raise ValueError("sao: chroma planes must be [F, H/2, W/2]")
+    if fused and log2_ctu not in (4, 5, 6):
+        raise ValueError("sao: the fused form takes CTU 16, 32 or 64")
     ctb = 1 << log2_ctu
     cols = [None] * 6
     if halos[0] is not None:
@@ -268,7 +293,15 @@ def _sao_cuda(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr, log2_ctu,
     ptrs = [None if c is None else c.data_ptr() for c in cols]
     avail = (int(bool(l_avail)), int(bool(r_avail)))
     # the halo form counts apart from the whole-picture one
-    name = "sao" if halos[0] is None else "sao_halo"
+    halo_tag = "" if halos[0] is None else "_halo"
+    if fused:
+        rc = lib.fhv_sao_fused(*(p.data_ptr() for p in srcs + recs + outs),
+                               *ptrs, params.data_ptr(), f, h, w, log2_ctu,
+                               bit_depth, *avail, stream)
+        _build.launched("sao_fused" + halo_tag)
+        _build.check(rc, "sao_fused")
+        return outs[0], outs[1], outs[2], params
+    name = "sao" + halo_tag
     rc = lib.fhv_sao_stats(*(p.data_ptr() for p in srcs),
                            *(p.data_ptr() for p in recs), *ptrs,
                            params.data_ptr(), f, h, w, log2_ctu, bit_depth,

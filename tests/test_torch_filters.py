@@ -9,6 +9,7 @@ tests/test_device_commit.py.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fasthevc_tpu.ops.deblock import deblock_device
@@ -104,6 +105,78 @@ def test_sao_twin_matches_jax():
         np.testing.assert_array_equal(g[0].numpy(), np.asarray(wj))
     params = got[3][0].numpy()
     assert set(np.unique(params[..., 0])) >= {1, 2}   # band and edge CTBs
+
+
+def _sao_planes(kind, frames, h, w, rng):
+    """(src, rec) [frames, h, w] int32: noise (rec = src +- 6), extremes
+    (rec at 0-3 with src 0 above, 252-255 with src 255 below: offsets
+    that clip) or flat (both 128: every gain 0)."""
+    shape = (frames, h, w)
+    if kind == "flat":
+        src = np.full(shape, 128)
+        rec = src.copy()
+    elif kind == "extremes":
+        low = np.arange(h)[:, None] < h // 2
+        rec = np.where(low, rng.integers(0, 4, shape),
+                       rng.integers(252, 256, shape))
+        src = np.where(rec < 128, 0, 255)
+    else:
+        src = rng.integers(0, 256, shape)
+        rec = np.clip(src + rng.integers(-6, 7, shape), 0, 255)
+    return src.astype(np.int32), rec.astype(np.int32)
+
+
+def _clipped(rec, params, ctb):
+    """Samples of one plane [H, W] whose rec + its CTB's offset leaves
+    [0, 255], the apply's clip (params [ny, nx, 7])."""
+    h, w = rec.shape
+
+    def up(a):
+        return np.repeat(np.repeat(a, ctb, 0), ctb, 1)[:h, :w]
+
+    typ, cls, pos = (up(params[..., i]) for i in range(3))
+    offs = up(params[..., 3:])                              # [H, W, 4]
+    cats = sao._edge_cats(torch.from_numpy(rec)[None].long(), h,
+                          w)[0].numpy()
+    cat = np.take_along_axis(cats, cls[None], 0)[0]
+    k = (rec >> 3) - pos
+
+    def off(i):
+        return np.take_along_axis(offs, np.clip(i, 0, 3)[..., None],
+                                  2)[..., 0]
+
+    add = np.where((typ == 2) & (cat > 0), off(cat - 1), 0)
+    add = add + np.where((typ == 1) & (k >= 0) & (k < 4), off(k), 0)
+    return int(((rec + add < 0) | (rec + add > 255)).sum())
+
+
+@pytest.mark.parametrize("lg,h,w,frames,kind", [
+    (4, 48, 64, 1, "noise"), (4, 40, 56, 1, "noise"),
+    (6, 64, 128, 1, "noise"), (6, 88, 120, 1, "noise"),
+    (5, 64, 96, 2, "noise"), (5, 64, 96, 1, "extremes"),
+    (5, 64, 96, 1, "flat")])
+def test_sao_twin_matches_jax_at_the_edge_cases(lg, h, w, frames, kind):
+    """The cases the fused kernel's edge logic must get right: CTU 16 and
+    64, heights and widths off the CTB grid (the estimate's padded rule
+    and the apply's coded rule differ there), two frames, offsets that
+    clip at 0 and 255, and a flat picture (type 0 everywhere)."""
+    rng = np.random.default_rng(lg * 100 + h + w + frames)
+    planes = [_sao_planes(kind, frames, h >> (c > 0), w >> (c > 0), rng)
+              for c in range(3)]
+    arrays = [p[0] for p in planes] + [p[1] for p in planes]
+    got = sao.sao_plain(*(torch.from_numpy(a) for a in arrays), lg)
+    for f in range(frames):
+        want = sao_device(*(jnp.asarray(a[f]) for a in arrays), lg)
+        for g, wj in zip(got, want):
+            np.testing.assert_array_equal(g[f].numpy(), np.asarray(wj))
+    types = got[3][..., 0].numpy()
+    if kind == "flat":
+        assert (types == 0).all()
+    else:
+        assert (types > 0).any()
+    if kind == "extremes":
+        p = got[3][0].numpy()
+        assert _clipped(planes[0][1][0], p[..., 0, :], 1 << lg) > 0
 
 
 def test_checksum_twin_matches_picture_checksum():

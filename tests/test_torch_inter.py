@@ -91,6 +91,60 @@ def test_inter_pred_planes_match_jax(kind):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+def _edge_motion(kind, frames, rng):
+    """(dir, mv, ref_map) [frames, GH, GW, ...] int32 for the cases the
+    planes kernel's edge logic must get right."""
+    shape = (frames, GH, GW)
+    d = rng.integers(0, 4, shape)
+    mv = rng.integers(-70, 71, shape + (4,))
+    if kind == "integer":
+        # multiples of 4 (the luma copy) and of 8 (the chroma copy too)
+        mv = 4 * rng.integers(-20, 21, shape + (4,))
+    elif kind == "far":
+        # +-(4 * 64 + 3) quarter pels and near it, on the edge granules
+        far = rng.choice([-259, -258, -257, -256, 256, 257, 258, 259],
+                         shape + (4,))
+        edge = np.zeros((GH, GW), bool)
+        edge[[0, -1], :] = edge[:, [0, -1]] = True
+        mv = np.where(edge[None, :, :, None], far, mv)
+    elif kind == "l1_only":
+        d = np.where(rng.random(shape) < 0.75, 2, d)
+    elif kind == "intra":
+        d = np.where(rng.random(shape) < 0.5, 0, d)
+        mv = np.where((d == 0)[..., None], 0, mv)
+    rm = rng.integers(0, 2, shape + (2,))
+    return (d.astype(np.int32), mv.astype(np.int32), rm.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,frames", [("integer", 1), ("far", 1),
+                                         ("l1_only", 1), ("intra", 1),
+                                         ("random", 2)])
+def test_inter_pred_planes_edge_cases_match_jax(kind, frames):
+    """Integer MVs (the copy), MVs at +-(4 * 64 + 3) quarter pels on the
+    picture's edge granules, direction-2 granules, intra granules at zero
+    MVs, and two frames with a ref_map: bi-predicted from two references
+    a list, against the reference frame by frame."""
+    rng = np.random.default_rng(80 + frames + len(kind))
+    clip = synthesize_yuv(W, H, 2 * frames + 1, seed=81)
+    d, mv, rm = _edge_motion(kind, frames, rng)
+    stacks = [[np.stack([a, b]) for a, b in zip(_planes(clip[2 * f + 1]),
+                                                _planes(clip[2 * f]))]
+              for f in range(frames)]
+    ref0 = [np.stack([s[c] for s in stacks]) for c in range(3)]
+    ref1 = [r[:, ::-1].copy() for r in ref0]
+    got = me.inter_pred_planes(
+        tuple(torch.from_numpy(p) for p in ref0),
+        tuple(torch.from_numpy(p) for p in ref1), torch.from_numpy(d),
+        torch.from_numpy(mv), ref_map=torch.from_numpy(rm))
+    for f in range(frames):
+        want = jme.inter_pred_planes(
+            tuple(jnp.asarray(p[f]) for p in ref0),
+            tuple(jnp.asarray(p[f]) for p in ref1), jnp.asarray(d[f]),
+            jnp.asarray(mv[f]), ref_map=jnp.asarray(rm[f]))
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(a), b[f].numpy())
+
+
 def test_cbf_and_boundary_strengths_match_jax():
     rng = np.random.default_rng(60)
     depth, _, d, mv, rm = _p_decisions(_clip(61))

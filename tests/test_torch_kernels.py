@@ -92,6 +92,17 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch():
     args = _bi_select_args(y, torch.cat([refs, refs]), 16, seed=5)
     for a, b in zip(me.bi_select(*args), me.bi_select_plain(*args)):
         assert torch.equal(a, b)
+    src, rec = _sao_planes(1, 40, 56, seed=6)
+    want = sao.sao_plain(*src, *rec, 4)
+    for got in (sao.sao(*src, *rec, 4), sao.sao_two_pass(*src, *rec, 4)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    pargs = _planes_args(2, 2, True, True, "random", seed=7, device="cpu")
+    want = me.inter_pred_planes(*pargs[:4], ref_map=pargs[4], plain=True)
+    for got in (me.inter_pred_planes(*pargs[:4], ref_map=pargs[4]),
+                me.inter_pred_planes_by_comp(*pargs[:4], ref_map=pargs[4])):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -142,7 +153,8 @@ def test_library_is_keyed_by_the_sources():
         "fhv_tq_roundtrip", "fhv_tq_cost", "fhv_cnn_bwd_plan",
         "fhv_downsample4", "fhv_sad_search", "fhv_me_coarse",
         "fhv_me_fine", "fhv_subpel", "fhv_mc_sel", "fhv_mc_merge",
-        "fhv_inter_pred", "fhv_commit", "fhv_deblock", "fhv_deblock_cbf",
+        "fhv_inter_pred", "fhv_inter_planes", "fhv_commit", "fhv_deblock",
+        "fhv_deblock_cbf", "fhv_sao_stats", "fhv_sao_apply", "fhv_sao_fused",
         "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam", "fhv_halo"}
 
 
@@ -411,10 +423,59 @@ def test_sao_kernel_matches_twin(cuda_device):
     rec = [np.clip(s + rng.integers(-6, 7, s.shape), 0, 255) for s in src]
     args = [torch.from_numpy(a.astype(np.int32)).to(cuda_device)
             for a in src + rec]
+    before = dict(_build.LAUNCHES)
     got = sao.sao(*args, 5)
     want = sao.sao(*args, 5, plain=True)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert _build.LAUNCHES["sao_fused"] == before.get("sao_fused", 0) + 1
+    assert _build.LAUNCHES.get("sao", 0) == before.get("sao", 0)
+
+
+def _sao_planes(frames, h, w, seed, device="cpu"):
+    """Seeded (src, rec) lists of [frames, h, w] planes (chroma halved):
+    smooth content with noise, rec within +-5 of src, between flat
+    extremes above and below (rec 0 or 6 under src 0, 249 or 255 under
+    src 255: band offsets of -3 and +3 that clip)."""
+    rng = np.random.default_rng(seed)
+    src, rec = [], []
+    for c in range(3):
+        hh, ww = h >> (c > 0), w >> (c > 0)
+        yy, xx = np.mgrid[0:hh, 0:ww]
+        s = (110 + 60 * np.sin(xx / 5.0) * np.cos(yy / 3.0))[None]
+        s = np.clip(s + rng.integers(-3, 4, (frames, hh, ww)), 0, 255)
+        r = np.clip(s + rng.integers(-5, 6, s.shape), 0, 255)
+        step = np.where(xx < ww // 2, 6, 0)[None]
+        top, bottom = yy[:, 0] < hh // 3, yy[:, 0] >= hh - hh // 3
+        r[:, top], s[:, top] = step[:, top], 0
+        r[:, bottom], s[:, bottom] = 255 - step[:, bottom], 255
+        src.append(torch.from_numpy(s.astype(np.int32)).to(device))
+        rec.append(torch.from_numpy(r.astype(np.int32)).to(device))
+    return src, rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg,h,w,frames", [
+    (4, 48, 64, 1), (4, 40, 56, 3), (5, 64, 96, 2), (5, 72, 104, 4),
+    (5, 1080 // 8, 1920 // 8, 1), (6, 128, 128, 2), (6, 88, 120, 1),
+    (6, 136, 200, 4)])
+def test_sao_fused_kernel_matches_twin_and_earlier_form(cuda_device, lg, h,
+                                                        w, frames):
+    """K7's fused form at CTU 16, 32 and 64, on and off the CTB grid, F =
+    1-4: bit for bit its twin and the earlier two-launch form, one launch
+    a call."""
+    src, rec = _sao_planes(frames, h, w, seed=lg * 1000 + h + frames,
+                           device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    got = sao.sao(*src, *rec, lg)
+    assert _build.LAUNCHES["sao_fused"] == before.get("sao_fused", 0) + 1
+    earlier = sao.sao_two_pass(*src, *rec, lg)
+    assert _build.LAUNCHES["sao"] == before.get("sao", 0) + 2
+    want = sao.sao(*src, *rec, lg, plain=True)
+    for a, b, c in zip(got, want, earlier):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+    assert set(want[3][..., 0].unique().tolist()) >= {1, 2}
 
 
 @pytest.mark.cuda
@@ -602,6 +663,62 @@ def test_mc_kernels_match_twins(cuda_device):
                                     plain=True)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _planes_args(frames, nref, bi, use_rm, kind, seed, device,
+                 w=128, h=96):
+    """inter_pred_planes' (ref0, ref1, dir, mv, ref_map) on a seeded clip:
+    [F, R, H, W] stacks of each list, directions 0-3 (0-1 for P), MVs of
+    `kind`: random (+-90 quarter pels), integer (multiples of 4 and 8) or
+    far (+-(4 * 64 + 3) and near it)."""
+    rng = np.random.default_rng(seed)
+    clip = synthesize_yuv(w, h, 3, seed=seed)
+
+    def stack(order):
+        return tuple(torch.from_numpy(np.stack([np.stack([np.asarray(
+            clip[k][c], np.int32) for k in order[:nref]])] * frames)).to(
+                device) for c in range(3))
+
+    shape = (frames, h // 8, w // 8)
+    d = rng.integers(0, 4 if bi else 2, shape)
+    if kind == "integer":
+        mv = 4 * rng.integers(-20, 21, shape + (4,))
+    elif kind == "far":
+        mv = rng.choice([-259, -258, -257, -256, 256, 257, 258, 259],
+                        shape + (4,))
+    else:
+        mv = rng.integers(-90, 91, shape + (4,))
+    rm = (torch.from_numpy(rng.integers(0, nref, shape + (2,))
+                           .astype(np.int32)).to(device) if use_rm else None)
+    return (stack([1, 0]), stack([2, 0]) if bi else None,
+            torch.from_numpy(d.astype(np.int32)).to(device),
+            torch.from_numpy(mv.astype(np.int32)).to(device), rm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bi", [False, True])
+@pytest.mark.parametrize("nref,use_rm", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("kind", ["random", "integer", "far"])
+def test_inter_planes_kernel_matches_twin_and_earlier_form(
+        cuda_device, bi, nref, use_rm, kind):
+    """K11's planes form for P and B, one and two references a list, with
+    and without a ref_map, at random, integer and far MVs: bit for bit its
+    twin and the earlier form a component, one launch a call."""
+    frames = 1 + bi
+    args = _planes_args(frames, nref, bi, use_rm, kind,
+                        seed=60 + 4 * bi + 2 * nref + use_rm + len(kind),
+                        device=cuda_device)
+    name = "inter_pred_fused_bi" if bi else "inter_pred_fused"
+    before = dict(_build.LAUNCHES)
+    got = me.inter_pred_planes(*args[:4], ref_map=args[4])
+    assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    earlier = me.inter_pred_planes_by_comp(*args[:4], ref_map=args[4])
+    old = "inter_pred_bi" if bi else "inter_pred"
+    assert _build.LAUNCHES[old] == before.get(old, 0) + 3
+    want = me.inter_pred_planes(*args[:4], ref_map=args[4], plain=True)
+    for a, b, c in zip(got, want, earlier):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
 
 
 @pytest.mark.cuda
@@ -1129,11 +1246,15 @@ def test_deblock_window_kernel_matches_twin(cuda_device, inter):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lg", [4, 5, 6])
 @pytest.mark.parametrize("l_av,r_av", [(False, False), (True, False),
                                        (False, True), (True, True)])
-def test_sao_halo_kernel_matches_twin(cuda_device, l_av, r_av):
-    rng = np.random.default_rng(90 + 2 * l_av + r_av)
-    h, w = 48, 64
+def test_sao_halo_kernel_matches_twin(cuda_device, l_av, r_av, lg):
+    """K7's fused halo form (one launch) and its earlier two-launch form
+    against the twin, with each side's neighbour column available or
+    not."""
+    rng = np.random.default_rng(90 + 2 * l_av + r_av + 4 * lg)
+    h, w = 48 + 8 * (lg == 6), 2 << lg
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.int32))[None].to(
@@ -1146,12 +1267,17 @@ def test_sao_halo_kernel_matches_twin(cuda_device, l_av, r_av):
             for c in range(3)]
     kw = dict(halo_y=cols[0], halo_cb=cols[1], halo_cr=cols[2],
               l_avail=l_av, r_avail=r_av)
-    before = _build.LAUNCHES["sao_halo"]
-    got = sao.sao(*(t(a) for a in src + rec), 5, **kw)
-    want = sao.sao(*(t(a) for a in src + rec), 5, plain=True, **kw)
-    for a, b in zip(got, want):
+    before = dict(_build.LAUNCHES)
+    planes = [t(a) for a in src + rec]
+    got = sao.sao(*planes, lg, **kw)
+    assert (_build.LAUNCHES["sao_fused_halo"]
+            == before.get("sao_fused_halo", 0) + 1)
+    earlier = sao.sao_two_pass(*planes, lg, **kw)
+    assert _build.LAUNCHES["sao_halo"] == before.get("sao_halo", 0) + 2
+    want = sao.sao(*planes, lg, plain=True, **kw)
+    for a, b, c in zip(got, want, earlier):
         assert torch.equal(a, b)
-    assert _build.LAUNCHES["sao_halo"] == before + 2
+        assert torch.equal(c, b)
 
 
 def test_mesh_kernels_on_the_cpu_run_the_twins_and_count_no_launch():
