@@ -6,14 +6,16 @@
                                        # only the profiled 1080p LDP and RA
                                        # encodes (device time by kernel
                                        # family: K3/K4, K9, K11, K12, K7's
-                                       # forms, K11's planes, K6, K8)
+                                       # forms, K11's planes, K6's and K8's
+                                       # forms, device-to-device copies)
     python3 chip_smoke.py --profile-mesh   # only phase 16's cases, profiled
     python3 chip_smoke.py --bench-kernels [--root DIR]
                                        # K9's integer stage and the merge
                                        # candidates, K12 and its glue, K10,
                                        # K1 + K2 and K1's fused form, the RD
                                        # shortlist and its glue, K7 and
-                                       # K11's commit planes, then
+                                       # K11's commit planes, the filter
+                                       # tail (K6-K8 and glue), then
                                        # phases 3, 7, 10,
                                        # 14 and 16's encodes, no twins (DIR:
                                        # another checkout's package; --root
@@ -51,13 +53,18 @@ Phases (any failure raises, and the script exits non-zero):
         the decision maps of one search of that group, K5 (the wavefront
         commit with the RDOQ trellis; its twin on the first 2 frames; its
         time on 1, 2 and 8 frames and per dependent CTU step, and its
-        latency bound: the steps times the least CTU step), K6 (deblock;
-        it, its BS and cbf passes in b and K8 also timed alone), K7's
+        latency bound: the steps times the least CTU step), K6's one-launch
+        form (deblock_fused: a CTA a 32x32 tile, both directions) against
+        its twin and against the earlier form (deblock: two launches on
+        copies of the planes), K7's
         fused form (sao_fused: estimate and apply in one launch) on
         the group and on its first picture, against its twin and against
-        the earlier two-launch form (sao_stats + sao_apply), each timed
-        with events and alone beside its bound, and K8 (checksum),
-        exactly;
+        the earlier two-launch form (sao_stats + sao_apply), and K8's cast
+        form (cast_checksum: the three uint8 casts and checksums in one
+        launch) on the group and its first picture, against its twin and
+        the parent's path (three casts, three checksum launches, a stack),
+        each timed with events and alone (its kernels, and everything the
+        call enqueues) beside its bound, exactly;
      b. the P kernels on one P frame of phase 7's clip with two
         references at SR 64: K9 (decimation; the fused form, me_coarse
         and me_fine, each against its twin, which searches one tier at a
@@ -74,9 +81,10 @@ Phases (any failure raises, and the script exits non-zero):
         (RDOQ on; its time per
         dependent step beside the frame's share of intra granules and
         CTUs, and its latency bound: the steps times the least CTU step,
-        the slope of one-row P pictures) and K6 with boundary strengths,
-        exactly; K9's and K11's bounds by the fused count, with the
-        earlier count beside;
+        the slope of one-row P pictures) and K6's one-launch form with
+        boundary strengths and its cbf pass a CTA a CTU, against their
+        twins and the earlier forms, timed as in a, exactly; K9's and
+        K11's bounds by the fused count, with the earlier count beside;
      c. the B kernels on POC 4 of phase 10's clip with two references per
         list (0, 8 and 8, 16) at SR 64: K9's fused form over the four
         state references and K11's merge form over both lists (n = 8, 16,
@@ -110,7 +118,9 @@ Phases (any failure raises, and the script exits non-zero):
      f. the multi-device layer's kernels at the shapes of an interior rank
         of the 1080p (2, 4) mesh (a 480-column tile): K16 (the halo
         exchange: the search's source halo, and its packed form), K6's
-        tile-column form with P strengths and its CU cbf pass, K7's fused
+        one-launch tile-column form with P strengths and its CU cbf pass
+        (against its twin and the earlier form, as in a), K8's cast form
+        without the checksum on the tile's own columns, K7's fused
         halo form with both neighbours' columns (against its twin and the
         earlier two-launch halo form, as in a), exactly, each with its
         time, twin time and bound;
@@ -119,7 +129,8 @@ Phases (any failure raises, and the script exits non-zero):
      auto_tile_grid tiles, hash type 2): one warm-up group, then 16 timed
      frames; prints fps, kbit/frame, Y-PSNR and the device / host-wait /
      entropy split, and requires every kernel of the route to have been
-     launched by that encode, K7's fused form once a group;
+     launched by that encode, K6's one-launch form, K7's fused form and
+     K8's cast form once a group;
   4. encodes the first 8 of those frames with the kernels and with the
      twins on the card: the streams must be byte-identical;
   5. encodes a 416x240 2-frame clip on the device route on the card and
@@ -136,8 +147,9 @@ Phases (any failure raises, and the script exits non-zero):
      kernel of the route (K1, K3, K5-K11 with K5's mixed form and K6's
      strengths) to have been launched by that encode, K9 at three
      launches a P picture, K11's merge form at one a block size, K7's
-     fused form at one a picture batch (9) and K11's planes form at one a
-     P batch (8), and none of the superseded forms (UNLAUNCHED);
+     fused form and K8's cast form at one a picture batch (9), K11's
+     planes form, K6's cbf pass and its one-launch form with strengths at
+     one a P batch (8), and none of the superseded forms (UNLAUNCHED);
   8. the first 2 frames of that clip through the kernels and through the
      twins on the card: byte-identical streams;
   9. a 416x240 4-frame low-delay P clip on the card and with the twins on
@@ -151,8 +163,9 @@ Phases (any failure raises, and the script exits non-zero):
      host-wait / entropy split, and requires every kernel of the route
      (K12 and K11's bi-predicting planes included) to have been launched
      by that encode, K9 at three launches a B picture, K11's merge form
-     at one a block size for both lists, K7's fused form at one a batch
-     (7) and K11's planes form at one a B batch (6);
+     at one a block size for both lists, K7's fused form and K8's cast
+     form at one a batch (7), K11's planes form, K6's cbf pass and its
+     form with strengths at one a B batch (6);
  11. a 416x240 17-frame random-access clip through the kernels and through
      the twins on the card, and through the twins on the CPU: identical
      streams that decode hash-clean in SpecDecoder;
@@ -193,11 +206,11 @@ Phases (any failure raises, and the script exits non-zero):
      480-column tiles), and IDR + P + B with the two-entry GOP (2
      segments of 3); each sharded stream must equal TorchEncoder's
      single-device route byte for byte, both fps printed, and K16, K6's
-     tile-column form and cbf pass, K7's fused halo form (once a rank and
-     step), K9's fused form, K10, K11's merge form and its planes form
-     (once a rank and inter step) must have been launched, and none of
-     the superseded forms; the streams are decoded in the mesh-decode
-     jobs;
+     one-launch tile-column form, K7's fused halo form and K8's cast
+     form (once a rank and step), K9's fused form, K10, K11's merge form,
+     its planes form and K6's cbf pass (once a rank and inter step) must
+     have been launched, and none of the superseded forms; the streams
+     are decoded in the mesh-decode jobs;
  17. BASELINE config 5 through parallel.multiproc.gop_parallel_encode_check:
      3840x2160, 16 frames, 2 processes on the card, tiles 2x2, intra
      period 8: the concatenated stream must equal one process's byte for
@@ -269,23 +282,27 @@ SEARCH_KERNELS = ("intra_rd_cands", "intra_satd", "tq_cost")
 # them with the fold), K1's selected form (intra_rd_cands replaced it with
 # the sort and the subtract), K12's bi_cost (bi_select replaced it with
 # the direction choice), K7's two-launch form and its halo form (sao_fused
-# and sao_fused_halo replaced them) and K11's plane form a component
-# (inter_pred_fused and inter_pred_fused_bi replaced it); every route's
-# launches must show none of them
+# and sao_fused_halo replaced them), K11's plane form a component
+# (inter_pred_fused and inter_pred_fused_bi replaced it), K6's two-launch
+# forms and its cbf pass a thread a granule (deblock_fused and its bs and
+# window forms, deblock_cbf_ctu) and K8's checksum a plane
+# (cast_checksum, with the uint8 casts); every route's launches must show
+# none of them
 UNLAUNCHED = ("tq_roundtrip", "sse_rate", "me_full_search", "me_refine",
               "mc_sel", "satd", "intra_pred_selected", "bi_cost", "sao",
-              "sao_halo", "inter_pred", "inter_pred_bi")
+              "sao_halo", "inter_pred", "inter_pred_bi", "deblock",
+              "deblock_bs", "deblock_window", "deblock_cbf", "checksum")
 # K1's rd form a search batch of the all-intra route: the three luma sizes
 # and both chroma planes at each
 RD_PER_GROUP = 9
-INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock", "sao_fused",
-                                "checksum")
+INTRA_ROUTE = SEARCH_KERNELS + ("commit_intra", "deblock_fused",
+                                "sao_fused", "cast_checksum")
 # the P search's K9 (three launches a picture), K10 and K11's merge form
 # (one launch a block size), then the commit's
 ME_KERNELS = ("me_downsample4", "me_coarse", "me_fine", "subpel",
               "mc_merge")
-P_KERNELS = ME_KERNELS + ("inter_pred_fused", "commit_mixed", "deblock_bs",
-                          "deblock_cbf")
+P_KERNELS = ME_KERNELS + ("inter_pred_fused", "commit_mixed",
+                          "deblock_fused_bs", "deblock_cbf_ctu")
 LDP_ROUTE = INTRA_ROUTE + P_KERNELS
 RA_FRAMES = 17           # random access: the IDR and one GOP-16
 RA_BATCHES = 7           # its dependency batches: 1, 1, 1, 2, 4, 4, 4
@@ -317,9 +334,12 @@ META = {
     "satd": ("csrc/satd.cu", "fasthevc_tpu/ops/cost.py:26"),
     "tq_cost": ("csrc/tq_roundtrip.cu", "fasthevc_tpu/ops/transform.py:151"),
     "commit_intra": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:545"),
+    "deblock_fused": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:236"),
     "deblock": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:236"),
     "sao_fused": ("csrc/sao.cu", "fasthevc_tpu/ops/sao.py:264"),
     "sao": ("csrc/sao.cu", "fasthevc_tpu/ops/sao.py:264"),
+    "cast_checksum": ("csrc/checksum.cu",
+                      "fasthevc_tpu/codec/device_pipeline.py:122"),
     "checksum": ("csrc/checksum.cu",
                  "fasthevc_tpu/codec/device_pipeline.py:55"),
     "me_downsample4": ("csrc/me_int.cu", "fasthevc_tpu/ops/me.py:129"),
@@ -333,7 +353,10 @@ META = {
     "inter_pred_fused": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "inter_pred": ("csrc/mc.cu", "fasthevc_tpu/ops/me.py:508"),
     "commit_mixed": ("csrc/commit.cu", "fasthevc_tpu/ops/commit.py:570"),
+    "deblock_fused_bs": ("csrc/deblock.cu",
+                         "fasthevc_tpu/ops/deblock.py:177"),
     "deblock_bs": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:177"),
+    "deblock_cbf_ctu": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
     "deblock_cbf": ("csrc/deblock.cu", "fasthevc_tpu/ops/deblock.py:154"),
     "bi_select": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
     "bi_cost": ("csrc/bi.cu", "fasthevc_tpu/codec/search.py:476"),
@@ -345,15 +368,19 @@ META = {
                      "fasthevc_tpu/models/partition_cnn.py:158"),
     "adam": ("csrc/cnn.cu", "fasthevc_tpu/models/partition_cnn.py:153"),
     "halo": ("csrc/halo.cu", "fasthevc_tpu/parallel/sharded.py:46"),
+    "deblock_fused_window": ("csrc/deblock.cu",
+                             "fasthevc_tpu/parallel/sharded.py:67"),
     "deblock_window": ("csrc/deblock.cu",
                        "fasthevc_tpu/parallel/sharded.py:67"),
+    "cast": ("csrc/checksum.cu", "fasthevc_tpu/parallel/sharded.py:209"),
     "sao_fused_halo": ("csrc/sao.cu",
                        "fasthevc_tpu/parallel/sharded.py:186"),
     "sao_halo": ("csrc/sao.cu", "fasthevc_tpu/parallel/sharded.py:186"),
 }
 # the multi-device layer's kernels: K16, K6's tile-column form, K7's fused
-# halo form (phases 2f and 16; the P/B mesh cases run K6's cbf pass too)
-MESH_KERNELS = ("halo", "deblock_window", "sao_fused_halo")
+# halo form and K8's cast form without the checksum (phases 2f and 16; the
+# P/B mesh cases run K6's cbf pass too)
+MESH_KERNELS = ("halo", "deblock_fused_window", "sao_fused_halo", "cast")
 MESH = (2, 4)            # phase 16's in-process ("gop", "tile") mesh
 
 
@@ -865,13 +892,6 @@ def _k5_mixed_least_step(torch, d) -> float:
     return best
 
 
-def _alone_text(name: str, label: str, timed: dict, fn, keys) -> None:
-    """Prints a kernel's events time beside its time alone (the card's own
-    time of its kernels, without the wrapper's host work)."""
-    print(f"kernel {name} ({label}): {timed[name][0]:.4f} ms, the kernel "
-          f"alone {_ms_text(_device_ms(fn, keys))}")
-
-
 def _sao_work(px: float) -> tuple:
     """K7's (bytes, int32 operations) on px luma samples and their chroma:
     src and rec read and the plane written once, int32 each; about 30
@@ -948,11 +968,161 @@ def _planes_check(torch, label: str, pred, keys: tuple, wk: tuple, timed,
     work[keys[0]] = work[keys[1]] = wk
 
 
+def _deblock_check(torch, label: str, dargs: tuple, kw: dict, cbf_args,
+                   keys: tuple, timed, work, wk: tuple):
+    """K6's one-launch form (deblock_fused) against its twin and against
+    the earlier form (the parent's path: deblock's two launches on copies
+    of the planes, the QPs uploaded), bit for bit, both timed with events
+    and alone (torch.profiler: their kernels, and everything each call
+    enqueues, copies included) beside the bound (wk: bytes, operations);
+    fills the rows keys = (new form, earlier form).  On P/B pictures
+    (cbf_args = (levels, depth)) the filter takes the twin's CU cbf, and
+    K6's cbf pass a CTA a CTU (tu_cbf_ctu) is checked and timed beside the
+    earlier one (tu_cbf), each pair also as the routes call it, the cbf
+    pass then the filter.  Returns the deblocked planes."""
+    from fasthevc_tpu_torch.ops import deblock
+
+    k = dict(kw)
+    if cbf_args is not None:
+        k["cbf"] = deblock.tu_cbf(*cbf_args, 5, plain=True)
+
+    def new():
+        return deblock.deblock_fused(*dargs, **k)
+
+    def old():
+        return deblock.deblock(*dargs, **k)
+
+    def twin():
+        return deblock.deblock(*dargs, plain=True, **k)
+
+    got = new()
+    for ref, what in ((twin(), "twin"), (old(), "earlier form")):
+        for name, a, b in zip(("y", "cb", "cr"), got, ref):
+            _same(torch, f"K6 {keys[0]} {label} {name} ({what})", a, b)
+    ms, old_ms, plain_ms = (_median_ms(new), _median_ms(old),
+                            _median_ms(twin))
+    dev = _device_ms(new, ("deblock_fused_kernel",))
+    old_dev = _device_ms(old, ("::deblock_kernel",))
+    b_ms, b_by = _bound(*wk)
+    print(f"kernel {keys[0]} ({label}): {ms:.4f} ms, the kernel alone "
+          f"{_ms_text(dev)}, everything the call enqueues "
+          f"{_ms_text(_device_ms(new))}; the earlier form {old_ms:.4f} ms, "
+          f"its two kernels alone {_ms_text(old_dev)}, everything "
+          f"{_ms_text(_device_ms(old))} (the plane copies and the QPs' "
+          f"upload included); plain twin {plain_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}), {_share_text(b_ms, dev)} of it alone")
+    timed[keys[0]], timed[keys[1]] = (ms, plain_ms), (old_ms, plain_ms)
+    work[keys[0]] = work[keys[1]] = wk
+    if cbf_args is None:
+        return got
+    lv, dm = cbf_args
+    _same(torch, f"K6 cbf {label}", deblock.tu_cbf_ctu(lv, dm, 5), k["cbf"])
+    _same(torch, f"K6 earlier cbf {label}", deblock.tu_cbf(lv, dm, 5),
+          k["cbf"])
+    cw = (2 * lv.numel() + 4 * dm.numel() * 2, lv.numel())
+    c_ms, c_old, c_plain = (
+        _median_ms(lambda: deblock.tu_cbf_ctu(lv, dm, 5)),
+        _median_ms(lambda: deblock.tu_cbf(lv, dm, 5)),
+        _median_ms(lambda: deblock.tu_cbf(lv, dm, 5, plain=True)))
+    c_dev = _device_ms(lambda: deblock.tu_cbf_ctu(lv, dm, 5),
+                       ("cbf_ctu_kernel",))
+    c_old_dev = _device_ms(lambda: deblock.tu_cbf(lv, dm, 5),
+                           ("::cbf_kernel",))
+    cb_ms = _bound(*cw)[0]
+    print(f"kernel deblock_cbf_ctu ({label}): {c_ms:.4f} ms, alone "
+          f"{_ms_text(c_dev)}; the earlier cbf pass {c_old:.4f} ms, alone "
+          f"{_ms_text(c_old_dev)}; plain twin {c_plain:.4f} ms; bound "
+          f"{cb_ms:.4f} ms (bytes), {_share_text(cb_ms, c_dev)} of it alone")
+    timed["deblock_cbf_ctu"] = (c_ms, c_plain)
+    timed["deblock_cbf"] = (c_old, c_plain)
+    work["deblock_cbf_ctu"] = work["deblock_cbf"] = cw
+
+    def route():
+        return deblock.deblock_fused(
+            *dargs, **dict(kw, cbf=deblock.tu_cbf_ctu(lv, dm, 5)))
+
+    def route_old():
+        return deblock.deblock(*dargs,
+                               **dict(kw, cbf=deblock.tu_cbf(lv, dm, 5)))
+
+    pair_ms = _bound(wk[0] + cw[0], wk[1] + cw[1])[0]
+    pair = _device_ms(route)
+    print(f"K6 ({label}) as the routes call it, the cbf pass then the "
+          f"filter: {_median_ms(route):.4f} ms, everything it enqueues "
+          f"alone {_ms_text(pair)}; the parent's path (tu_cbf, deblock) "
+          f"{_median_ms(route_old):.4f} ms, alone "
+          f"{_ms_text(_device_ms(route_old))}; bound {pair_ms:.4f} ms, "
+          f"{_share_text(pair_ms, pair)} of it alone")
+    return got
+
+
+def _cast_check(torch, label: str, planes, checksum: bool, timed=None,
+                work=None) -> None:
+    """K8's cast form (cast_checksum; `checksum` False: the cast alone)
+    on int32 recon planes against its twin and against the parent's path
+    (three .to(uint8) casts, then three launches of the earlier checksum
+    and a stack), bit for bit; both timed with events and alone (all
+    they enqueue) beside the bound: 4 bytes read and 1 written a sample.
+    With `timed`, the rows of the new form and of the earlier checksum."""
+    from fasthevc_tpu_torch.codec import device_pipeline as dp
+
+    def new():
+        return dp.cast_checksum(*planes, checksum)
+
+    def old():
+        u8 = [p.to(torch.uint8).contiguous() for p in planes]
+        if not checksum:
+            return u8 + [None]
+        return u8 + [torch.stack([dp.device_checksum(p) for p in u8],
+                                 dim=1)]
+
+    def twin():
+        return dp.cast_checksum(*planes, checksum, plain=True)
+
+    got = new()
+    for ref, what in ((twin(), "twin"), (old(), "earlier path")):
+        for name, a, b in zip(("y", "cb", "cr", "cksum"), got, ref):
+            if a is not None or b is not None:
+                _same(torch, f"K8 cast {label} {name} ({what})", a, b)
+    ms, old_ms = _median_ms(new), _median_ms(old)
+    dev, old_dev = _device_ms(new), _device_ms(old)
+    px = sum(p.numel() for p in planes)
+    f = planes[0].shape[0]
+    wk = (px * 5 + (24 * f if checksum else 0), (4 * px if checksum else 0))
+    b_ms, b_by = _bound(*wk)
+    key = "cast_checksum" if checksum else "cast"
+    print(f"kernel {key} ({label}, the three planes): {ms:.4f} ms, alone "
+          f"{_ms_text(dev)}; the parent's path (three casts"
+          f"{', three checksum launches and a stack' if checksum else ''}) "
+          f"{old_ms:.4f} ms, alone {_ms_text(old_dev)}; bound {b_ms:.4f} ms "
+          f"({b_by}), {_share_text(b_ms, dev)} of it alone")
+    if timed is None:
+        return
+    plain_ms = _median_ms(twin)
+    timed[key] = (ms, plain_ms)
+    work[key] = wk
+    if checksum:
+        # the earlier checksum on the three uint8 planes, as the parent's
+        # route ran it: three launches
+        u8 = got[:3]
+
+        def earlier():
+            return [dp.device_checksum(p) for p in u8]
+
+        timed["checksum"] = (
+            _median_ms(earlier),
+            _median_ms(lambda: [dp.device_checksum(p, plain=True)
+                                for p in u8]))
+        work["checksum"] = (px + 8 * 3 * f, 4 * px)
+        print(f"kernel checksum ({label}, the three uint8 planes, three "
+              f"launches): {timed['checksum'][0]:.4f} ms, the kernels alone "
+              f"{_ms_text(_device_ms(earlier, ('::checksum_kernel',)))}")
+
+
 def phase_pixel_kernels(torch, y, c, sp, timed, work):
     """K5-K8 on the decisions of one 1080p search; K6-K8 against their
     twins here, K5 against its twin in the job k5-intra."""
-    from fasthevc_tpu_torch.codec import device_pipeline as dp
-    from fasthevc_tpu_torch.ops import deblock, sao
+    from fasthevc_tpu_torch.ops import sao
 
     run_commit, d = _intra_commit(torch, y, c, sp)
     dm, sy, scb, scr = d["dm"], d["sy"], d["scb"], d["scr"]
@@ -978,33 +1148,21 @@ def phase_pixel_kernels(torch, y, c, sp, timed, work):
           f"ms a 1080p call")
 
     ry, rcb, rcr = rec[:3]
-    dargs = (ry, rcb, rcr, dm, QP, qcb, qcr, 5)
-    dk = deblock.deblock(*dargs)
-    for name, a, b in zip(("y", "cb", "cr"), dk,
-                          deblock.deblock(*dargs, plain=True)):
-        _same(torch, f"K6 {name}", a, b)
-    timed["deblock"] = (_median_ms(lambda: deblock.deblock(*dargs)),
-                        _median_ms(lambda: deblock.deblock(*dargs,
-                                                           plain=True)))
-    _alone_text("deblock", f"1080p group of {GROUP}", timed,
-                lambda: deblock.deblock(*dargs), ("deblock_kernel",))
     gpx = GROUP * HEIGHT * WIDTH
     segs = GROUP * (HEIGHT // 4 * gw + WIDTH // 4 * gh)
-    work["deblock"] = (gpx * 1.5 * 4 * 2 + 4 * GROUP * gh * gw, 120 * segs)
+    dk = _deblock_check(torch, f"1080p group of {GROUP}",
+                        (ry, rcb, rcr, dm, QP, qcb, qcr, 5), {}, None,
+                        ("deblock_fused", "deblock"), timed, work,
+                        (gpx * 1.5 * 4 * 2 + 4 * GROUP * gh * gw,
+                         120 * segs))
     sargs = (sy, scb, scr) + tuple(dk) + (5,)
     _sao_check(torch, f"1080p group of {GROUP}", sargs, {}, gpx, timed,
                work)
     _sao_check(torch, "one 1080p picture",
                tuple(a[:1] for a in sargs[:6]) + (5,), {}, HEIGHT * WIDTH)
-    y8 = sao.sao(*sargs)[0].to(torch.uint8)
-    _same(torch, "K8", dp.device_checksum(y8),
-          dp.device_checksum(y8, plain=True))
-    timed["checksum"] = (
-        _median_ms(lambda: dp.device_checksum(y8)),
-        _median_ms(lambda: dp.device_checksum(y8, plain=True)))
-    _alone_text("checksum", f"1080p group of {GROUP}, luma", timed,
-                lambda: dp.device_checksum(y8), ("checksum_kernel",))
-    work["checksum"] = (gpx + 4 * GROUP, 4 * gpx)
+    rec8 = sao.sao(*sargs)[:3]
+    _cast_check(torch, f"1080p group of {GROUP}", rec8, True, timed, work)
+    _cast_check(torch, "one 1080p picture", [p[:1] for p in rec8], True)
     torch.cuda.synchronize()
 
 
@@ -1254,7 +1412,7 @@ def phase_inter_kernels(torch, timed, work):
     k5-mixed); K9's and K11's earlier forms beside their fused ones, as
     the parent's path."""
     from fasthevc_tpu_torch.codec.search import _blocks
-    from fasthevc_tpu_torch.ops import cost, deblock, me
+    from fasthevc_tpu_torch.ops import cost, me
 
     dev = torch.device("cuda")
     d = _p_commit_inputs(torch)
@@ -1398,30 +1556,13 @@ def phase_inter_kernels(torch, timed, work):
     work["commit_mixed"] = (fpx * 1.5 * (4 + 4 + 4 + 2),
                             _transform_ops(dm))
 
-    # K6's cbf pass, then K6 with strengths from it, one frame
-    lv = rec[3]
-    cbf = deblock.tu_cbf(lv, dm, 5)
-    _same(torch, "K6 cbf", cbf, deblock.tu_cbf(lv, dm, 5, plain=True))
-    timed["deblock_cbf"] = (
-        _median_ms(lambda: deblock.tu_cbf(lv, dm, 5)),
-        _median_ms(lambda: deblock.tu_cbf(lv, dm, 5, plain=True)))
-    _alone_text("deblock_cbf", "1080p P frame", timed,
-                lambda: deblock.tu_cbf(lv, dm, 5), ("cbf_kernel",))
-    work["deblock_cbf"] = (2 * fpx + 8 * gh * gw, fpx)
-    dargs = (*rec[:3], dm, [QP], [qc], [qc], 5)
-    kw = dict(dir_map=im, mv_map=mv, ref_map=rm, cbf=cbf)
-    dk = deblock.deblock(*dargs, **kw)
-    for name, a, b in zip(("y", "cb", "cr"), dk,
-                          deblock.deblock(*dargs, plain=True, **kw)):
-        _same(torch, f"K6 bs {name}", a, b)
-    timed["deblock_bs"] = (
-        _median_ms(lambda: deblock.deblock(*dargs, **kw)),
-        _median_ms(lambda: deblock.deblock(*dargs, plain=True, **kw)))
-    _alone_text("deblock_bs", "1080p P frame", timed,
-                lambda: deblock.deblock(*dargs, **kw), ("deblock_kernel",))
+    # K6 with strengths from the frame's CU cbf, and its cbf pass
     segs = HEIGHT // 4 * gw + WIDTH // 4 * gh
-    work["deblock_bs"] = (fpx * 1.5 * 4 * 2 + 4 * gh * gw * 8,
-                          (120 + 40) * segs)
+    _deblock_check(torch, "1080p P frame", (*rec[:3], dm, [QP], [qc], [qc],
+                                            5),
+                   dict(dir_map=im, mv_map=mv, ref_map=rm), (rec[3], dm),
+                   ("deblock_fused_bs", "deblock_bs"), timed, work,
+                   (fpx * 1.5 * 4 * 2 + 4 * gh * gw * 8, (120 + 40) * segs))
     torch.cuda.synchronize()
 
 
@@ -1936,16 +2077,22 @@ def _per_picture(launches: dict, pictures: int, sizes: int, what: str,
     """K9 at three launches an inter picture (the decimation, me_coarse,
     me_fine), K11's merge form at one a block size (SR 64), K12's selected
     form at one a B picture and block size, K1's rd form `intra_rd` times,
-    K7's fused form at one launch a picture batch (`batches`) and K11's
-    planes form at one a P batch and one a B batch."""
+    K7's fused form and K8's cast form at one launch a picture batch
+    (`batches`), K11's planes form at one a P batch and one a B batch, K6
+    at one launch an intra batch and two an inter batch (its cbf pass and
+    the filter)."""
+    inter_batches = p_batches + b_batches
     want = {"me_downsample4": pictures, "me_coarse": pictures,
             "me_fine": pictures, "mc_merge": pictures * sizes,
             "bi_select": b_pictures * sizes, "intra_rd_cands": intra_rd,
             "sao_fused": batches, "inter_pred_fused": p_batches,
-            "inter_pred_fused_bi": b_batches}
+            "inter_pred_fused_bi": b_batches,
+            "deblock_fused": batches - inter_batches,
+            "deblock_fused_bs": inter_batches,
+            "deblock_cbf_ctu": inter_batches, "cast_checksum": batches}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
-        raise AssertionError(f"{what}: K1 / K7 / K9 / K11 / K12 launches "
+        raise AssertionError(f"{what}: K1 / K6-K9 / K11 / K12 launches "
                              f"{got}, expected {want} for {pictures} inter "
                              f"pictures")
 
@@ -2015,9 +2162,11 @@ def phase_device_route(torch, params=None):
     _require(launches, INTRA_ROUTE + (() if params is None
                                       else ("cnn_depth",)),
              f"all-intra device-route encode ({_label(params)})")
-    # K1's rd form RD_PER_GROUP times and K7's fused form once a group
+    # K1's rd form RD_PER_GROUP times, K6, K7's fused form and K8's cast
+    # form once a group
     groups = TIMED // GROUP
-    want = {"intra_rd_cands": RD_PER_GROUP * groups, "sao_fused": groups}
+    want = {"intra_rd_cands": RD_PER_GROUP * groups, "sao_fused": groups,
+            "deblock_fused": groups, "cast_checksum": groups}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"all-intra encode: launches {got}, expected "
@@ -2661,9 +2810,16 @@ def profile_route(torch, label, clip, cfg, warm) -> None:
              ("sao_stats_kernel", "sao_apply_kernel", "sao_fused_kernel")),
             ("K11's commit planes (inter_pred a component, or "
              "inter_planes)", ("inter_pred_kernel", "inter_planes_kernel")),
-            ("K6, the deblocking (deblock_kernel, cbf_kernel)",
-             ("deblock_kernel", "cbf_kernel")),
-            ("K8, the checksum", ("checksum_kernel",)),
+            ("K6, the deblocking (deblock_fused_kernel, cbf_ctu_kernel)",
+             ("deblock_fused_kernel", "cbf_ctu_kernel")),
+            ("K6's earlier form (deblock_kernel, cbf_kernel)",
+             ("::deblock_kernel", "::cbf_kernel")),
+            ("K8, the uint8 cast and checksum (cast_checksum_kernel)",
+             ("cast_checksum_kernel",)),
+            ("K8's earlier form (checksum_kernel a plane)",
+             ("::checksum_kernel",)),
+            ("device-to-device copies (Memcpy DtoD)", ("Memcpy DtoD",)),
+            ("memsets", ("Memset",)),
             ("PyTorch's sorts (the shortlist's stable sort)", ("sort",
                                                              "Sort")),
             ("PyTorch's where / argmin / stack (the direction's glue "
@@ -2767,21 +2923,22 @@ def phase_mesh_kernels(torch, timed, work):
                           .astype(np.int16) * 3)[None].to(dev)
     maps = dict(dir_map=i32(rng.integers(0, 4, (gh, gw)))[None],
                 mv_map=i32(rng.integers(-12, 12, (gh, gw, 4)))[None])
-    cbf = deblock.tu_cbf(lv, dm, 5)
+    cbf = deblock.tu_cbf_ctu(lv, dm, 5)
     _same(torch, "K6 cbf (tile)", cbf, deblock.tu_cbf(lv, dm, 5,
                                                       plain=True))
-    dargs = (*planes, dm, QP, QP - 1, QP - 1, 5)
-    dkw = dict(maps, cbf=cbf, x0=tw - 8, pic_w=WIDTH)
-    dk = deblock.deblock(*dargs, **dkw)
-    for name, a, b in zip(("y", "cb", "cr"), dk,
-                          deblock.deblock(*dargs, plain=True, **dkw)):
-        _same(torch, f"K6 window {name}", a, b)
-    timed["deblock_window"] = (
-        _median_ms(lambda: deblock.deblock(*dargs, **dkw)),
-        _median_ms(lambda: deblock.deblock(*dargs, plain=True, **dkw)))
     px = HEIGHT * ew
     segs = HEIGHT // 4 * gw + ew // 4 * gh
-    work["deblock_window"] = (px * 1.5 * 4 * 2 + 4 * gh * gw * 7, 120 * segs)
+    dk = _deblock_check(
+        torch, f"tile-column form, a {tw}-column tile + 2 x 8",
+        (*planes, dm, QP, QP - 1, QP - 1, 5),
+        dict(maps, cbf=cbf, x0=tw - 8, pic_w=WIDTH), None,
+        ("deblock_fused_window", "deblock_window"), timed, work,
+        (px * 1.5 * 4 * 2 + 4 * gh * gw * 7, 120 * segs))
+    # K8's cast form without the checksum on the tile's own columns (the
+    # sharded route's _filters with SAO off: column slices)
+    _cast_check(torch, f"the {tw}-column tile's own columns",
+                [p[..., 8 >> (c > 0):(8 >> (c > 0)) + (tw >> (c > 0))]
+                 for c, p in enumerate(dk)], False, timed, work)
 
     # K7's fused halo form on the tile with both neighbours' columns
     src = [i32(rng.integers(0, 256, (HEIGHT >> (c > 0), tw >> (c > 0))))
@@ -2856,16 +3013,19 @@ def phase_mesh(torch) -> dict:
         print(f"launches in the mesh {name} encode ({steps} steps of "
               f"{ranks} ranks): "
               f"{ {k: v for k, v in _build.LAUNCHES.items()} }")
-        # K7's fused halo form once a rank and step; K11's planes once a
-        # rank and inter step (every step but each segment's IDR)
+        # K6's tile-column form, K7's fused halo form and K8's cast form
+        # once a rank and step; K11's planes and K6's cbf pass once a rank
+        # and inter step (every step but each segment's IDR)
         inter = 0 if name == "all-intra" else (steps - 1) * ranks
-        want = {"sao_fused_halo": steps * ranks, "planes": inter}
-        got = {"sao_fused_halo": _build.LAUNCHES.get("sao_fused_halo", 0),
-               "planes": _build.LAUNCHES.get("inter_pred_fused", 0)
-               + _build.LAUNCHES.get("inter_pred_fused_bi", 0)}
+        want = {"deblock_fused_window": steps * ranks,
+                "sao_fused_halo": steps * ranks, "cast": steps * ranks,
+                "deblock_cbf_ctu": inter, "planes": inter}
+        got = {k: _build.LAUNCHES.get(k, 0) for k in want}
+        got["planes"] = (_build.LAUNCHES.get("inter_pred_fused", 0)
+                         + _build.LAUNCHES.get("inter_pred_fused_bi", 0))
         if got != want:
-            raise AssertionError(f"mesh {name}: K7 / K11 planes launches "
-                                 f"{got}, expected {want}")
+            raise AssertionError(f"mesh {name}: K6 / K7 / K8 / K11 planes "
+                                 f"launches {got}, expected {want}")
         for k, v in _build.LAUNCHES.items():
             launches[k] = launches.get(k, 0) + v
         single, _, sdt, _ = _encode(torch, cfg, clip)
@@ -2884,7 +3044,7 @@ def phase_mesh(torch) -> dict:
               f"and NAL glue {tm['entropy_s']:.3f} s), single-device "
               f"{len(clip) / sdt:.4f} fps (both after a warm-up)")
     print(f"launches in the mesh encodes: {launches}")
-    _require(launches, MESH_KERNELS + ("deblock_cbf", "bi_select")
+    _require(launches, MESH_KERNELS + ("deblock_cbf_ctu", "bi_select")
              + SEARCH_KERNELS + ME_KERNELS, "mesh encodes")
     return launches
 
@@ -3164,7 +3324,8 @@ def bench_kernels(torch) -> None:
     training batch; then phases 3, 7 and 10's encodes, each BENCH_ENCODES
     times after its warm-up, every fps and their median printed beside
     the medians of the encoder's timing split and the stream's size and
-    SHA-256; then phase 14's classic-route encode and phase 16's three mesh
+    SHA-256 (before them, K7, K11's commit planes and the filter tail
+    through the routes' calls); then phase 14's classic-route encode and phase 16's three mesh
     encodes, each once after its warm-up, with the stream's size and
     SHA-256.  First of all, K9's integer stage (`me_state`: the earlier
     form's downsample4 + five sad_search calls, or downsample4 + me_coarse
@@ -3396,7 +3557,8 @@ def bench_filters_and_planes(torch) -> None:
     on phase 2a's 1080p group (its frames as the source, a recon within
     +-6 of them), the planes on phase 2b's P decisions and, from the same
     maps, seeded directions 1-3 over both lists (the references reversed
-    as list 1); each with events and the card's own time."""
+    as list 1); each with events and the card's own time; then the
+    filter tail (`bench_filter_tail`)."""
     from fasthevc_tpu_torch.ops import me, sao
 
     dev = torch.device("cuda")
@@ -3435,6 +3597,66 @@ def bench_filters_and_planes(torch) -> None:
                       ("seeded directions 1-3 on them, 2 refs a list", bi)):
         print(f"bench commit planes ({label}): {_median_ms(fn):.4f} ms, "
               f"the card's own {_ms_text(_device_ms(fn))}")
+    bench_filter_tail(torch, d, uni())
+
+
+def bench_filter_tail(torch, d, pred) -> None:
+    """The batch programs' filter tail (`_filter_and_pack`: K6 with its
+    cbf pass, K7, the uint8 casts and K8, with their glue) as they call
+    it, in whichever forms the package launches there: on phase 2b's P
+    decisions with a recon within +-6 of their MC planes and seeded sparse
+    levels, and as an intra batch of 8 on those planes and depths; each
+    with events, the card's own time and its launches by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fasthevc_tpu_torch.codec import device_pipeline as dp
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+
+    def near(p):
+        noise = rng.integers(-6, 7, tuple(p.shape)).astype(np.int32)
+        return (p + torch.from_numpy(noise).to(dev)).clamp(0, 255)
+
+    src = tuple(p[None].to(torch.int32) for p in d["src"])
+    rec = tuple(near(p) for p in pred)
+    lv = torch.from_numpy(((rng.random((1, HEIGHT, WIDTH)) < 0.01) * 2)
+                          .astype(np.int16)).to(dev)
+    lvc = torch.zeros((1, HEIGHT // 2, WIDTH // 2), dtype=torch.int16,
+                      device=dev)
+    packed = torch.zeros(1, dtype=torch.int16, device=dev)
+    p_args = (*src, d["dm"], packed, rec + (lv, lvc, lvc), [QP], [QP],
+              [QP], 5, True, True, True, False)
+    p_kw = dict(inter_maps=(d["im"], d["mv"], d["rm"]))
+
+    def group(t):
+        return t.expand(GROUP, *t.shape[1:]).contiguous()
+
+    i_args = (*(group(p) for p in src), group(d["dm"]), packed,
+              tuple(group(p) for p in rec + (lv, lvc, lvc)), QP, QP, QP, 5,
+              True, True, True, False)
+    for label, args, kw in (("1080p P frame", p_args, p_kw),
+                            (f"1080p intra batch of {GROUP}", i_args, {})):
+        def tail():
+            return dp._filter_and_pack(*args, **kw)
+
+        tail()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tail()
+            torch.cuda.synchronize()
+        kinds: dict = {}
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                kind = ("DtoD copies" if "Memcpy DtoD" in e.name
+                        else "other copies and memsets"
+                        if "Memcpy" in e.name or "Memset" in e.name
+                        else "PyTorch kernels" if "at::native" in e.name
+                        else "hand-written kernels")
+                kinds[kind] = kinds.get(kind, 0) + 1
+        print(f"bench filter tail ({label}): {_median_ms(tail):.4f} ms, "
+              f"the card's own {_ms_text(_device_ms(tail))}; launches "
+              f"{dict(sorted(kinds.items()))}")
 
 
 def _stamp(t_start: float, what: str) -> None:
@@ -3569,15 +3791,20 @@ def main() -> int:
           "and K1's fused form (intra_satd) at luma n=8, "
           "intra_rd_cands, intra_pred_selected (no route launches it) "
           "and tq_cost on the 3 rd candidates a block, commit_intra "
-          f"on {TWIN_FRAMES} frame(s) with RDOQ, sao_fused and sao (the "
-          "earlier two-launch form, no route launches it) on the group; "
+          f"on {TWIN_FRAMES} frame(s) with RDOQ, deblock_fused and deblock "
+          "(the earlier two-launch form, no route launches it), sao_fused "
+          "and sao (the earlier two-launch form, no route launches it), "
+          "cast_checksum and checksum (the earlier form, three launches on "
+          "the three uint8 planes, no route launches it) on the group; "
           "phase 2b: one 1080p P "
           "frame, SR 64, two references, me_coarse and me_fine on the "
           "whole frame, the earlier forms me_full_search and me_refine on "
           "the coarse tier 16 and the 8-blocks, subpel and mc_merge on the "
           "8-blocks, mc_sel and satd on their merge candidates, "
           "commit_mixed with RDOQ, inter_pred_fused and inter_pred (the "
-          "earlier form a component, no route launches it) on its P "
+          "earlier form a component, no route launches it), "
+          "deblock_fused_bs, deblock_cbf_ctu and the earlier deblock_bs "
+          "and deblock_cbf (no route launches them) on its P "
           "decisions; phase 2c: one 1080p B frame, two "
           "references per list, bi_select and bi_cost (no route launches "
           "it) on the 8-blocks' merge winners, inter_pred_fused_bi and "
@@ -3588,11 +3815,12 @@ def main() -> int:
           "twin jobs; cnn_depth's launches are phase 13's three timed "
           "encodes', the training kernels' phase 12's; phase 2f: an "
           "interior rank of the 1080p (2, 4) mesh, halo on its source "
-          "exchange, deblock_window on its recon extended by 8 columns "
-          "with P maps, sao_fused_halo and sao_halo (no route launches it) "
-          "with both neighbours; their launches are "
-          "phase 16's three mesh encodes'; deblock_cbf is timed in phase "
-          "2b on the whole 1080p P frame)")
+          "exchange, deblock_fused_window and deblock_window (no route "
+          "launches it) on its recon extended by 8 columns with P maps, "
+          "cast on its own columns, sao_fused_halo and sao_halo (no route "
+          "launches it) with both neighbours; their launches are "
+          "phase 16's three mesh encodes'; deblock_cbf_ctu is timed in "
+          "phase 2b on the whole 1080p P frame)")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fasthevc_tpu_torch/{src}", "replaces": rep,

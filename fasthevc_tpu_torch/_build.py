@@ -45,6 +45,7 @@ def launched(name: str, n: int = 1) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (the stream, where one is taken,
 # last)
 _SIGNATURES = {
@@ -75,6 +76,13 @@ _SIGNATURES = {
     "fhv_deblock": [_P] * 14 + [_I] * 8 + [_P],
     # lv_y, depth, cbf, F, H, W, log2_ctu, stream
     "fhv_deblock_cbf": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # in y/cb/cr, row pitches y/c, frame strides y/c, out y/cb/cr, depth,
+    # dir, mv, ref, cbf, beta_tab, tc_tab, qps (host), F, H, W, log2_ctu,
+    # bit_depth, x0, pic_w, stream
+    "fhv_deblock_fused": ([_P] * 3 + [_I] * 2 + [_L] * 2 + [_P] * 11
+                          + [_I] * 7 + [_P]),
+    # lv_y, depth, cbf, F, H, W, log2_ctu, stream
+    "fhv_deblock_cbf_ctu": [_P, _P, _P, _I, _I, _I, _I, _P],
     # src y/cb/cr, rec y/cb/cr, halo l/r y, cb, cr (or NULL), params, F, H,
     # W, log2_ctu, bit_depth, l_avail, r_avail, stream
     "fhv_sao_stats": [_P] * 13 + [_I] * 7 + [_P],
@@ -86,6 +94,9 @@ _SIGNATURES = {
     "fhv_sao_fused": [_P] * 16 + [_I] * 7 + [_P],
     # planes, out, F, H, W, stream
     "fhv_checksum": [_P, _P, _I, _I, _I, _P],
+    # in y/cb/cr, out y/cb/cr, sums (or NULL), pitches y/cb/cr, frame
+    # strides y/cb/cr, F, H, W, stream
+    "fhv_cast_checksum": [_P] * 7 + [_I] * 3 + [_L] * 3 + [_I] * 3 + [_P],
     # in, out, N, H, W, stream
     "fhv_downsample4": [_P, _P, _I, _I, _I, _P],
     # src, refs, center, out, R, H, W, n, rng, base_n, scale, clip, stream

@@ -3,8 +3,9 @@ group on the card; the host emits CABAC only.
 
 Counterpart of fasthevc_tpu/codec/device_pipeline.py.  `encode_group_device`
 (intra frames): the batched intra search (K1-K4), the wavefront commit with
-the parallel RDOQ trellis (K5), deblocking (K6), SAO (K7) and the Annex D
-checksum (K8), enqueued on the current stream for the whole group.
+the parallel RDOQ trellis (K5), deblocking (K6), SAO (K7) and the recon's
+uint8 cast with the Annex D checksum (K8), enqueued on the current stream
+for the whole group.
 `encode_inter_group_device` (P or B frames): the P or B search (K1-K4 for
 its intra candidates, K9 integer ME, K10 sub-pel, K11 merge-candidate MC,
 K12 the bi-prediction cost of B), exact MC of the decided motion (K11,
@@ -23,7 +24,7 @@ import torch
 
 from .. import _build
 from ..ops.commit import wavefront_commit_intra, wavefront_commit_mixed
-from ..ops.deblock import deblock, tu_cbf
+from ..ops.deblock import deblock_fused, tu_cbf_ctu
 from ..ops.me import inter_pred_planes
 from ..ops.sao import sao
 from .search import search_b_maps, search_intra_maps_batch, search_p_maps
@@ -62,7 +63,8 @@ def device_checksum_plain(planes: torch.Tensor) -> torch.Tensor:
 def device_checksum(planes: torch.Tensor, plain: bool = False):
     """Annex D.3.19 hash_type 2 checksum of each of F uint8 planes
     [F, H, W] (twin of device_pipeline.py:55 `_device_checksum`): int64 [F].
-    CUDA tensors go through K8 unless `plain`."""
+    CUDA tensors go through K8's earlier form (a launch a plane) unless
+    `plain`."""
     if plain or not planes.is_cuda:
         return device_checksum_plain(planes)
     return _checksum_cuda(planes)
@@ -80,6 +82,56 @@ def _checksum_cuda(planes: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
+def cast_checksum_plain(rec_y, rec_cb, rec_cr, checksum: bool = True):
+    """K8's cast form's twin: the three uint8 casts, then (with `checksum`)
+    each plane's checksum, cksum [F, 3] int64 (else None)."""
+    planes = tuple(p.to(torch.uint8).contiguous()
+                   for p in (rec_y, rec_cb, rec_cr))
+    cksum = (torch.stack([device_checksum_plain(p) for p in planes], dim=1)
+             if checksum else None)
+    return planes + (cksum,)
+
+
+def cast_checksum(rec_y, rec_cb, rec_cr, checksum: bool = True,
+                  plain: bool = False):
+    """The recon's uint8 planes and their Annex D.3.19 checksums, the tail
+    of the reference's batch program (device_pipeline.py:122-126): int32
+    rec_* [F, H, W] (chroma halved; column slices of wider planes taken
+    as they lie) -> (y, cb, cr) uint8 contiguous and cksum [F, 3] int64
+    in [0, 2^32), or None without `checksum`.  CUDA tensors go through
+    K8's cast form, one launch a call (`cast_checksum`, or `cast` when it
+    only casts), unless `plain`."""
+    if plain or not rec_y.is_cuda:
+        return cast_checksum_plain(rec_y, rec_cb, rec_cr, checksum)
+    planes = (rec_y, rec_cb, rec_cr)
+    if any(p.device != rec_y.device or p.dtype != torch.int32
+           for p in planes):
+        raise ValueError("cast_checksum: int32 planes on one CUDA device")
+    f, h, w = rec_y.shape
+    if h % 2 or w % 8 or any(p.shape != (f, h // 2, w // 2)
+                             for p in planes[1:]):
+        raise ValueError("cast_checksum: planes [F, H, W] and [F, H/2, "
+                         "W/2], W a multiple of 8")
+    for p in planes:
+        if (p.stride(2) != 1 or p.stride(1) % 4 or p.stride(0) % 4
+                or p.data_ptr() % 16):
+            raise ValueError("cast_checksum: rows of 16-byte aligned "
+                             "vectors of 4 samples")
+    outs = tuple(torch.empty(p.shape, dtype=torch.uint8, device=p.device)
+                 for p in planes)
+    cksum = (torch.empty((f, 3), dtype=torch.int64, device=rec_y.device)
+             if checksum else None)
+    rc = _build.lib().fhv_cast_checksum(
+        *(p.data_ptr() for p in planes), *(o.data_ptr() for o in outs),
+        None if cksum is None else cksum.data_ptr(),
+        *(p.stride(1) for p in planes), *(p.stride(0) for p in planes), f,
+        h, w, _build.stream_handle(rec_y))
+    name = "cast_checksum" if checksum else "cast"
+    _build.launched(name)
+    _build.check(rc, name)
+    return outs + (cksum,)
+
+
 def _lam(lambda_sqrt: float) -> float:
     """The trellis' lambda, rounded as the reference rounds it (f32)."""
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
@@ -90,9 +142,10 @@ def _filter_and_pack(sy, scb, scr, dm, packed, committed, qp_deblock,
                      qp_cb, qp_cr, log2_ctu: int, deblock_on: bool,
                      sao_on: bool, checksum: bool, plain: bool,
                      inter_maps=None) -> dict:
-    """Deblock, SAO and checksum of committed frames; the output dict of
-    encode_group_device.  inter_maps: (dir, mv, ref) granule maps of P/B
-    frames, whose boundary strengths the deblocking works out."""
+    """Deblock, SAO, uint8 cast and checksum of committed frames; the
+    output dict of encode_group_device.  inter_maps: (dir, mv, ref)
+    granule maps of P/B frames, whose boundary strengths the deblocking
+    works out."""
     ry, rcb, rcr, lv_y, lv_cb, lv_cr = committed
     f = sy.shape[0]
     coded_h, coded_w = sy.shape[1:]
@@ -101,9 +154,9 @@ def _filter_and_pack(sy, scb, scr, dm, packed, committed, qp_deblock,
         if inter_maps is not None:
             bs_kw = dict(dir_map=inter_maps[0], mv_map=inter_maps[1],
                          ref_map=inter_maps[2],
-                         cbf=tu_cbf(lv_y, dm, log2_ctu, plain=plain))
-        ry, rcb, rcr = deblock(ry, rcb, rcr, dm, qp_deblock, qp_cb, qp_cr,
-                               log2_ctu, plain=plain, **bs_kw)
+                         cbf=tu_cbf_ctu(lv_y, dm, log2_ctu, plain=plain))
+        ry, rcb, rcr = deblock_fused(ry, rcb, rcr, dm, qp_deblock, qp_cb,
+                                     qp_cr, log2_ctu, plain=plain, **bs_kw)
     if sao_on:
         ry, rcb, rcr, sao_params = sao(sy, scb, scr, ry, rcb, rcr, log2_ctu,
                                        plain=plain)
@@ -111,15 +164,13 @@ def _filter_and_pack(sy, scb, scr, dm, packed, committed, qp_deblock,
         ctb = 1 << log2_ctu
         sao_params = torch.zeros((f, -(-coded_h // ctb), -(-coded_w // ctb),
                                   3, 7), dtype=torch.int32, device=sy.device)
+    rec_y, rec_cb, rec_cr, cksum = cast_checksum(ry, rcb, rcr, checksum,
+                                                 plain=plain)
     out = dict(packed=packed, lv_y=lv_y.contiguous(),
                lv_cb=lv_cb.contiguous(), lv_cr=lv_cr.contiguous(),
-               rec_y=ry.to(torch.uint8).contiguous(),
-               rec_cb=rcb.to(torch.uint8).contiguous(),
-               rec_cr=rcr.to(torch.uint8).contiguous(), sao=sao_params)
+               rec_y=rec_y, rec_cb=rec_cb, rec_cr=rec_cr, sao=sao_params)
     if checksum:
-        out["cksum"] = torch.stack(
-            [device_checksum(out[k], plain=plain)
-             for k in ("rec_y", "rec_cb", "rec_cr")], dim=1)
+        out["cksum"] = cksum
     return out
 
 

@@ -2,15 +2,20 @@
 
 Counterpart of fasthevc_tpu/ops/deblock.py `deblock_device`, with
 `tu_cbf_map` and `inter_bs_maps` for the boundary strengths of P/B
-pictures (intra pictures have BS 2 on every CU/TU edge).  `deblock` goes
-through kernel K6 (csrc/deblock.cu: all vertical edges, then all
-horizontal edges, one thread per 4-sample segment, the strength of a P/B
-segment worked out in the kernel from the granule maps and the CU luma
-cbf of `tu_cbf`, K6's cbf pass) for CUDA tensors; `deblock_plain` is its
-PyTorch twin, the JAX package's dense masked form: every possible segment
-is filtered and masked, since same-direction edges are at least 8 samples
-apart and no two segments touch the same samples.  All arithmetic is integer.  QPs may be given per
-frame.
+pictures (intra pictures have BS 2 on every CU/TU edge).  The routes call
+`deblock_fused`: kernel K6's one-launch form (csrc/deblock.cu
+`fhv_deblock_fused`: a CTA a frame and 32x32 luma tile filters the tile's
+vertical, then its horizontal edges in shared memory from a 4-sample halo
+and writes it once, the strength of a P/B segment worked out in the kernel
+from the granule maps and the CU luma cbf of `tu_cbf_ctu`, K6's cbf pass
+a CTA a CTU).  `deblock` and `tu_cbf` are K6's earlier forms (all vertical
+edges, then all horizontal edges, one launch each, a thread a 4-sample
+segment, from copies of the planes; the cbf a thread a granule), kept
+callable under their own launch counters.  `deblock_plain` is the twin of
+both, the JAX package's dense masked form: every possible segment is
+filtered and masked, since same-direction edges are at least 8 samples
+apart and no two segments touch the same samples.  All arithmetic is
+integer.  QPs may be given per frame.
 
 The tile-column form of the sharded pipelines (fasthevc_tpu/parallel/
 sharded.py `_deblock_sharded_cols`) is the same call on a tile's planes
@@ -21,6 +26,8 @@ CU cbf.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -76,18 +83,12 @@ def edge_masks(depth: torch.Tensor, log2_ctu: int, x0: int = 0,
 def tu_cbf(lv_y: torch.Tensor, depth: torch.Tensor, log2_ctu: int,
            plain: bool = False) -> torch.Tensor:
     """`tu_cbf_map` as int32 [F, H/8, W/8], the `cbf` argument of
-    `deblock` on P/B pictures: CUDA tensors go through K6's cbf pass
-    unless `plain`."""
+    `deblock` on P/B pictures: CUDA tensors go through K6's earlier cbf
+    pass (a thread a granule) unless `plain`."""
     if plain or not lv_y.is_cuda:
         return tu_cbf_map(lv_y, depth, log2_ctu).to(torch.int32)
-    lv = lv_y.to(torch.int16).contiguous()
-    dm = depth.to(torch.int32).contiguous()
-    _build.require_cuda("deblock_cbf", lv, dtype=torch.int16)
-    _build.require_cuda("deblock_cbf", dm, dtype=torch.int32)
+    lv, dm = _cbf_inputs(lv_y, depth, "deblock_cbf")
     f, h, w = lv.shape
-    if h % 8 or w % 8 or dm.shape != (f, h // 8, w // 8):
-        raise ValueError("deblock_cbf: levels [F, H, W] and depth "
-                         "[F, H/8, W/8], H and W multiples of 8")
     cbf = torch.empty((f, h // 8, w // 8), dtype=torch.int32,
                       device=lv.device)
     rc = _build.lib().fhv_deblock_cbf(lv.data_ptr(), dm.data_ptr(),
@@ -96,6 +97,39 @@ def tu_cbf(lv_y: torch.Tensor, depth: torch.Tensor, log2_ctu: int,
     _build.launched("deblock_cbf")
     _build.check(rc, "deblock_cbf")
     return cbf
+
+
+def tu_cbf_ctu(lv_y: torch.Tensor, depth: torch.Tensor, log2_ctu: int,
+               plain: bool = False) -> torch.Tensor:
+    """`tu_cbf` through K6's cbf pass a CTA a CTU (every level read once,
+    16 bytes at a time), the form the routes launch: int32 [F, H/8, W/8].
+    CPU tensors, or `plain`, run the twin."""
+    if plain or not lv_y.is_cuda:
+        return tu_cbf_map(lv_y, depth, log2_ctu).to(torch.int32)
+    lv, dm = _cbf_inputs(lv_y, depth, "deblock_cbf_ctu")
+    if not 3 <= log2_ctu <= 6:
+        raise ValueError("deblock_cbf_ctu: CTU 8 to 64")
+    f, h, w = lv.shape
+    cbf = torch.empty((f, h // 8, w // 8), dtype=torch.int32,
+                      device=lv.device)
+    rc = _build.lib().fhv_deblock_cbf_ctu(lv.data_ptr(), dm.data_ptr(),
+                                          cbf.data_ptr(), f, h, w, log2_ctu,
+                                          _build.stream_handle(lv))
+    _build.launched("deblock_cbf_ctu")
+    _build.check(rc, "deblock_cbf_ctu")
+    return cbf
+
+
+def _cbf_inputs(lv_y, depth, name: str) -> tuple:
+    lv = lv_y.to(torch.int16).contiguous()
+    dm = depth.to(torch.int32).contiguous()
+    _build.require_cuda(name, lv, dtype=torch.int16)
+    _build.require_cuda(name, dm, dtype=torch.int32)
+    f, h, w = lv.shape
+    if h % 8 or w % 8 or dm.shape != (f, h // 8, w // 8):
+        raise ValueError(f"{name}: levels [F, H, W] and depth [F, H/8, "
+                         "W/8], H and W multiples of 8")
+    return lv, dm
 
 
 def tu_cbf_map(lv_y: torch.Tensor, depth: torch.Tensor,
@@ -318,7 +352,8 @@ def deblock(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu: int,
     pic_w: the global luma column
     of the planes' first column and the picture's coded width (the
     tile-column form; defaults 0 and W).  Returns int32 (y, cb, cr) of the
-    planes given.  CUDA tensors go through K6 unless `plain`."""
+    planes given.  CUDA tensors go through K6's earlier form (two launches
+    on copies of the planes) unless `plain`."""
     if plain or not rec_y.is_cuda:
         bsv = bsh = None
         if dir_map is not None:
@@ -330,46 +365,107 @@ def deblock(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu: int,
                          x0, pic_w)
 
 
-def _deblock_cuda(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu,
-                  bit_depth, dir_map, mv_map, ref_map, cbf, x0, pic_w):
-    planes = [p.to(torch.int32).contiguous() for p in (rec_y, rec_cb,
-                                                       rec_cr)]
-    dm = depth.to(torch.int32).contiguous()
-    _build.require_cuda("deblock", *planes, dm, dtype=torch.int32)
+def deblock_fused(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
+                  log2_ctu: int, bit_depth: int = 8, plain: bool = False,
+                  dir_map=None, mv_map=None, ref_map=None, cbf=None,
+                  x0: int = 0, pic_w: int | None = None):
+    """`deblock` in one launch a call of up to 8 frames (K6's one-launch
+    form: a CTA a frame and 32x32 luma tile, into fresh planes, the QPs
+    passed by value); arguments and result as `deblock`, `cbf` from
+    `tu_cbf_ctu` (or `tu_cbf`).  CPU tensors, or `plain`, run the twin."""
+    if plain or not rec_y.is_cuda:
+        return deblock(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr,
+                       log2_ctu, bit_depth, True, dir_map, mv_map, ref_map,
+                       cbf, x0, pic_w)
+    planes, dm, maps, pic_w, name = _cuda_inputs(
+        rec_y, rec_cb, rec_cr, depth, dir_map, mv_map, ref_map, cbf, x0,
+        pic_w, "deblock_fused", strided=True)
     f, h, w = planes[0].shape
-    dev = dm.device
-    if planes[1].shape != (f, h // 2, w // 2) or dm.shape != (f, h // 8,
-                                                              w // 8):
-        raise ValueError("deblock: planes must be [F, H, W], [F, H/2, W/2] "
-                         "and depth [F, H/8, W/8]")
-    qps = _build.upload(torch.cat([_frame_qps(v, f, "cpu")
-                                   for v in (qp, qp_cb, qp_cr)], dim=1)
-                        .reshape(f, 3).to(torch.int32), dev)
-    beta_t, tc_t = _tables(dev)
-    lib = _build.lib()
-    stream = _build.stream_handle(dm)
+    qps = [int(v) for trio in zip(*(per_frame(v, f)
+                                    for v in (qp, qp_cb, qp_cr)))
+           for v in trio]
+    host_qps = (ctypes.c_int * len(qps))(*qps)
+    beta_t, tc_t = _tables(dm.device)
+    # the kernel writes contiguous planes, whatever the inputs' layout
+    outs = [torch.empty(p.shape, dtype=torch.int32, device=p.device)
+            for p in planes]
+    rc = _build.lib().fhv_deblock_fused(
+        *(p.data_ptr() for p in planes), planes[0].stride(1),
+        planes[1].stride(1), planes[0].stride(0), planes[1].stride(0),
+        *(p.data_ptr() for p in outs), dm.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in maps),
+        beta_t.data_ptr(), tc_t.data_ptr(), ctypes.addressof(host_qps), f,
+        h, w, log2_ctu, bit_depth, x0, pic_w, _build.stream_handle(dm))
+    # one launch a group of 8 frames (the QPs' by-value table)
+    _build.launched(name, -(-f // 8))
+    _build.check(rc, name)
+    return tuple(outs)
+
+
+def _vector_rows(p: torch.Tensor) -> bool:
+    """Whether an int32 plane stack's rows are runs of 16-byte vectors
+    (contiguous rows; row pitch and frame stride multiples of 4 samples;
+    16-byte aligned), as K6's one-launch form reads them."""
+    return (p.stride(2) == 1 and p.stride(1) % 4 == 0
+            and (p.shape[0] == 1 or p.stride(0) % 4 == 0)
+            and p.data_ptr() % 16 == 0)
+
+
+def _cuda_inputs(rec_y, rec_cb, rec_cr, depth, dir_map, mv_map, ref_map,
+                 cbf, x0, pic_w, name: str, strided: bool = False) -> tuple:
+    """The kernels' int32 planes, depth and P/B maps (None on intra
+    pictures), checked, all contiguous but, with `strided`, planes whose
+    rows are runs of 16-byte vectors (the commit's row crops: the chroma
+    planes share a layout); the picture's width; the launch counter's name
+    (P/B pictures, whose strengths the kernel works out, and the
+    tile-column form count apart from the intra ones)."""
+    planes = [p.to(torch.int32) for p in (rec_y, rec_cb, rec_cr)]
+    if not (strided and all(_vector_rows(p) for p in planes)
+            and planes[1].stride() == planes[2].stride()):
+        planes = [p.contiguous() for p in planes]
+    dm = depth.to(torch.int32).contiguous()
+    _build.require_cuda(name, dm, dtype=torch.int32)
+    if any(p.device != dm.device for p in planes):
+        raise ValueError(f"{name}: all tensors must be on {dm.device}")
+    f, h, w = planes[0].shape
+    if (h % 8 or w % 8 or planes[1].shape != (f, h // 2, w // 2)
+            or dm.shape != (f, h // 8, w // 8)):
+        raise ValueError(f"{name}: planes must be [F, H, W], [F, H/2, W/2]"
+                         " and depth [F, H/8, W/8], H and W multiples of 8")
     maps = (None, None, None, None)
     if dir_map is not None:
         im = dir_map.to(torch.int32).contiguous()
         mv = mv_map.to(torch.int32).contiguous()
         rm = (None if ref_map is None
               else ref_map.to(torch.int32).contiguous())
-        _build.require_cuda("deblock", im, mv, *([] if rm is None else [rm]),
-                            dtype=torch.int32)
-        if im.shape != dm.shape or mv.shape != dm.shape + (4,):
-            raise ValueError("deblock: dir [F, H/8, W/8], mv [F, H/8, W/8, "
-                             "4]")
         nz = cbf.to(torch.int32).contiguous()
-        _build.require_cuda("deblock", nz, dtype=torch.int32)
+        _build.require_cuda(name, im, mv, nz,
+                            *([] if rm is None else [rm]), dtype=torch.int32)
+        if im.shape != dm.shape or mv.shape != dm.shape + (4,):
+            raise ValueError(f"{name}: dir [F, H/8, W/8], mv [F, H/8, W/8, "
+                             "4]")
         if nz.shape != dm.shape:
-            raise ValueError("deblock: cbf [F, H/8, W/8]")
+            raise ValueError(f"{name}: cbf [F, H/8, W/8]")
         maps = (im, mv, rm, nz)
     pic_w = w + x0 if pic_w is None else pic_w
     window = (x0, pic_w) != (0, w)
-    # the passes of P/B pictures, whose strengths the kernel works out,
-    # and those of the tile-column form count apart from the intra ones
-    name = ("deblock_window" if window
-            else "deblock" if dir_map is None else "deblock_bs")
+    name += "_window" if window else "" if dir_map is None else "_bs"
+    return planes, dm, maps, pic_w, name
+
+
+def _deblock_cuda(rec_y, rec_cb, rec_cr, depth, qp, qp_cb, qp_cr, log2_ctu,
+                  bit_depth, dir_map, mv_map, ref_map, cbf, x0, pic_w):
+    planes, dm, maps, pic_w, name = _cuda_inputs(
+        rec_y, rec_cb, rec_cr, depth, dir_map, mv_map, ref_map, cbf, x0,
+        pic_w, "deblock")
+    f, h, w = planes[0].shape
+    dev = dm.device
+    qps = _build.upload(torch.cat([_frame_qps(v, f, "cpu")
+                                   for v in (qp, qp_cb, qp_cr)], dim=1)
+                        .reshape(f, 3).to(torch.int32), dev)
+    beta_t, tc_t = _tables(dev)
+    lib = _build.lib()
+    stream = _build.stream_handle(dm)
     src = planes
     for direction in (0, 1):       # vertical edges, then horizontal
         # the kernel writes only filtered samples: start from a copy, so

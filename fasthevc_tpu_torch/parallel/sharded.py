@@ -15,7 +15,8 @@ pixel path on it:
   3. the deblocking of K6's tile-column form on the recon extended by 8
      luma columns of each neighbour, with the P/B strengths worked out on
      the halo-extended maps;
-  4. SAO's halo form (K7) with the neighbours' deblocked edge columns.
+  4. SAO's halo form (K7) with the neighbours' deblocked edge columns,
+     then K8's cast form (the uint8 recon, no checksum).
 Every exchange is one K16 launch (`group.halo`).  The streams are
 byte-identical to the single-device route on the same tile grid
 (tests/test_torch_sharded.py); CABAC runs on the host per tile
@@ -34,13 +35,13 @@ import numpy as np
 import torch
 
 from .. import cabac_cpp
-from ..codec.device_pipeline import _lam
+from ..codec.device_pipeline import _lam, cast_checksum
 from ..codec.encoder import lambda_sqrt
 from ..codec.gop import coding_order, ref_lists
 from ..codec.search import search_b_maps, search_intra_maps_batch, \
     search_p_maps
 from ..ops.commit import wavefront_commit_intra, wavefront_commit_mixed
-from ..ops.deblock import deblock, tu_cbf
+from ..ops.deblock import deblock_fused, tu_cbf_ctu
 from ..ops.me import downsample4, inter_pred_planes
 from ..ops.sao import sao
 from ..spec import bitstream as bs
@@ -85,9 +86,9 @@ def _deblock_sharded_cols(group, rec_y, rec_cb, rec_cr, depth, qp, qp_cb,
         kw = dict(dir_map=ext[4], mv_map=ext[5].reshape(f, gh, gw + 2, 4),
                   cbf=ext[6])
     t = group.axis_index("tile")
-    ry, rcb, rcr = deblock(ext[0], ext[1], ext[2], ext[3], qp, qp_cb, qp_cr,
-                           log2_ctu, bit_depth, plain=plain,
-                           x0=t * w - hl, pic_w=pic_w, **kw)
+    ry, rcb, rcr = deblock_fused(ext[0], ext[1], ext[2], ext[3], qp, qp_cb,
+                                 qp_cr, log2_ctu, bit_depth, plain=plain,
+                                 x0=t * w - hl, pic_w=pic_w, **kw)
     return (ry[..., hl:hl + w], rcb[..., hc:hc + w // 2],
             rcr[..., hc:hc + w // 2])
 
@@ -118,11 +119,11 @@ def _filters(group, sy, scb, scr, committed, dm, qp, qp_cb, qp_cr,
         ctb = 1 << log2_ctu
         sao_p = torch.zeros((f, -(-h // ctb), w // ctb, 3, 7),
                             dtype=torch.int32, device=sy.device)
+    rec_y, rec_cb, rec_cr, _ = cast_checksum(ry, rcb, rcr, checksum=False,
+                                             plain=plain)
     return dict(packed=packed, lv_y=lv_y.contiguous(),
                 lv_cb=lv_cb.contiguous(), lv_cr=lv_cr.contiguous(),
-                rec_y=ry.to(torch.uint8).contiguous(),
-                rec_cb=rcb.to(torch.uint8).contiguous(),
-                rec_cr=rcr.to(torch.uint8).contiguous(), sao=sao_p)
+                rec_y=rec_y, rec_cb=rec_cb, rec_cr=rec_cr, sao=sao_p)
 
 
 def _tile_width(mesh, coded_w: int, log2_ctu: int) -> int:
@@ -268,7 +269,8 @@ def build_sharded_p_pipeline(mesh, coded_w: int, coded_h: int,
             plain=plain)
         maps = None
         if deblock_on:
-            maps = (im, mv, tu_cbf(committed[3], dm, log2_ctu, plain=plain))
+            maps = (im, mv, tu_cbf_ctu(committed[3], dm, log2_ctu,
+                                       plain=plain))
         return _filters(group, sy, scb, scr, committed, dm, qp, qp_cb, qp_cr,
                         coded_w, log2_ctu, deblock_on, sao_on, packed, maps,
                         plain=plain)

@@ -97,6 +97,18 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch():
     for got in (sao.sao(*src, *rec, 4), sao.sao_two_pass(*src, *rec, 4)):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+    planes, depth, maps, lv = _deblock_case(2, 40, 56, 8, "cpu")
+    cbf = deblock.tu_cbf_ctu(lv, depth, 5)
+    assert torch.equal(cbf, deblock.tu_cbf(lv, depth, 5))
+    for kw in ({}, dict(maps, cbf=cbf)):
+        for a, b in zip(deblock.deblock_fused(*planes, depth, 32, 33, 31, 5,
+                                              **kw),
+                        deblock.deblock(*planes, depth, 32, 33, 31, 5,
+                                        **kw)):
+            assert torch.equal(a, b)
+    *u8, ck = device_pipeline.cast_checksum(*planes)
+    assert torch.equal(ck, torch.stack(
+        [device_pipeline.device_checksum(p) for p in u8], dim=1))
     pargs = _planes_args(2, 2, True, True, "random", seed=7, device="cpu")
     want = me.inter_pred_planes(*pargs[:4], ref_map=pargs[4], plain=True)
     for got in (me.inter_pred_planes(*pargs[:4], ref_map=pargs[4]),
@@ -154,7 +166,9 @@ def test_library_is_keyed_by_the_sources():
         "fhv_downsample4", "fhv_sad_search", "fhv_me_coarse",
         "fhv_me_fine", "fhv_subpel", "fhv_mc_sel", "fhv_mc_merge",
         "fhv_inter_pred", "fhv_inter_planes", "fhv_commit", "fhv_deblock",
-        "fhv_deblock_cbf", "fhv_sao_stats", "fhv_sao_apply", "fhv_sao_fused",
+        "fhv_deblock_cbf", "fhv_deblock_fused", "fhv_deblock_cbf_ctu",
+        "fhv_cast_checksum", "fhv_sao_stats", "fhv_sao_apply",
+        "fhv_sao_fused",
         "fhv_cnn_fwd", "fhv_cnn_bwd", "fhv_adam", "fhv_halo"}
 
 
@@ -485,6 +499,152 @@ def test_checksum_kernel_matches_twin(cuda_device):
                               .astype(np.uint8)).to(cuda_device)
     assert torch.equal(device_pipeline.device_checksum(planes),
                        device_pipeline.device_checksum(planes, plain=True))
+
+
+def _deblock_case(frames, h, w, seed, device, inter=True, ref=True):
+    """Seeded smooth planes (chroma halved), CU depths and, with `inter`,
+    P/B granule maps on 16x16 blocks (directions 0-3, MVs within a
+    quarter sample but for a few whole samples off, reference indices
+    mostly 0, levels with a few nonzero values): (planes, depth, maps,
+    levels) on `device`, maps None when intra."""
+    rng = np.random.default_rng(seed)
+    gh, gw = h // 8, w // 8
+    planes = []
+    for c, k in enumerate((3, 2, 4)):
+        hh, ww = h >> (c > 0), w >> (c > 0)
+        yy, xx = np.mgrid[0:hh, 0:ww]
+        base = 120 + 40 * np.sin(xx / 9.0) * np.cos(yy / 7.0) \
+            + 8 * ((xx // 8 + yy // 8) % 2)
+        planes.append(torch.from_numpy(np.clip(
+            base + rng.integers(-k, k + 1, (frames, hh, ww)), 0, 255)
+            .astype(np.int32)).to(device))
+    depth = torch.from_numpy(rng.integers(0, 3, (frames, gh, gw))
+                             .astype(np.int32)).to(device)
+    lv = torch.from_numpy(((rng.random((frames, h, w)) < 0.004)
+                           * rng.integers(-2, 3, (frames, h, w)))
+                          .astype(np.int16)).to(device)
+    if not inter:
+        return planes, depth, None, lv
+    d = (rng.choice([0, 1, 1, 1, 2, 3], (frames, gh // 2 + 1, gw // 2 + 1))
+         .repeat(2, 1).repeat(2, 2)[:, :gh, :gw])
+    mv = (rng.integers(-1, 2, (frames, gh, gw, 4))
+          + 8 * (rng.random((frames, gh, gw, 1)) < 0.15))
+    rm = (rng.random((frames, gh, gw, 2)) < 0.1)
+    maps = dict(dir_map=torch.from_numpy(d.astype(np.int32)).to(device),
+                mv_map=torch.from_numpy(mv.astype(np.int32)).to(device),
+                ref_map=(torch.from_numpy(rm.astype(np.int32)).to(device)
+                         if ref else None))
+    return planes, depth, maps, lv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["intra", "pb", "pb_noref", "window",
+                                  "window_intra"])
+@pytest.mark.parametrize("frames,h,w", [(1, 72, 104), (8, 64, 96),
+                                        (1, 1080, 1920), (3, 136, 200)])
+def test_deblock_fused_kernel_matches_twin(cuda_device, form, frames, h, w):
+    """K6's one-launch form (with K6's CTU cbf pass on P/B pictures): bit
+    for bit its twin and the earlier two-launch form, intra, P/B with
+    every strength 0/1/2 present (with and without a reference map) and
+    the tile-column form (x0 = t*w - 8 on a plane extended by 8 columns
+    each side), frame counts 1-8, heights off the CTU grid; one launch a
+    call (two with the cbf pass), none of the earlier forms."""
+    planes, depth, maps, lv = _deblock_case(
+        frames, h, w, 60 + h + frames, cuda_device,
+        inter=form in ("pb", "pb_noref", "window"), ref=form == "pb")
+    kw = {}
+    if maps is not None:
+        before = dict(_build.LAUNCHES)
+        cbf = deblock.tu_cbf_ctu(lv, depth, 5)
+        assert _build.LAUNCHES["deblock_cbf_ctu"] == before.get(
+            "deblock_cbf_ctu", 0) + 1
+        assert torch.equal(cbf, deblock.tu_cbf(lv, depth, 5, plain=True))
+        kw = dict(maps, cbf=cbf)
+        bsv, _ = deblock.inter_bs_maps(depth, maps["dir_map"],
+                                       maps["mv_map"], cbf,
+                                       maps["ref_map"])
+        assert set(bsv.unique().tolist()) >= {0, 1, 2}
+    name = ("deblock_fused_window" if form.startswith("window")
+            else "deblock_fused" if form == "intra" else "deblock_fused_bs")
+    if form.startswith("window"):
+        kw.pop("ref_map", None)
+        kw.update(x0=w - 8, pic_w=4 * w)
+    qps = ([30 + k for k in range(frames)], [31] * frames,
+           [29 + k % 3 for k in range(frames)])
+    before = dict(_build.LAUNCHES)
+    got = deblock.deblock_fused(*planes, depth, *qps, 5, **kw)
+    after = dict(_build.LAUNCHES)
+    assert after.get(name, 0) == before.get(name, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want = deblock.deblock(*planes, depth, *qps, 5, plain=True, **kw)
+    earlier = deblock.deblock(*planes, depth, *qps, 5, **kw)
+    changed = 0
+    for a, b, c, src in zip(got, want, earlier, planes):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+        changed += int((a != src).sum())
+    assert changed > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,h,w,lg", [(1, 72, 104, 5), (8, 64, 96, 5),
+                                           (2, 1080, 1920, 5),
+                                           (2, 136, 200, 6),
+                                           (1, 40, 56, 4)])
+def test_deblock_cbf_ctu_kernel_matches_twin(cuda_device, frames, h, w, lg):
+    """K6's cbf pass a CTA a CTU: the twin's CU cbf bit for bit, on and off
+    the CTU grid (CUs that overflow it read 0), CTU 16-64."""
+    rng = np.random.default_rng(h * w + lg)
+    depth = torch.from_numpy(rng.integers(0, lg - 2, (frames, h // 8,
+                                                      w // 8))
+                             .astype(np.int32)).to(cuda_device)
+    lv = torch.from_numpy(((rng.random((frames, h, w)) < 0.002)
+                           * rng.integers(-3, 4, (frames, h, w)))
+                          .astype(np.int16)).to(cuda_device)
+    got = deblock.tu_cbf_ctu(lv, depth, lg)
+    want = deblock.tu_cbf(lv, depth, lg, plain=True)
+    assert torch.equal(got, want)
+    assert torch.equal(deblock.tu_cbf(lv, depth, lg), want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checksum", [True, False])
+@pytest.mark.parametrize("frames,h,w", [(1, 38, 56), (3, 72, 104),
+                                        (8, 64, 96), (1, 1080, 1920)])
+def test_cast_checksum_kernel_matches_twin(cuda_device, checksum, frames, h,
+                                           w):
+    """K8's cast form: the uint8 casts and checksums of its twin bit for
+    bit, with and without the checksum, at odd plane sizes, on contiguous
+    planes and on column slices of wider ones (the sharded route's
+    windows); one launch a call; the checksums equal the earlier form's."""
+    rng = np.random.default_rng(h + w + frames)
+    planes = [torch.from_numpy(rng.integers(0, 256, (frames, h >> (c > 0),
+                                                     w >> (c > 0)))
+                               .astype(np.int32)).to(cuda_device)
+              for c in range(3)]
+    wide = [torch.nn.functional.pad(p, (8 >> (c > 0), 8 >> (c > 0)),
+                                    value=7)
+            for c, p in enumerate(planes)]
+    views = [p[..., (8 >> (c > 0)):-(8 >> (c > 0))]
+             for c, p in enumerate(wide)]
+    name = "cast_checksum" if checksum else "cast"
+    for src in (planes, views):
+        before = dict(_build.LAUNCHES)
+        *got, ck = device_pipeline.cast_checksum(*src, checksum)
+        after = dict(_build.LAUNCHES)
+        assert after.get(name, 0) == before.get(name, 0) + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        *want, wck = device_pipeline.cast_checksum(*src, checksum,
+                                                   plain=True)
+        for a, b in zip(got, want):
+            assert a.is_contiguous() and torch.equal(a, b)
+        if checksum:
+            assert torch.equal(ck, wck)
+            assert torch.equal(ck, torch.stack(
+                [device_pipeline.device_checksum(p) for p in got], dim=1))
+        else:
+            assert ck is None and wck is None
 
 
 def _p_inputs(w, h, seed, device):
