@@ -137,8 +137,13 @@ _SIGNATURES = {
     "fhv_cnn_bwd_plan": [_I, _I, _P],
     # theta, grad, m, v, P, lr, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2, stream
     "fhv_adam": [_P] * 4 + [_I] + [_F] * 8 + [_P],
+    # x, qv, labels, theta, acts, logits, scratch, grad|NULL, m, v, bias
+    # table, row, B, log2_ctu, inv_n, lr, b1, 1 - b1, b2, 1 - b2, eps,
+    # stream
+    "fhv_cnn_bwd_adam": [_P] * 11 + [_I] * 3 + [_F] * 7 + [_P],
     # plane descriptors (int64), n planes, stream
     "fhv_halo": [_P, _I, _P],
+    "fhv_halo_rows": [_P, _I, _P],
 }
 
 _lib = None

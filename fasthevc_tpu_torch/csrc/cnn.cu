@@ -17,10 +17,20 @@
 // (softmax - onehot) / (B g g), then, layer by layer, each layer's weight
 // and bias gradients and the gradient of its input through the ReLU.
 //
-// K15 replaces `optax.adam(3e-3)`'s update of the same step: one
-// elementwise pass over the flat parameter, gradient and moment buffers,
-// each operation rounded as optax rounds it (no contraction into FMAs),
-// so it equals its twin bit for bit.
+// K15 replaces `optax.adam(3e-3)`'s update of the same step: each
+// operation rounded as optax rounds it (no contraction into FMAs), so it
+// equals its twin bit for bit.  Its first form is one elementwise launch
+// over the flat parameter, gradient and moment buffers (`fhv_adam`,
+// counter `adam`, which the training no longer launches).  The training
+// runs it inside K14's cooperative launch (`fhv_cnn_bwd_adam`, counter
+// `cnn_backward_adam`): the thread that finishes a gradient element (the
+// in-order sum of its slices, `reduce_layer`) applies the step to that
+// parameter and its moments in place, with the bias corrections read from
+// a [steps, 2] table uploaded once a training; the gradient itself is
+// written only when the caller asks.  A step moves 1.7 MB of parameters,
+// moments and gradient, half a microsecond at the card's rate; alone it
+// paid a launch of 239 CTAs and a host wrapper, and K14's gradient made a
+// round trip through device memory.  No barrier is added.
 //
 // Bound on the H100: K13 and K14 by f32 operations (about 2.46 MFLOP a
 // 32-CTU for the forward: 1.23 M multiply-adds, 1,200 a byte of luma read;
@@ -566,10 +576,33 @@ struct BwdArgs {
   const float* acts;    // [B][8 S^2] K13's saved post-ReLU activations
   const float* logits;  // [B][g][g][D]
   float* scr;           // bwd_plan's scratch
-  float* grad;          // [P]
+  float* grad;          // [P] (with ADAM: NULL unless the caller asks)
   int B;
   float inv_n;          // 1 / (B g g)
 };
+
+// K15's state and constants, for the form of K14 that applies the step
+struct AdamArgs {
+  float* theta;         // = BwdArgs::theta, updated in place
+  float* m;
+  float* v;
+  const float* bc;      // [steps][2] f32: 1 - b1^t, 1 - b2^t at t = row + 1
+  int row;
+  float lr, b1, omb1, b2, omb2, eps;
+};
+
+// optax.adam's update of one parameter th and its moments m, v at one
+// count, from its gradient g
+__device__ __forceinline__ void adam_step(float& th, float& m, float& v,
+                                          float g, float lr, float b1,
+                                          float omb1, float b2, float omb2,
+                                          float eps, float bc1, float bc2) {
+  m = __fadd_rn(__fmul_rn(m, b1), __fmul_rn(g, omb1));
+  v = __fadd_rn(__fmul_rn(v, b2), __fmul_rn(__fmul_rn(g, g), omb2));
+  const float u = __fdiv_rn(__fdiv_rn(m, bc1),
+                            __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), eps));
+  th = __fadd_rn(th, __fmul_rn(u, -lr));
+}
 
 // Layer l's weight-gradient items: slice s of its K, N-tile nt of TN
 // columns.  A[oc][k] = dz[b][oc][p] (k = (b - s KC) KPC + p), B[k][n] = the
@@ -662,21 +695,50 @@ __device__ void igrad_s2_item(float* sm, const BwdArgs& a, int cls,
       });
 }
 
-// grad[j] of layer l = the sum of its slices' partials, in slice order
+// grad[j] of layer l = the sum of its slices' partials, in slice order.
+// With ADAM the same thread then applies K15's step to parameter j and its
+// moments, in place.  That is race-free because every layer's weights are
+// last read before the grid barrier that precedes its reduce: W4 in stage
+// A, W3 in stage B (dz2), W2 in stage C (dz1) and W1 in stage D (dz0),
+// each reduced a stage later (C, C, D, E); W0 and the biases are never
+// read by the backward.  A reordering of the stages that breaks this must
+// write the new parameters to a second buffer instead.
+template <bool ADAM>
 __device__ void reduce_layer(const BwdPlan& P, const BwdArgs& a,
-                             const Layout& L, int l) {
+                             const AdamArgs& o, const Layout& L, int l) {
   const int wo[5] = {L.w0, L.w1, L.w2, L.w3, L.w4};
   const int bo[5] = {L.b0, L.b1, L.b2, L.b3, L.b4};
   const int ncol = P.nk[l] + 1;
   const float* part = a.scr + P.part[l];
+  float bc1 = 0.f, bc2 = 0.f;
+  if (ADAM) {
+    bc1 = o.bc[2 * o.row];
+    bc2 = o.bc[2 * o.row + 1];
+  }
   for (int j = blockIdx.x * kThreads + threadIdx.x; j < P.pl[l];
        j += gridDim.x * kThreads) {
+    const int oc = j / ncol, n = j - oc * ncol;
+    const int at = n < P.nk[l] ? wo[l] + oc * P.nk[l] + n : bo[l] + oc;
+    // the step's operands, loaded before the sum so that their latency
+    // overlaps the partials'
+    float th = 0.f, m = 0.f, v = 0.f;
+    if (ADAM) {
+      th = o.theta[at];
+      m = o.m[at];
+      v = o.v[at];
+    }
     float acc = 0.f;
 #pragma unroll 8
     for (int s = 0; s < P.ns[l]; ++s)
       acc = __fadd_rn(acc, part[(long long)s * P.pl[l] + j]);
-    const int oc = j / ncol, n = j - oc * ncol;
-    a.grad[n < P.nk[l] ? wo[l] + oc * P.nk[l] + n : bo[l] + oc] = acc;
+    if (!ADAM || a.grad != nullptr) a.grad[at] = acc;
+    if (ADAM) {
+      adam_step(th, m, v, acc, o.lr, o.b1, o.omb1, o.b2, o.omb2, o.eps, bc1,
+                bc2);
+      o.theta[at] = th;
+      o.m[at] = m;
+      o.v[at] = v;
+    }
   }
 }
 
@@ -685,9 +747,11 @@ __device__ void reduce_layer(const BwdPlan& P, const BwdArgs& a,
 // Conv_3's weight-gradient slices and dz2 (Conv_3's input gradient, over
 // a2 > 0); C the sums of B's slices, Conv_2's slices and dz1; D Conv_2's
 // sums, Conv_1's slices and dz0; E Conv_1's sums and Conv_0's slices; F
-// Conv_0's sums.  Each stage's items (GEMM tiles) go round the grid.
-template <int LG>
-__global__ void __launch_bounds__(kThreads, 2) cnn_bwd_kernel(BwdArgs a) {
+// Conv_0's sums.  Each stage's items (GEMM tiles) go round the grid.  With
+// ADAM each sum stage also applies K15's step (`reduce_layer`).
+template <int LG, bool ADAM>
+__global__ void __launch_bounds__(kThreads, 2)
+    cnn_bwd_kernel(BwdArgs a, AdamArgs o) {
   namespace cg = cooperative_groups;
   constexpr int S = 1 << LG, S2 = S * S, H1 = S / 2, H2 = S / 4, G = S / 8;
   constexpr int GG = G * G, D = LG - 2;
@@ -803,8 +867,8 @@ __global__ void __launch_bounds__(kThreads, 2) cnn_bwd_kernel(BwdArgs a) {
 
   // C: Conv_4's and Conv_3's sums; dz1 (4 parity classes x M-tiles of 32),
   // Conv_2's slices (5 N-tiles of 64)
-  reduce_layer(P, a, L, 4);
-  reduce_layer(P, a, L, 3);
+  reduce_layer<ADAM>(P, a, o, L, 4);
+  reduce_layer<ADAM>(P, a, o, L, 3);
   {
     const int mt = (B * GG + 31) / 32;
     const int n_w2 = P.ns[2] * ((P.nk[2] + 64) / 64);
@@ -827,7 +891,7 @@ __global__ void __launch_bounds__(kThreads, 2) cnn_bwd_kernel(BwdArgs a) {
 
   // D: Conv_2's sums; dz0 (4 classes x M-tiles of 64), Conv_1's slices
   // (3 N-tiles of 64)
-  reduce_layer(P, a, L, 2);
+  reduce_layer<ADAM>(P, a, o, L, 2);
   {
     const int mt = (B * H2 * H2 + 63) / 64;
     const int n_w1 = P.ns[1] * ((P.nk[1] + 64) / 64);
@@ -849,7 +913,7 @@ __global__ void __launch_bounds__(kThreads, 2) cnn_bwd_kernel(BwdArgs a) {
   grid.sync();
 
   // E: Conv_1's sums; Conv_0's slices (one CTU each)
-  reduce_layer(P, a, L, 1);
+  reduce_layer<ADAM>(P, a, o, L, 1);
   for (int it = blockIdx.x; it < P.ns[0]; it += gridDim.x)
     wgrad_item<16, 16, 1, 1, H1 * H1>(sm, P, a, 0, dz0, it,
                                       [&](int b, int p, int n) {
@@ -859,10 +923,10 @@ __global__ void __launch_bounds__(kThreads, 2) cnn_bwd_kernel(BwdArgs a) {
   grid.sync();
 
   // F: Conv_0's sums
-  reduce_layer(P, a, L, 0);
+  reduce_layer<ADAM>(P, a, o, L, 0);
 }
 
-// K15: optax.adam's update at one count, in place
+// K15's first form: optax.adam's update at one count, in place
 __global__ void adam_kernel(float* __restrict__ theta,
                             const float* __restrict__ grad,
                             float* __restrict__ m, float* __restrict__ v,
@@ -870,15 +934,11 @@ __global__ void adam_kernel(float* __restrict__ theta,
                             float omb2, float eps, float bc1, float bc2) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= P) return;
-  const float gj = grad[j];
-  const float mj = __fadd_rn(__fmul_rn(m[j], b1), __fmul_rn(gj, omb1));
-  const float vj =
-      __fadd_rn(__fmul_rn(v[j], b2), __fmul_rn(__fmul_rn(gj, gj), omb2));
-  const float u = __fdiv_rn(__fdiv_rn(mj, bc1),
-                            __fadd_rn(__fsqrt_rn(__fdiv_rn(vj, bc2)), eps));
+  float th = theta[j], mj = m[j], vj = v[j];
+  adam_step(th, mj, vj, grad[j], lr, b1, omb1, b2, omb2, eps, bc1, bc2);
   m[j] = mj;
   v[j] = vj;
-  theta[j] = __fadd_rn(theta[j], __fmul_rn(u, -lr));
+  theta[j] = th;
 }
 
 template <int LG, int T>
@@ -904,16 +964,30 @@ int launch_fwd(const void* plane, int dtype, const float* qv, float qp,
 // The backward's grid on the current device: its occupancy (at most two
 // CTAs an SM) times its SMs, read on every call (a mesh's ranks may sit on
 // different cards).  0 if the kernel cannot run there.
-template <int LG>
+template <int LG, bool ADAM>
 int bwd_grid() {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, cnn_bwd_kernel<LG>, kThreads, 0) != cudaSuccess)
+          &per_sm, cnn_bwd_kernel<LG, ADAM>, kThreads, 0) != cudaSuccess)
     return 0;
   return (per_sm < 2 ? per_sm : 2) * sms;
+}
+
+template <bool ADAM>
+int launch_bwd(const BwdArgs& a, const AdamArgs& o, int log2_ctu,
+               cudaStream_t stream) {
+  const int grid = log2_ctu == 5 ? bwd_grid<5, ADAM>() : bwd_grid<6, ADAM>();
+  if (grid <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  BwdArgs ca = a;
+  AdamArgs co = o;
+  void* args[] = {&ca, &co};
+  const void* kernel = log2_ctu == 5 ? (const void*)cnn_bwd_kernel<5, ADAM>
+                                     : (const void*)cnn_bwd_kernel<6, ADAM>;
+  return (int)cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, 0,
+                                          stream);
 }
 
 }  // namespace
@@ -948,7 +1022,7 @@ extern "C" int fhv_cnn_bwd_plan(int B, int log2_ctu, long long* out) {
   if (B <= 0 || (log2_ctu != 5 && log2_ctu != 6))
     return (int)cudaErrorInvalidValue;
   out[0] = bwd_plan(log2_ctu, B).total;
-  out[1] = log2_ctu == 5 ? bwd_grid<5>() : bwd_grid<6>();
+  out[1] = log2_ctu == 5 ? bwd_grid<5, false>() : bwd_grid<6, false>();
   out[2] = kStages;
   return 0;
 }
@@ -961,13 +1035,26 @@ extern "C" int fhv_cnn_bwd(const float* x, const float* qv, const int* labels,
   if (B <= 0) return 0;
   if (log2_ctu != 5 && log2_ctu != 6) return (int)cudaErrorInvalidValue;
   BwdArgs a{x, qv, labels, theta, acts, logits, scratch, grad, B, inv_n};
-  void* args[] = {&a};
-  const int grid = log2_ctu == 5 ? bwd_grid<5>() : bwd_grid<6>();
-  if (grid <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const void* kernel = log2_ctu == 5 ? (const void*)cnn_bwd_kernel<5>
-                                     : (const void*)cnn_bwd_kernel<6>;
-  return (int)cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, 0,
-                                          stream);
+  return launch_bwd<false>(a, AdamArgs{}, log2_ctu, stream);
+}
+
+// K14 with K15's step at row `row` of the bias-correction table bc
+// ([steps][2] f32) applied in its sums: theta, m and v updated in place;
+// grad (NULL: not written) receives the gradient when the caller asks
+extern "C" int fhv_cnn_bwd_adam(const float* x, const float* qv,
+                                const int* labels, float* theta,
+                                const float* acts, const float* logits,
+                                float* scratch, float* grad, float* m,
+                                float* v, const float* bc, int row, int B,
+                                int log2_ctu, float inv_n, float lr, float b1,
+                                float omb1, float b2, float omb2, float eps,
+                                cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if ((log2_ctu != 5 && log2_ctu != 6) || row < 0)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a{x, qv, labels, theta, acts, logits, scratch, grad, B, inv_n};
+  AdamArgs o{theta, m, v, bc, row, lr, b1, omb1, b2, omb2, eps};
+  return launch_bwd<true>(a, o, log2_ctu, stream);
 }
 
 extern "C" int fhv_adam(float* theta, const float* grad, float* m, float* v,

@@ -7,8 +7,9 @@ so a file written by either package loads in the other
 (`params_from_flax` / `params_to_flax` turn the flax layout into this
 package's `PartitionCNN` and back).  Inference (`predict_depth_maps*`)
 and training (`train_self_distilled`) run the kernels of `ops/cnn.py`:
-K13 (the forward, fused into the searches), K14 (the backward) and K15
-(the Adam step); CPU tensors run their twins.
+K13 (the forward, fused into the searches; its training mode), and K14
+with K15's Adam step applied in its sums (`cnn.train_step`); CPU tensors
+run their twins.
 """
 
 from __future__ import annotations
@@ -180,23 +181,31 @@ def distillation_targets(clips, qps, log2_ctu: int, device) -> tuple:
 
 def train_self_distilled(clips=None, qps=(27, 32, 37), log2_ctu: int = 5,
                          steps: int = 300, seed: int = 0, log=print,
-                         device="cuda") -> dict:
+                         device="cuda", targets=None) -> dict:
     """Self-distillation: full-RDO search decisions -> CNN targets.
 
     clips: list of (y, cb, cr) frames; synthesized when None.  The
     targets are the port's own intra search on each CTU-cropped luma
     plane; batches of 64 CTUs are drawn as the reference draws them
-    (np.random.default_rng(seed)), and each step is K13's training mode,
-    K14 and K15 on the card (their twins on the CPU).  Returns the
-    parameters as the flax tree, which `save_params` writes for either
+    (np.random.default_rng(seed), all steps' draws uploaded at once), and
+    each step is `cnn.train_step`: on the card two launches, K13's
+    training mode and K14 with K15's step inside, the bias corrections
+    from a table uploaded once (their twins on the CPU).  The loss and
+    accuracy, which the reference computes every step but only prints,
+    are computed at the logging steps (every 100).  targets: (x, t, q) as
+    `distillation_targets` returns them for these clips, qps and CTU size,
+    to train on without searching again; None runs the search.  Returns
+    the parameters as the flax tree, which `save_params` writes for either
     package."""
     from ..utils.video import synthesize_yuv
 
     dev = torch.device(device)
     ctu = 1 << log2_ctu
-    if clips is None:
-        clips = synthesize_yuv(8 * ctu, 4 * ctu, 8, seed=seed)
-    x, t, q = distillation_targets(clips, qps, log2_ctu, dev)
+    if targets is None:
+        if clips is None:
+            clips = synthesize_yuv(8 * ctu, 4 * ctu, 8, seed=seed)
+        targets = distillation_targets(clips, qps, log2_ctu, dev)
+    x, t, q = targets
     log(f"partition-cnn: {x.shape[0]} CTU samples, "
         f"depth histogram {np.bincount(t.ravel(), minlength=3).tolist()}")
 
@@ -209,15 +218,19 @@ def train_self_distilled(clips=None, qps=(27, 32, 37), log2_ctu: int = 5,
     td = torch.from_numpy(t).to(dev)
     rng = np.random.default_rng(seed)
     bsz = min(64, x.shape[0])
+    # one draw a step, as the reference draws them; np.array, not np.stack,
+    # so that steps=0 returns the initial parameters
+    draws = np.array([rng.integers(0, x.shape[0], bsz)
+                      for _ in range(steps)], np.int64).reshape(steps, bsz)
+    idx_all = torch.from_numpy(draws).to(dev)
+    table = cnn.adam_bias_table(max(steps, 1), dev)
     for i in range(steps):
-        idx = torch.from_numpy(rng.integers(0, x.shape[0], bsz)).to(dev)
+        idx = idx_all[i]
         tb = td[idx]
-        theta.requires_grad_(True)
-        loss, logits = cnn.cnn_loss(theta, xd[idx], qd[idx], tb)
-        grad, = torch.autograd.grad(loss, theta)
-        theta = theta.detach()
-        cnn.adam_update(theta, grad, m, v, i + 1, 3e-3)
+        logits = cnn.train_step(theta, m, v, xd[idx], qd[idx], tb, i + 1,
+                                table, 3e-3)
         if (i + 1) % 100 == 0:
+            loss = cnn._ce(logits, tb)
             acc = (torch.argmax(logits, -1) == tb).to(torch.float32).mean()
             log(f"  step {i+1}: loss {loss.item():.4f} acc {acc.item():.3f}")
     return params_to_flax(PartitionCNN.from_flat(theta, log2_ctu - 2))

@@ -24,9 +24,16 @@ The parameters travel as one flat f32 buffer `theta`: Conv_0 kernel
     is K14 (softmax - onehot, then each layer's input and weight
     gradients as tiled GEMMs over the batch, one cooperative launch);
     `cnn_loss_plain` is autograd through the conv2d chain.
-  * `adam_update` (K15): optax.adam's step, in place over the flat
-    parameter, gradient and moment buffers; `adam_update_plain` is
-    optax's formula in torch ops.
+  * `adam_update` (K15's first form): optax.adam's step, in place over
+    the flat parameter, gradient and moment buffers; `adam_update_plain`
+    is optax's formula in torch ops.
+  * `train_step` (what `train_self_distilled` runs): K13's training mode,
+    then `cnn_backward_adam`, K14 with K15's step applied in its sums (one
+    cooperative launch, counter `cnn_backward_adam`), the bias corrections
+    read from `adam_bias_table`, uploaded once a training; on the CPU
+    autograd through the conv2d chain and `adam_update_plain`'s formula.
+    `cnn_loss`, `cnn_backward` and `adam_update` stay callable and
+    tested; the training no longer launches them.
 
 CUDA tensors launch the kernels (no fallback: a failed build or launch
 raises); CPU tensors run the twins.  No f32 product here goes through
@@ -367,6 +374,15 @@ def _bias_corrections(step: int) -> tuple:
             float(np.float32(1) - np.float32(ADAM_B2) ** t))
 
 
+def adam_bias_table(steps: int, device) -> torch.Tensor:
+    """[steps, 2] f32 on `device`: row t - 1 holds `_bias_corrections(t)`,
+    the table the fused step reads (computed once a training, in numpy's
+    f32 as optax computes them)."""
+    table = np.array([_bias_corrections(t) for t in range(1, steps + 1)],
+                     np.float32).reshape(steps, 2)
+    return _build.upload(torch.from_numpy(table), torch.device(device))
+
+
 def adam_update_plain(theta, grad, m, v, step: int, lr: float) -> None:
     """K15's twin: optax.adam(lr)'s update at count `step` (1-based), in
     place: m = (1 - b1) g + b1 m; v = (1 - b2) g^2 + b2 v; theta +=
@@ -375,6 +391,12 @@ def adam_update_plain(theta, grad, m, v, step: int, lr: float) -> None:
     # division by a host scalar multiplies by its reciprocal instead
     bc1, bc2 = (torch.tensor(b, dtype=torch.float32, device=theta.device)
                 for b in _bias_corrections(step))
+    _adam_plain(theta, grad, m, v, bc1, bc2, lr)
+
+
+def _adam_plain(theta, grad, m, v, bc1, bc2, lr: float) -> None:
+    """`adam_update_plain` with its bias corrections given as 0-dim f32
+    tensors."""
     f32 = np.float32
     m.mul_(f32(ADAM_B1)).add_(grad * f32(1 - ADAM_B1))
     v.mul_(f32(ADAM_B2)).add_(grad * grad * f32(1 - ADAM_B2))
@@ -395,8 +417,75 @@ def adam_update(theta, grad, m, v, step: int, lr: float,
     bc1, bc2 = _bias_corrections(step)
     rc = _build.lib().fhv_adam(
         theta.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
-        theta.numel(), float(lr), ADAM_B1, float(np.float32(1 - ADAM_B1)),
-        ADAM_B2, float(np.float32(1 - ADAM_B2)), ADAM_EPS, bc1, bc2,
+        theta.numel(), *_adam_consts(lr), bc1, bc2,
         _build.stream_handle(theta))
     _build.launched("adam")
     _build.check(rc, "adam")
+
+
+def _adam_consts(lr: float) -> tuple:
+    """K15's f32 constants: lr, b1, 1 - b1, b2, 1 - b2, eps."""
+    return (float(np.float32(lr)), ADAM_B1, float(np.float32(1 - ADAM_B1)),
+            ADAM_B2, float(np.float32(1 - ADAM_B2)), ADAM_EPS)
+
+
+def cnn_backward_adam(x, q, labels, theta, acts, logits, m, v, step: int,
+                      bias_table: torch.Tensor, lr: float,
+                      want_grad: bool = False):
+    """K14 with K15's step in its sums, one cooperative launch: theta, m
+    and v get optax.adam(lr)'s update at count `step` (1-based; its bias
+    corrections from row step - 1 of `adam_bias_table`) from the gradient
+    `cnn_backward` computes, in place, bit for bit as `cnn_backward` then
+    `adam_update`.  Returns the gradient [P] when `want_grad`, else None
+    (then it is never written to device memory).  x, q, labels, acts and
+    logits as `cnn_backward`'s (f32 / int32, contiguous); theta, m, v
+    contiguous f32 on the card."""
+    bsz, s, _ = x.shape
+    lg = s.bit_length() - 1
+    d = _depths(theta, lg)
+    _build.require_cuda("cnn_backward_adam", x, q, theta, acts, logits, m, v,
+                        bias_table, dtype=torch.float32)
+    _build.require_cuda("cnn_backward_adam", labels, dtype=torch.int32)
+    g = s >> 3
+    if (labels.shape != (bsz, g, g) or logits.shape != (bsz, g, g, d)
+            or not theta.shape == m.shape == v.shape
+            or not 1 <= step <= bias_table.shape[0]):
+        raise ValueError("cnn_backward_adam: labels [B, S/8, S/8], logits "
+                         "[B, S/8, S/8, D], theta, m and v of one shape, "
+                         "1 <= step <= the bias table's rows")
+    scratch = torch.empty(_bwd_scratch(bsz, lg), dtype=torch.float32,
+                          device=x.device)
+    grad = torch.empty_like(theta) if want_grad else None
+    inv_n = float(np.float32(1.0) / np.float32(bsz * g * g))
+    rc = _build.lib().fhv_cnn_bwd_adam(
+        x.data_ptr(), q.data_ptr(), labels.data_ptr(), theta.data_ptr(),
+        acts.data_ptr(), logits.data_ptr(), scratch.data_ptr(),
+        None if grad is None else grad.data_ptr(), m.data_ptr(),
+        v.data_ptr(), bias_table.data_ptr(), step - 1, bsz, lg, inv_n,
+        *_adam_consts(lr), _build.stream_handle(x))
+    _build.launched("cnn_backward_adam")
+    _build.check(rc, "cnn_backward_adam")
+    return grad
+
+
+def train_step(theta, m, v, x, q, labels, step: int,
+               bias_table: torch.Tensor, lr: float) -> torch.Tensor:
+    """One step of `train_self_distilled` on flat f32 buffers, in place:
+    optax.adam(lr) at count `step` (bias corrections from row step - 1 of
+    `bias_table`) on the gradient of the mean cross-entropy of the batch x
+    [B, S, S] (normalised CTUs), q [B] qps, labels [B, S/8, S/8] int32.
+    Returns the batch's logits [B, S/8, S/8, D] (for the loss and accuracy
+    at the logging steps).  CUDA tensors: K13's training mode, then K14
+    with K15 inside (two launches, no autograd); CPU tensors: autograd
+    through the conv2d chain and K15's twin."""
+    if not x.is_cuda:
+        th = theta.detach().requires_grad_(True)
+        loss, logits = cnn_loss_plain(th, x, q, labels)
+        grad, = torch.autograd.grad(loss, th)
+        _adam_plain(theta, grad, m, v, bias_table[step - 1, 0],
+                    bias_table[step - 1, 1], lr)
+        return logits.detach()
+    logits, acts = cnn_train_forward(x, q, theta)
+    cnn_backward_adam(x, q, labels, theta, acts, logits, m, v, step,
+                      bias_table, lr)
+    return logits

@@ -1255,6 +1255,50 @@ def test_adam_kernel_matches_twin(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lg", [5, 6])
+@pytest.mark.parametrize("bsz", [1, 64, 320])
+def test_cnn_backward_adam_matches_backward_then_adam(cuda_device, lg, bsz):
+    """K14 with K15's step in its sums (one cooperative launch) against
+    `cnn_backward` then `adam_update` from the same parameters and
+    moments, at counts 1 and 7: theta, m, v and the gradient (when asked
+    for) bit for bit.  The fused launch reads each layer's weights before
+    it updates them in place, so its gradient is the pre-step one."""
+    ctu = 1 << lg
+    rng = np.random.default_rng(100 + lg + bsz)
+    x = cnn.ctu_batch(_cnn_planes(lg, 1, cuda_device), ctu)[:bsz, 0]
+    x = x.contiguous()
+    q = torch.from_numpy(rng.integers(22, 38, bsz).astype(np.float32)).to(
+        cuda_device)
+    t = torch.from_numpy(rng.integers(0, lg - 2, (bsz, ctu // 8, ctu // 8))
+                         .astype(np.int32)).to(cuda_device)
+    theta = init_params(torch.Generator().manual_seed(lg), lg,
+                        cuda_device).flat_params()
+    n = theta.numel()
+    m = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                         * 1e-3).to(cuda_device)
+    v = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-6).to(
+        cuda_device)
+    logits, acts = cnn.cnn_train_forward(x, q, theta)
+    table = cnn.adam_bias_table(7, cuda_device)
+    before = _build.LAUNCHES["cnn_backward_adam"]
+    for step in (1, 7):
+        grad = cnn.cnn_backward(x, q, t, theta, acts, logits)
+        want = [b.clone() for b in (theta, m, v)]
+        cnn.adam_update(*want[:1], grad, *want[1:], step, 3e-3)
+        for want_grad in (True, False):
+            got = [b.clone() for b in (theta, m, v)]
+            g = cnn.cnn_backward_adam(x, q, t, got[0], acts, logits, got[1],
+                                      got[2], step, table, 3e-3,
+                                      want_grad=want_grad)
+            assert (g is None) != want_grad
+            if want_grad:
+                assert torch.equal(g, grad)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    assert _build.LAUNCHES["cnn_backward_adam"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg", [5, 6])
 @pytest.mark.parametrize("n_ctus", [1, 64, 320])
 def test_cnn_configurations_agree_and_match_twin(cuda_device, monkeypatch,
                                                  lg, n_ctus):
@@ -1343,22 +1387,88 @@ def _halo_planes(seed, dev):
              for s, t in shapes] for _ in range(3)]
 
 
+# The mesh's exchanges at an interior rank of a 96-column tile (1080p
+# tiles are 480): (shape, dtype, wl, wr, own) of the intra source exchange
+# (uint8, a CTU left and two right), the ME halo (128 / 64 columns), the
+# decimated planes (32 int32 columns), the deblocking's recon (8 / 4 int32
+# columns) and maps (1 and 4 int32 columns), SAO's 1-column strips
+# (own=False), and uint8 / int16 planes whose rows start off any 16-byte
+# boundary (a 93-column plane, 16-byte-unaligned segments)
+MESH_HALOS = [((1, 64, 96), np.uint8, 32, 64, True),
+              ((1, 32, 48), np.uint8, 16, 32, True),
+              ((1, 64, 160), np.uint8, 128, 128, True),
+              ((1, 32, 80), np.uint8, 64, 64, True),
+              ((1, 2, 16, 40), np.int32, 32, 32, True),
+              ((1, 64, 96), np.int32, 8, 8, True),
+              ((1, 32, 48), np.int32, 4, 4, True),
+              ((1, 8, 12), np.int32, 1, 1, True),
+              ((1, 8, 48), np.int32, 4, 4, True),
+              ((1, 64, 96), np.int32, 1, 1, False),
+              ((1, 64, 93), np.uint8, 19, 37, True),
+              ((2, 8, 45), np.int16, 7, 11, True)]
+
+
+def _unaligned(rng, shape, dtype, dev, skew):
+    """A contiguous plane whose data starts `skew` elements into its
+    storage."""
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.integers(0, 200, n + skew).astype(dtype))
+    return flat.to(dev)[skew:].view(shape)
+
+
 @pytest.mark.cuda
 def test_halo_kernel_matches_twin(cuda_device):
-    """K16: every edge case of a row (both neighbours, each bound alone)
-    and the packed send buffers, element sizes 1, 2 and 4."""
+    """K16's row form and its earlier form: every edge case of a row (both
+    neighbours, each bound alone) and the packed send buffers, element
+    sizes 1, 2 and 4; the mesh's real widths and element sizes, planes
+    whose segments sit off 16-byte boundaries, and more planes than one
+    launch takes (20: two launches)."""
     own, left, right = _halo_planes(80, cuda_device)
     wl, wr = [8, 4, 1, 4], [16, 8, 1, 4]
-    before = _build.LAUNCHES["halo"]
-    for lt, rt in ((left, right), ([None] * 4, right), (left, [None] * 4)):
-        got = halo.halo_extend(own, lt, rt, wl, wr)
-        want = halo.halo_extend(own, lt, rt, wl, wr, plain=True)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    for a, b in zip(halo.halo_pack(own, wl, wr),
-                    halo.halo_pack(own, wl, wr, plain=True)):
-        assert torch.equal(a, b)
-    assert _build.LAUNCHES["halo"] == before + 4
+    rng = np.random.default_rng(81)
+    mesh = [[_unaligned(rng, s, t, cuda_device, k * (3 + i))
+             for i, (s, t, *_) in enumerate(MESH_HALOS)] for k in range(3)]
+    mesh_own = [m[-1] for m in MESH_HALOS]
+    many = [_unaligned(rng, (1, 16, 24 + k), (np.uint8, np.int32)[k % 2],
+                       cuda_device, k % 5) for k in range(60)]
+    many = [many[0:20], many[20:40], many[40:60]]
+    mw, mr = [1 + k % 13 for k in range(20)], [1 + k % 7 for k in range(20)]
+    counts = {}
+    for form, extend, pack in (
+            ("halo_rows", halo.halo_extend, halo.halo_pack),
+            ("halo", halo.halo_extend_by_element,
+             halo.halo_pack_by_element)):
+        before = _build.LAUNCHES[form]
+        for planes, w_l, w_r in ((own, wl, wr), (many[0], mw, mr)):
+            lt_all, rt_all = ((left, right) if planes is own
+                              else (many[1], many[2]))
+            n = len(planes)
+            for lt, rt in ((lt_all, rt_all), ([None] * n, rt_all),
+                           (lt_all, [None] * n)):
+                got = extend(planes, lt, rt, w_l, w_r)
+                want = halo.halo_extend(planes, lt, rt, w_l, w_r, plain=True)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+            for a, b in zip(pack(planes, w_l, w_r),
+                            halo.halo_pack(planes, w_l, w_r, plain=True)):
+                assert torch.equal(a, b)
+        for keep in (True, False):
+            sel = [i for i, o in enumerate(mesh_own) if o == keep]
+            planes = [mesh[0][i] for i in sel]
+            w_l = [MESH_HALOS[i][2] for i in sel]
+            w_r = [MESH_HALOS[i][3] for i in sel]
+            for lt, rt in (([mesh[1][i] for i in sel],
+                            [mesh[2][i] for i in sel]),
+                           ([None] * len(sel), [mesh[2][i] for i in sel])):
+                got = extend(planes, lt, rt, w_l, w_r, own=keep)
+                want = halo.halo_extend(planes, lt, rt, w_l, w_r, plain=True,
+                                        own=keep)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+        counts[form] = _build.LAUNCHES[form] - before
+    # own: 3 extends + a pack; 20 planes: 3 extends + a pack of 40 strips,
+    # two launches each but the pack's three; the mesh sets: 4 extends
+    assert counts == {"halo_rows": 4 + 9 + 4, "halo": 4 + 9 + 4}
 
 
 @pytest.mark.cuda
