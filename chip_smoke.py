@@ -10,6 +10,10 @@
                                        # forms, device-to-device copies)
     python3 chip_smoke.py --profile-mesh [--root DIR]
                                        # only phase 16's cases, profiled
+    python3 chip_smoke.py --bench-twin [--root DIR]
+                                       # the wall of K5's twin (phases 2a
+                                       # and 2b's inputs) and of the 1080p
+                                       # twin-route encodes, alone
     python3 chip_smoke.py --bench-kernels [--root DIR]
                                        # K16, the training step and its
                                        # 400-step loop, K9's integer
@@ -197,11 +201,9 @@ Phases (any failure raises, and the script exits non-zero):
      Y-PSNR printed beside the full search's, each requiring K13 and its
      route's kernels; one 1080p all-intra fast-partition stream of 8
      frames with K13 and with the conv2d chain in its place, compared
-     byte for byte, with K13's depth flips on those frames; then config 4
-     itself (416x240, 4 frames, QP 22, 27, 32 and 37, full vs fast,
-     every stream hash-clean) and its BD-rate by
-     the port's utils.bd_rate, printed against the 2% gate as a
-     measurement; and 416x240 fast-partition streams (all-intra and random
+     byte for byte, with K13's depth flips on those frames (config 4
+     itself runs in phase 18d); and 416x240 fast-partition streams
+     (all-intra and random
      access with the trained CNN, the CTU-64 pipelined route with a seeded
      CTU-64 CNN) through the kernels on the card and through the twins on
      the CPU: identical, hash-clean;
@@ -232,7 +234,34 @@ Phases (any failure raises, and the script exits non-zero):
  17. BASELINE config 5 through parallel.multiproc.gop_parallel_encode_check:
      3840x2160, 16 frames, 2 processes on the card, tiles 2x2, intra
      period 8: the concatenated stream must equal one process's byte for
-     byte, both fps printed; its decode runs in the config5-decode jobs;
+     byte, both fps printed; its decode runs in the config5-decode jobs
+     (this phase calls gop_parallel_encode_check itself, with
+     decode=False: evaluate's config 5 decodes the whole 4K stream in the
+     pure-Python SpecDecoder, which would not fit the run's time limit);
+ 18. the CLIs and the GOP journal (cli/, codec/journal.py):
+     a. the encode CLI in process (cli.encode.main) on phase 3's 16 timed
+        frames, written to a planar YUV file: 1080p all-intra QP 32,
+        phase 3's tiles, hash type 2, --metrics and --recon; its stream
+        must equal TorchEncoder(_ai_cfg(16))'s byte for byte, its recon
+        file that encode's recons, and its launches every kernel of
+        INTRA_ROUTE and none of UNLAUNCHED; its SUMMARY line (fps)
+        printed beside the card's name and power limit;
+     b. (the cli-processes job) `python -m fasthevc_tpu_torch.cli.encode
+        --synth 416x240 --frames 8 --preset low_delay_p` with --recon on
+        the card, then `python -m fasthevc_tpu_torch.cli.decode`, which
+        must exit 0, print hash OK and write the recon's YUV; and a
+        416x240 encode with --profile, which must leave a non-empty
+        trace;
+     c. the journal on the 1080p low-delay P device route, intra period
+        8, synthesize_yuv(1920, 1080, 16, seed=5): encode_journaled over
+        12 frames, a garbage tail appended, then resumed over all 16: the
+        stream must equal an uninterrupted TorchEncoder encode byte for
+        byte; the resume point and both byte counts printed;
+     d. (the config1 and config4 jobs) evaluate.config1() in full
+        (416x240, 8 frames, decode-verified) and evaluate.config4 with
+        phase 12's parameters (416x240, 4 frames, QP 22, 27, 32 and 37,
+        full vs fast, every stream hash-clean), its BD-rate by the port's
+        utils.bd_rate printed against the 2% gate as a measurement;
  and the classic_small jobs: 416x240 streams of this slice's paths
      (random access at CTU 64, which needs K12; low-delay P at CTU 64 with
      a seeded CTU-64 CNN under fast_partition; weighted prediction on a
@@ -240,10 +269,11 @@ Phases (any failure raises, and the script exits non-zero):
      FASTHEVC_FORCE_CLASSIC; HRD on the random-access device route; rate
      control on the all-intra device route) through the kernels on the
      card, through the twins on the card and through the twins on the
-     CPU: identical, hash-clean; the sharded-small job: the dry run's two
-     configurations on 8 in-process ranks through the kernels on the card,
-     the twins on the card and the twins on the CPU, identical and each
-     equal to the single-device route, hash-clean; and the mesh-decode and
+     CPU: identical, hash-clean; the sharded-small jobs: the dry run's
+     two configurations on 8 in-process ranks through the kernels on the
+     card, the twins on the card and the twins on the CPU (a job each),
+     identical and each equal to the single-device route, hash-clean; and
+     the mesh-decode and
      config5-decode jobs: in SpecDecoder, the whole IDR+P+B stream of
      phase 16 (all 6 pictures, one decoder pass), the IDR and first P of
      each segment of the all-intra and low-delay P streams (pictures 0-1;
@@ -251,13 +281,15 @@ Phases (any failure raises, and the script exits non-zero):
      and first P) decode hash-clean.
 
 Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10),
-the training (12), the timed fast-partition encodes (13) and phases 14
-and 15, then 16 and 17, alone on the card; then every check that runs
-twins (K5's twins of phase 2, phases 4, 5, 6's 416x240 check, 8, 9, 11,
-13's 416x240 checks, classic_small and sharded-small), config 4 and the
+the training (12), the timed fast-partition encodes (13), phases 14, 15,
+18a and 18c, alone on the card, then 16 and 17 (the decodes of their
+streams start as each is written); then every check that runs twins
+(K5's twins of phase 2, phases 4, 5, 6's 416x240 check, 8, 9, 11, 13's
+416x240 checks, classic_small and sharded-small), 18b, 18d and the
 decodes of phases 16 and 17 as JOBS, each a process of its own
 (`chip_smoke.py --job NAME`), all at once: the twins are bound by the
-host's Python and launches, so they overlap.
+host's Python and launches, so they overlap.  Each job's start, end and
+length are printed as it ends.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -346,7 +378,6 @@ CNN_TOL = 1e-4
 CNN_BATCH = 64           # train_self_distilled's batch of CTUs
 K14_PAIRS = 41           # phase 2d: K14 and autograd through the chain
 BENCH_ENCODES = 5        # --bench-kernels: timed encodes of each route
-CNN_QPS = (22, 27, 32, 37)   # config 4's rate points (cli/evaluate.py QPS)
 CNN_STEP_PAIRS = 41      # phase 2d: the fused step and K14 + K15 in turns
 HALO_TURNS = 41          # phase 2f: K16's two forms and its twin in turns
 META = {
@@ -2920,43 +2951,197 @@ def phase_cnn_stream(torch, params) -> None:
 
 
 def job_config4(torch) -> dict:
-    """BASELINE config 4 (fasthevc_tpu/cli/evaluate.py:136-163) on the
-    card: 416x240, 4 frames, the rate points of CNN_QPS with the full
-    search and with the trained CNN, every stream hash-clean; the BD-rate
-    of fast against full by the port's utils.bd_rate."""
-    from fasthevc_tpu_torch.config import EncoderConfig
-    from fasthevc_tpu_torch.models import load_params
-    from fasthevc_tpu_torch.utils import (bd_rate, psnr, synthesize_yuv,
-                                          yuv_from_planes)
+    """Phase 18d: BASELINE config 4 through the port's evaluate CLI
+    (cli/evaluate.py config4) with phase 12's parameters: 416x240, 4
+    frames, the rate points of evaluate's QPS with the full search and the
+    trained CNN on the card, every stream hash-clean; the BD-rate of fast
+    against full by the port's utils.bd_rate."""
+    import contextlib
+    import io
 
-    params = load_params(params_path())
-    w, h, n = 416, 240, 4
-    frames = synthesize_yuv(w, h, n, seed=4)
-    curves = {}
-    for label, p in (("full", None), ("fast", params)):
-        rates, psnrs = [], []
-        for qp in CNN_QPS:
-            cfg = _fast(EncoderConfig(width=w, height=h, frames=n, qp=qp), p)
-            stream, recons, _, _ = _encode(torch, cfg, frames, params=p)
-            if not _decode_clean(stream, n):
-                raise AssertionError(f"config 4 {label} QP{qp}: the stream "
-                                     f"does not decode hash-clean")
-            rates.append(len(stream) * 8)
-            psnrs.append(float(np.mean([
-                psnr(f[0], yuv_from_planes((r.y, r.cb, r.cr), w, h)[0])
-                for f, r in zip(frames, recons)])))
-        curves[label] = (rates, psnrs)
-    bd = bd_rate(*curves["full"], *curves["fast"])
-    pts = "; ".join(
-        f"QP{qp}: full {curves['full'][0][i] / n / 1000:.2f} kbit/frame "
-        f"{curves['full'][1][i]:.3f} dB, fast "
-        f"{curves['fast'][0][i] / n / 1000:.2f} kbit/frame "
-        f"{curves['fast'][1][i]:.3f} dB" for i, qp in enumerate(CNN_QPS))
+    from fasthevc_tpu_torch.cli import evaluate
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = evaluate.config4(params_path=params_path())
+    bd = out["bd_rate_pct"]
+    pts = "; ".join(ln.strip() for ln in err.getvalue().splitlines()
+                    if " QP" in ln)
     return {"bd_rate_pct": bd,
-            "log": f"config 4 (416x240, {n} frames, fast vs full, every "
-                   f"stream hash-clean): BD-rate {bd:+.4f}% (the gate is "
-                   f"<= 2%: {'within' if bd <= 2.0 else 'outside'} it; a "
+            "log": f"config 4 (evaluate.config4: 416x240, 4 frames, fast "
+                   f"vs full, every stream hash-clean): BD-rate {bd:+.4f}% "
+                   f"(the gate is <= 2%: "
+                   f"{'within' if out['gate_2pct'] else 'outside'} it; a "
                    f"measurement, not a pass or fail); {pts}"}
+
+
+def job_config1(torch) -> dict:
+    """Phase 18d: BASELINE config 1 through the port's evaluate CLI
+    (cli/evaluate.py config1): 416x240, 8 frames, all-intra QP 32 on the
+    card, decode-verified in SpecDecoder."""
+    from fasthevc_tpu_torch.cli import evaluate
+
+    out = evaluate.config1()
+    if not out["decode_verify"] or out["bits"] <= 0:
+        raise AssertionError(f"config 1: {out}")
+    return {"log": f"config 1 (evaluate.config1: 416x240, 8 frames, "
+                   f"all-intra QP32, decode-verified): {out['bits']} bits, "
+                   f"Y-PSNR {out['psnr_y']:.3f} dB, {out['fps']:.4f} fps"}
+
+
+def _cli_dir() -> str:
+    """Phase 18's files, under the git-ignored build directory."""
+    from fasthevc_tpu_torch import _build
+    d = os.path.join(_build.BUILD_DIR, "cli_smoke")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_cli(torch, card: str) -> None:
+    """Phase 18a: the encode CLI in process (cli/encode.py main) on the 16
+    timed frames of phase 3, written to a planar YUV file: 1080p
+    all-intra QP 32, phase 3's tiles, hash type 2, with --metrics and
+    --recon.  Its stream must equal TorchEncoder(_ai_cfg(16))'s on the
+    same frames byte for byte, its recon file that encode's recons, and
+    its launches every kernel of INTRA_ROUTE and none of UNLAUNCHED."""
+    import contextlib
+    import io
+
+    from fasthevc_tpu_torch import _build
+    from fasthevc_tpu_torch.cli import encode as cli_encode
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.utils import yuv_from_planes
+
+    clip = _ai_clip()[GROUP:]
+    cfg = _ai_cfg(TIMED)
+    d = _cli_dir()
+    paths = {k: os.path.join(d, f"ai1080p.{k}")
+             for k in ("yuv", "bin", "rec.yuv", "jsonl")}
+    cli_encode.write_yuv(paths["yuv"], clip)
+    argv = ["-i", paths["yuv"], "--size", f"{WIDTH}x{HEIGHT}", "--frames",
+            str(TIMED), "--qp", str(QP), "--tiles",
+            f"{cfg.tile_cols}x{cfg.tile_rows}", "--hash-type", "2", "-b",
+            paths["bin"], "--metrics", paths["jsonl"], "--recon",
+            paths["rec.yuv"]]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_encode.main(argv)
+    launches = dict(_build.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"encode CLI exited {rc}:\n{out.getvalue()}")
+    _require(launches, INTRA_ROUTE, "encode CLI's 1080p all-intra encode")
+    summary = [ln for ln in out.getvalue().splitlines()
+               if ln.startswith("SUMMARY:")]
+    want, recons = TorchEncoder(cfg, "cuda").encode(clip)
+    got = _read_bytes(paths["bin"])
+    if got != want:
+        raise AssertionError(f"encode CLI stream ({len(got)} bytes) differs "
+                             f"from TorchEncoder's ({len(want)} bytes)")
+    rec = b"".join(np.asarray(p, np.uint8).tobytes() for r in recons
+                   for p in yuv_from_planes((r.y, r.cb, r.cr), WIDTH,
+                                            HEIGHT))
+    if _read_bytes(paths["rec.yuv"]) != rec:
+        raise AssertionError("encode CLI recon file differs from "
+                             "TorchEncoder's recons")
+    with open(paths["jsonl"]) as f:
+        records = [json.loads(ln) for ln in f if ln.strip()]
+    if [r["poc"] for r in records] != list(range(TIMED)):
+        raise AssertionError(f"encode CLI metrics: {len(records)} records")
+    print(f"phase 18a, encode CLI (python -m fasthevc_tpu_torch.cli.encode "
+          f"{' '.join(argv)}): {len(got)} bytes, equal to TorchEncoder's "
+          f"stream, recon file equal; launches {launches}")
+    print(f"encode CLI {summary[0]} (card: {card})")
+
+
+def phase_journal(torch) -> None:
+    """Phase 18c: the GOP journal (codec/journal.py encode_journaled) on
+    the 1080p low-delay P device route, intra period 8: 12 frames, a
+    garbage tail after them, then a resumed encode of all 16 (a new
+    TorchEncoder, as after a crash) from the journal's last IDR; the
+    stream must equal an uninterrupted encode's byte for byte."""
+    from fasthevc_tpu_torch.codec.encoder import TorchEncoder
+    from fasthevc_tpu_torch.codec.journal import GopJournal, encode_journaled
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+
+    cfg = _ldp_cfg(16).replace(intra_period=8)
+    frames = synthesize_yuv(WIDTH, HEIGHT, 16, seed=5)
+    d = _cli_dir()
+    sp, jp = os.path.join(d, "journal.bin"), os.path.join(d, "journal.jsonl")
+    for path in (sp, jp):
+        if os.path.exists(path):
+            os.remove(path)
+    first = encode_journaled(TorchEncoder(cfg, "cuda"), frames[:12], sp, jp)
+    with open(sp, "ab") as f:
+        f.write(b"\x00\x00\x01\x00garbage")
+    poc, offset = GopJournal.load(jp).last_resume_point()
+    t0 = time.perf_counter()
+    resumed = encode_journaled(TorchEncoder(cfg, "cuda"), frames, sp, jp)
+    dt = time.perf_counter() - t0
+    whole, _ = TorchEncoder(cfg, "cuda").encode(frames)
+    if resumed != whole or _read_bytes(sp) != whole:
+        raise AssertionError(f"journal: the resumed 1080p LDP stream "
+                             f"({len(resumed)} bytes) differs from the "
+                             f"uninterrupted one ({len(whole)} bytes)")
+    print(f"phase 18c, journal on the 1080p LDP device route (intra period "
+          f"8): interrupted after 12 frames ({len(first)} bytes, a garbage "
+          f"tail after them), resumed at POC {poc} (byte {offset}) in "
+          f"{dt:.3f} s: {len(resumed)} bytes, equal to the uninterrupted "
+          f"stream ({len(whole)} bytes)")
+
+
+def job_cli_processes(torch) -> dict:
+    """Phase 18b: the entry points as a user types them, each a process:
+    a 416x240 8-frame low-delay P encode (`python -m
+    fasthevc_tpu_torch.cli.encode ... --recon`) on the card, its decode
+    (`python -m fasthevc_tpu_torch.cli.decode`), which must print `hash
+    OK` and write the recon's YUV, and a 416x240 encode with --profile,
+    which must leave a non-empty trace."""
+    import shutil
+
+    d = _cli_dir()
+    here = os.path.dirname(os.path.abspath(__file__))
+    f = {k: os.path.join(d, f"procs.{k}")
+         for k in ("bin", "rec.yuv", "dec.yuv", "prof.bin")}
+    trace_dir = os.path.join(d, "profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
+    def run(*args):
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=here,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(args)} exited "
+                                 f"{proc.returncode}:\n{proc.stdout}"
+                                 f"{proc.stderr}")
+        return proc.stdout
+
+    enc = run("fasthevc_tpu_torch.cli.encode", "--synth", "416x240",
+              "--frames", "8", "--preset", "low_delay_p", "-b", f["bin"],
+              "--recon", f["rec.yuv"])
+    dec = run("fasthevc_tpu_torch.cli.decode", "-b", f["bin"], "-o",
+              f["dec.yuv"])
+    last = dec.strip().splitlines()[-1]
+    if not last.endswith("hash OK") or "DECODED 8 pictures" not in last:
+        raise AssertionError(f"decode CLI: {last}")
+    if _read_bytes(f["dec.yuv"]) != _read_bytes(f["rec.yuv"]):
+        raise AssertionError("decode CLI YUV differs from the encode CLI's "
+                             "recon")
+    run("fasthevc_tpu_torch.cli.encode", "--synth", "416x240", "--frames",
+        "2", "-b", f["prof.bin"], "--profile", trace_dir)
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+    sizes = [os.path.getsize(t) for t in traces]
+    if not sizes or not all(sizes):
+        raise AssertionError(f"--profile left no trace in {trace_dir}")
+    summary = [ln for ln in enc.splitlines() if ln.startswith("SUMMARY:")]
+    return {"log": f"encode CLI process, 416x240 LDP 8 frames: "
+                   f"{summary[0]}; decode CLI process: {last}, YUV equal to "
+                   f"the recon; --profile trace {sizes[0]} bytes"}
 
 
 def _fast_small(torch, route: str):
@@ -3460,7 +3645,10 @@ def phase_config5(torch) -> None:
     """Phase 17: BASELINE config 5 through gop_parallel_encode_check: 4K,
     16 frames, 2 processes on the card, tiles 2x2, intra period 8; the
     concatenated stream must equal one process's byte for byte (its
-    hash-clean decode runs in the config5-decode job)."""
+    hash-clean decode runs in the config5-decode job).  It calls
+    gop_parallel_encode_check with decode=False, not evaluate's config5:
+    that decodes the whole 4K stream in the pure-Python SpecDecoder,
+    which would not fit the run's time limit."""
     from fasthevc_tpu_torch.parallel.multiproc import (
         gop_parallel_encode_check)
 
@@ -3514,22 +3702,24 @@ def job_mesh_decode(torch, names) -> dict:
     return {"log": "; ".join(logs)}
 
 
-def job_sharded_small(torch) -> dict:
-    """The dry run's two configurations on an in-process mesh of 8 ranks:
-    through the kernels on the card, the twins on the card and the twins
-    on the CPU (each equal to the single-device route and hash-clean);
-    all three streams must be identical."""
+def job_sharded_small(torch, device: str, plain: bool = False) -> dict:
+    """The dry run's two configurations on an in-process mesh of 8 ranks
+    on `device`, through the kernels or (plain) the twins: each sharded
+    stream equal to the single-device route's and hash-clean.  The three
+    forms (kernels on the card, twins on the card, twins on the CPU) run
+    as three jobs, whose streams' SHA-256 must agree (`main`)."""
+    import hashlib
+
     from fasthevc_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    runs = [dryrun_multichip(8, "cuda"), dryrun_multichip(8, "cuda",
-                                                          plain=True),
-            dryrun_multichip(8, "cpu")]
-    if not runs[0] == runs[1] == runs[2]:
-        raise AssertionError("sharded-small: kernel, card-twin and CPU-twin "
-                             "streams differ")
-    return {"log": "sharded-small (dry run, 8 ranks): kernels == card twins "
-            "== CPU twins, " + ", ".join(f"{k} {len(v)} bytes"
-                                         for k, v in runs[0].items())}
+    streams = dryrun_multichip(8, device, plain=plain)
+    what = ("the kernels on the card" if device == "cuda" and not plain
+            else f"the twins on the {'card' if device == 'cuda' else 'CPU'}")
+    return {"sha": hashlib.sha256(b"".join(streams.values())).hexdigest(),
+            "log": f"sharded-small (dry run, 8 ranks, {what}): sharded == "
+                   "single-device, hash-clean, "
+                   + ", ".join(f"{k} {len(v)} bytes"
+                               for k, v in streams.items())}
 
 
 # Checks that run the twins, each in its own process (the twins are bound
@@ -3551,6 +3741,8 @@ JOBS = {
     "small-ra-card": lambda torch: job_small(torch, "random-access", "card"),
     "small-ra-cpu": lambda torch: job_small(torch, "random-access", "cpu"),
     "config4": job_config4,
+    "config1": job_config1,
+    "cli-processes": job_cli_processes,
     "fast-small-ai": lambda torch: job_fast_small(torch, "all-intra"),
     "fast-small-ra": lambda torch: job_fast_small(torch, "random-access"),
     "fast-small-pipelined": lambda torch: job_fast_small(
@@ -3571,7 +3763,10 @@ JOBS = {
     # at 1080p and slower at 4K: the IDR+P+B stream is decoded whole (I, P
     # and B pictures of both gop rows); of the others, IDR-led spans: each
     # gop row's first pictures, config 5's second process's IDR and P
-    "sharded-small": job_sharded_small,
+    "sharded-small": lambda torch: job_sharded_small(torch, "cuda"),
+    "sharded-small-card-twins": lambda torch: job_sharded_small(
+        torch, "cuda", plain=True),
+    "sharded-small-cpu": lambda torch: job_sharded_small(torch, "cpu"),
     "mesh-decode": lambda torch: job_mesh_decode(
         torch, [("all-intra", 0, 2), ("low-delay P", 0, 2),
                 ("low-delay P", 4, 6)]),
@@ -3584,50 +3779,114 @@ JOBS = {
 EARLY_JOBS = ("mesh-decode", "mesh-decode-ipb", "config5-decode")
 
 
-# The twin routes at 1080p set the length of the jobs' phase: every other
-# job runs at a lower CPU priority, so that it takes the cores they leave.
-LONG_JOBS = ("ai-twin-route", "ldp-twin-route")
+# The 1080p twin routes and the 4K decode (one Python thread, started
+# last, when phase 17's stream exists) are the longest single processes:
+# every other job runs at a lower CPU priority, so that it takes the cores
+# they leave.
+LONG_JOBS = ("ai-twin-route", "ldp-twin-route", "config5-decode")
+
+
+def _job_log(name: str) -> str:
+    from fasthevc_tpu_torch import _build
+    d = os.path.join(_build.BUILD_DIR, "jobs")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, f"{name}.log")
 
 
 def _start_jobs(names) -> dict:
     """JOBS entries in processes of their own (`chip_smoke.py --job
-    NAME`), those outside LONG_JOBS at niceness 10."""
+    NAME`), those outside LONG_JOBS at niceness 10, each writing into its
+    log file; name -> (process, start time)."""
     here = os.path.abspath(__file__)
-    return {name: subprocess.Popen(
-        [sys.executable, here, "--job", name], cwd=os.path.dirname(here),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        preexec_fn=None if name in LONG_JOBS else lambda: os.nice(10))
-        for name in names}
+    procs = {}
+    for name in names:
+        with open(_job_log(name), "w") as log:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, here, "--job", name],
+                cwd=os.path.dirname(here), stdout=log,
+                stderr=subprocess.STDOUT, text=True,
+                preexec_fn=None if name in LONG_JOBS
+                else lambda: os.nice(10)), time.perf_counter())
+    return procs
 
 
 def _run_jobs(t_start: float, early: dict) -> dict:
     """Every JOBS entry not in `early` (the processes already started) in
     its own process, all at once; each prints its log and, last, a JSON
-    line of results.  Raises if one fails; stops every process it
-    started."""
+    line of results.  Prints each job's start, end and length as it ends
+    (seconds from the run's start).  Raises if one fails; stops every
+    process it started."""
     procs = dict(early)
     procs.update(_start_jobs([n for n in JOBS if n not in early]))
     results, failed = {}, []
+    running = dict(procs)
     try:
-        for name, proc in procs.items():
-            left = max(1.0, JOBS_DEADLINE_S - (time.perf_counter() - t_start))
-            out, _ = proc.communicate(timeout=left)
-            lines = out.strip().splitlines()
-            last = [ln for ln in lines if ln.startswith("{")][-1:]
-            if proc.returncode != 0 or not last:
-                failed.append(f"job {name} (exit {proc.returncode}):\n"
-                              + "\n".join(lines[-30:]))
-                continue
-            results[name] = json.loads(last[0])
-            print(f"[{name}] {results[name]['log']}")
+        while running:
+            if time.perf_counter() - t_start > JOBS_DEADLINE_S:
+                failed += [f"job {n}: still running at the deadline "
+                           f"({JOBS_DEADLINE_S} s)" for n in running]
+                break
+            for name, (proc, t0) in list(running.items()):
+                if proc.poll() is None:
+                    continue
+                del running[name]
+                t1 = time.perf_counter()
+                with open(_job_log(name)) as f:
+                    lines = f.read().strip().splitlines()
+                last = [ln for ln in lines if ln.startswith("{")][-1:]
+                if proc.returncode != 0 or not last:
+                    failed.append(f"job {name} (exit {proc.returncode}):\n"
+                                  + "\n".join(lines[-30:]))
+                    continue
+                results[name] = json.loads(last[0])
+                print(f"[{name}] {t0 - t_start:.1f}-{t1 - t_start:.1f} s "
+                      f"({t1 - t0:.1f} s): {results[name]['log']}")
+            time.sleep(0.2)
     finally:
-        for proc in procs.values():
+        for proc, _ in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     if failed:
         raise AssertionError("\n".join(failed))
     return results
+
+
+def bench_twin(torch) -> None:
+    """`--bench-twin`: the wall of K5's twin and of the 1080p twin routes
+    on the card, alone, with the SHA-256 of what each returns, for the
+    package under `--root DIR` when given (so that a parent checkout and
+    this one can be timed in one call): the twin of phase 2a's intra
+    commit (TWIN_FRAMES frames), of phase 2b's mixed commit (one P frame),
+    and the twin encodes of the ai-twin-route and ldp-twin-route jobs."""
+    import hashlib
+
+    def sha(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    y, c = _kernel_inputs(torch, torch.device("cuda"))
+    run_commit, _ = _intra_commit(torch, y, c, _intra_sp())
+    out, ms = _timed_once(lambda: run_commit(TWIN_FRAMES, True))
+    print(f"bench twin: K5 intra twin, {TWIN_FRAMES} 1080p frames: "
+          f"{ms / 1e3:.3f} s, sha {sha(out)}")
+    del y, c, out
+    d = _p_commit_inputs(torch)
+    out, ms = _timed_once(lambda: _run_mixed(torch, d, True))
+    print(f"bench twin: K5 mixed twin, one 1080p P frame: {ms / 1e3:.3f} s, "
+          f"sha {sha(out)}")
+    del d, out
+    torch.cuda.empty_cache()
+    for what, cfg, clip in (
+            ("all-intra", _ai_cfg(GROUP), _ai_clip()[GROUP:2 * GROUP]),
+            ("low-delay P", _ldp_cfg(LDP_TWIN_FRAMES),
+             _ldp_clip()[:LDP_TWIN_FRAMES])):
+        stream, _, dt, _ = _encode(torch, cfg, clip, plain=True)
+        print(f"bench twin: {what} twin route, {len(clip)} 1080p frames: "
+              f"{dt:.3f} s, {len(stream)} bytes, sha "
+              f"{hashlib.sha256(stream).hexdigest()[:16]}")
 
 
 def bench_kernels(torch) -> None:
@@ -4125,9 +4384,10 @@ def main() -> int:
     argv = sys.argv[1:]
     if "--root" in argv:
         # time another checkout's package; its twins and jobs are not run
-        if not {"--bench-kernels", "--profile", "--profile-mesh"} & set(argv):
+        if not {"--bench-kernels", "--bench-twin", "--profile",
+                "--profile-mesh"} & set(argv):
             raise SystemExit("chip_smoke: --root is only for --bench-kernels"
-                             ", --profile and --profile-mesh")
+                             ", --bench-twin, --profile and --profile-mesh")
         sys.path.insert(0, os.path.abspath(argv[argv.index("--root") + 1]))
     import torch
     if not torch.cuda.is_available():
@@ -4136,10 +4396,15 @@ def main() -> int:
     # pipelined all-intra route (and refuse P orders)
     os.environ.pop("FASTHEVC_FORCE_CLASSIC", None)
     if "--job" in argv:
-        # one twin check in its own process: the library is built already
-        torch.set_num_threads(2)
+        # one twin check in its own process: the library is built already.
+        # About 25 jobs share the host's cores, so one intra-op thread
+        # each: a second would only wait for a core
+        torch.set_num_threads(1)
         name = argv[argv.index("--job") + 1]
-        print(json.dumps(JOBS[name](torch)))
+        t0 = time.perf_counter()
+        out = JOBS[name](torch)
+        out["job_s"] = time.perf_counter() - t0
+        print(json.dumps(out))
         return 0
     card = _card_line()
     from fasthevc_tpu_torch import _build
@@ -4150,6 +4415,13 @@ def main() -> int:
           f"({len(_build.sources())} sources)")
     if "--profile-mesh" in argv:
         profile_mesh(torch)
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--bench-twin" in argv:
+        bench_twin(torch)
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4217,6 +4489,11 @@ def main() -> int:
     phase_rate_control(torch, full)
     _stamp(t_start, "phases 14 and 15 (the classic route, rate control)")
     torch.cuda.empty_cache()
+    phase_cli(torch, card)
+    torch.cuda.empty_cache()
+    phase_journal(torch)
+    _stamp(t_start, "phase 18a and 18c (the encode CLI, the journal)")
+    torch.cuda.empty_cache()
     got = phase_mesh(torch)
     launches.update({k: v for k, v in got.items() if k in MESH_KERNELS})
     early = _start_jobs(["mesh-decode", "mesh-decode-ipb"])
@@ -4230,9 +4507,16 @@ def main() -> int:
     if jobs["small-ra-card"]["sha"] != jobs["small-ra-cpu"]["sha"]:
         raise AssertionError("416x240 random-access: the kernel streams of "
                              "the two checks differ")
+    if len({jobs[n]["sha"] for n in ("sharded-small",
+                                     "sharded-small-card-twins",
+                                     "sharded-small-cpu")}) != 1:
+        raise AssertionError("sharded-small: kernel, card-twin and CPU-twin "
+                             "streams differ")
+    print("sharded-small: the kernels on the card == the twins on the card "
+          "== the twins on the CPU")
     _stamp(t_start, "phases 2a/2b's K5 twins, 4, 5, 6's 416x240, 8, 9, 11, "
-           "13's config 4 and 416x240 checks and classic_small (the jobs, "
-           "in parallel)")
+           "13's 416x240 checks, classic_small, 18b and 18d (config 1 and "
+           "4) and the decodes of 16 and 17 (the jobs, in parallel)")
     timed["commit_intra"] = (timed["commit_intra"][0],
                              jobs["k5-intra"]["twin_ms"])
     timed["commit_mixed"] = (timed["commit_mixed"][0],

@@ -18,13 +18,16 @@ neighbours as any others, and the trellis tables are those of init_type 1.
 Both go through kernel K5 (csrc/commit.cu) for CUDA tensors: one launch
 per call, whose CTAs take CTUs in the wave order of `ticket_order` and wait
 only on the flags of the left, top-left, top and top-right CTUs; a CTU
-commits its inter CUs before it waits.  `wavefront_commit_plain` is its PyTorch twin: it commits every
-inter CU of the call in one batch first (the furthest ahead any order of
-the kernel moves them), then the intra CUs wave by wave, batched over each
-wave's CTUs and frames, reading its references from the recon planes it
-writes.  The JAX package's one-hot boundary buffers, permutation matmuls
-and scan-out reassembly (commit.py:16-39) are TPU workarounds and are not
-carried over.
+commits its inter CUs before it waits.  `wavefront_commit_plain` is its
+PyTorch twin: it commits every inter CU of the call in one batch first (the
+furthest ahead any order of the kernel moves them), then the intra CUs wave
+by wave (each tile its own wavefront, the tiles side by side), reading its
+references from the recon planes it writes.  Each step is one group of
+`_GROUPS` over the blocks of a wave's CTUs and frames that the decision
+maps make active, found on the host once a call, so no step waits on the
+device; both chroma planes go through one step.  The JAX package's
+one-hot boundary buffers, permutation matmuls and scan-out reassembly
+(commit.py:16-39) are TPU workarounds and are not carried over.
 
 QPs and lambda may be given per frame (sequences of length F), so a batch
 may mix temporal layers.  Scope: CTU 32, TU == CU.  Chroma blocks of both
@@ -165,29 +168,90 @@ def _group_schedule():
 
 
 _GROUPS = _group_schedule()
-_TAKE_CACHE: dict = {}
+_TWIN_CACHE: dict = {}
 
 
-def _precompute_takes(nctux, nctuy, coded_w, coded_h, tbx, tby):
-    """Per wave: the wave's CTU columns/rows and, per group, the
-    substitution take table [A_w, 4n+1] (the take part of commit.py:182),
-    cached per geometry."""
-    key = (nctux, nctuy, coded_w, coded_h, tbx, tby)
-    if key not in _TAKE_CACHE:
-        wx, wy, wvalid = wave_tables(nctux, nctuy)
+def _twin_waves(nctux, nctuy, tile_bounds_x, tile_bounds_y):
+    """The twin's CTU waves: CTU (cx, cy) of a tile whose first CTU is
+    (x0, y0) joins wave (cx - x0) + 2 (cy - y0).  A CTU reads references
+    only from its own tile, so the tiles advance side by side; inside one,
+    every reference a CTU reads is final when its wave starts, as in
+    `wave_tables`.  Returns [(cx, cy)] numpy int64 arrays, wave by wave."""
+    def local(count, bounds):
+        starts = np.zeros(count, np.int64)
+        for b in bounds:
+            c = b // CTU
+            starts[c:] = c
+        return np.arange(count) - starts
+
+    lx, ly = local(nctux, tile_bounds_x), local(nctuy, tile_bounds_y)
+    cy, cx = (a.ravel() for a in np.mgrid[0:nctuy, 0:nctux])
+    wave = lx[cx] + 2 * ly[cy]
+    return [(cx[wave == w], cy[wave == w]) for w in range(wave.max() + 1)]
+
+
+def _twin_tables(nctux, nctuy, coded_w, coded_h, tbx, tby, device):
+    """The waves and, per wave and group, the substitution take table
+    [A_w, 4n+1] on `device` (the take part of commit.py:182), cached per
+    geometry and device."""
+    key = (nctux, nctuy, coded_w, coded_h, tbx, tby, str(device))
+    if key not in _TWIN_CACHE:
         waves = []
-        for w in range(wx.shape[0]):
-            cx, cy = wx[w][wvalid[w]], wy[w][wvalid[w]]
+        for cx, cy in _twin_waves(nctux, nctuy, tbx, tby):
             takes = []
             for kind, lx, ly, n, _d in _GROUPS:
                 sub = 0 if kind == "l" else 1
                 av = _np_avail(cx * CTU, cy * CTU, lx, ly, n, sub, coded_w,
                                coded_h, nctux, tbx, tby)
-                takes.append(torch.from_numpy(_np_sub_take(av)).long())
-            waves.append((torch.from_numpy(cx).long(),
-                          torch.from_numpy(cy).long(), takes))
-        _TAKE_CACHE[key] = waves
-    return _TAKE_CACHE[key]
+                takes.append(torch.from_numpy(_np_sub_take(av)).long()
+                             .to(device))
+            waves.append((cx, cy, takes))
+        _TWIN_CACHE[key] = waves
+    return _TWIN_CACHE[key]
+
+
+def _twin_steps(ctus, dm, mm, im, nf, coded_w, coded_h, inter_pass):
+    """The twin's steps over the CTU lists `ctus` [(cx, cy)], from the
+    decision maps on the host (dm, mm, im: [F, H/8, W/8] numpy, padded):
+    (steps, rows).  A step (wave, group, start, end) commits the blocks
+    of one group that are active (inside the picture, at the group's
+    depth, and inter in the inter pass, intra otherwise) in rows
+    [start, end) of rows [5, R] int64: frame (chroma: cr's as F + frame),
+    block x, y in the plane's samples, intra mode (>= 0), the CTU's index
+    in its wave.  Groups without an active block make no step."""
+    steps, cols, total = [], [], 0
+    for w, (cx, cy) in enumerate(ctus):
+        a_w = cx.shape[0]
+        f = np.tile(np.arange(nf), a_w)                  # CTU-major
+        bcx, bcy = np.repeat(cx, nf), np.repeat(cy, nf)
+        arow = np.repeat(np.arange(a_w), nf)
+        for gi, (kind, lx, ly, _n, dcond) in enumerate(_GROUPS):
+            gx, gy = (lx // 8, ly // 8) if kind == "l" else (lx // 4, ly // 4)
+            gyy, gxx = bcy * 4 + gy, bcx * 4 + gx
+            d = dm[f, gyy, gxx]
+            act = ((bcx * CTU + gx * 8 < coded_w) & (bcy * CTU + gy * 8
+                                                     < coded_h)
+                   & ((d >= 2) if dcond == 2 else (d == dcond)))
+            if im is not None:
+                inter = im[f, gyy, gxx] > 0
+                act &= inter if inter_pass else ~inter
+            rows = np.flatnonzero(act)
+            if rows.size == 0:
+                continue
+            s = CTU if kind == "l" else CTU // 2
+            col = np.stack([f[rows], bcx[rows] * s + lx, bcy[rows] * s + ly,
+                            np.maximum(mm[f[rows], gyy[rows], gxx[rows]], 0),
+                            arow[rows]])
+            if kind == "c":
+                cr = col.copy()
+                cr[0] += nf
+                col = np.concatenate([col, cr], 1)
+            steps.append((w, gi, total, total + col.shape[1]))
+            cols.append(col)
+            total += col.shape[1]
+    rows = (np.concatenate(cols, 1) if cols
+            else np.zeros((5, 0), np.int64)).astype(np.int64)
+    return steps, rows
 
 
 # ---------------------------------------------------------------------------
@@ -365,98 +429,85 @@ def wavefront_commit_plain(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,
     dev = src_y.device
     nctux, nctuy = -(-coded_w // CTU), -(-coded_h // CTU)
     pw, ph = nctux * CTU, nctuy * CTU
-    planes = {
-        "l": dict(src=_pad(src_y.to(torch.int64), ph, pw), h=ph, w=pw, s=CTU),
-        "cb": dict(src=_pad(src_cb.to(torch.int64), ph // 2, pw // 2),
-                   h=ph // 2, w=pw // 2, s=CTU // 2),
-        "cr": dict(src=_pad(src_cr.to(torch.int64), ph // 2, pw // 2),
-                   h=ph // 2, w=pw // 2, s=CTU // 2),
-    }
+
+    def plane(y, cb_cr):
+        """The luma plane [F, ph, pw] and both chroma planes stacked
+        [2F, ph/2, pw/2] (cb's frames, then cr's), int64."""
+        return (_pad(y.to(torch.int64), ph, pw),
+                _pad(torch.cat(cb_cr).to(torch.int64), ph // 2, pw // 2))
+
+    planes = {k: dict(src=s, h=hh, w=ww) for k, s, hh, ww in zip(
+        ("l", "c"), plane(src_y, (src_cb, src_cr)), (ph, ph // 2),
+        (pw, pw // 2))}
     for p in planes.values():
         p["rec"] = torch.zeros_like(p["src"])
         p["lv"] = torch.zeros_like(p["src"])
-    dm = _pad(depth.to(torch.int64), ph // 8, pw // 8, value=2)
-    mm = _pad(mode.to(torch.int64), ph // 8, pw // 8)
     mixed = dir_map is not None
     if mixed:
-        im = _pad(dir_map.to(torch.int64), ph // 8, pw // 8)
-        for name, p in zip(("l", "cb", "cr"), pred):
-            planes[name]["ipred"] = _pad(p.to(torch.int64), planes[name]["h"],
-                                         planes[name]["w"])
+        for k, ip in zip(("l", "c"), plane(pred[0], pred[1:])):
+            planes[k]["ipred"] = ip
+    # the decision maps on the host, once: which blocks each step commits
+    maps = [_pad(m.to(torch.int64), ph // 8, pw // 8, fill).cpu().numpy()
+            for m, fill in ((depth, 2), (mode, 0))
+            + (((dir_map, 0),) if mixed else ())]
+    dm, mm, im = maps[0], maps[1], maps[2] if mixed else None
     rd_tabs = (rdoq_ops.build_rdoq_tables(qp_y, qp_y, qp_cb, lam,
                                           1 if mixed else 0, bit_depth, dev)
                if rdoq else None)
     half = 1 << (bit_depth - 1)
-    fr = torch.arange(nf, device=dev)
-    waves = _precompute_takes(nctux, nctuy, coded_w, coded_h,
-                              tuple(tile_bounds_x), tuple(tile_bounds_y))
+    waves = _twin_tables(nctux, nctuy, coded_w, coded_h,
+                         tuple(tile_bounds_x), tuple(tile_bounds_y), dev)
 
-    def commit(cx, cy, takes, inter_pass):
-        """The blocks of the CTUs (cx, cy) of every frame: the inter CUs
+    def commit(ctus, inter_pass):
+        """The blocks of the CTU lists `ctus` of every frame: the inter CUs
         (inter_pass, prediction from the MC planes) or the intra CUs."""
-        cx, cy = cx.to(dev), cy.to(dev)
-        a_w = cx.shape[0]
-        f = fr.repeat(a_w)                         # [A_w * F], CTU-major
-        bcx, bcy = cx.repeat_interleave(nf), cy.repeat_interleave(nf)
-        for gi, (kind, lx, ly, n, dcond) in enumerate(_GROUPS):
-            gx, gy = (lx // 8, ly // 8) if kind == "l" else (lx // 4, ly // 4)
-            d = dm[f, bcy * 4 + gy, bcx * 4 + gx]
-            modes = mm[f, bcy * 4 + gy, bcx * 4 + gx]
-            inter = (im[f, bcy * 4 + gy, bcx * 4 + gx] > 0) if mixed else None
-            inside = ((bcx * CTU + gx * 8 < coded_w)
-                      & (bcy * CTU + gy * 8 < coded_h))
-            act = inside & ((d >= 2) if dcond == 2 else (d == dcond))
-            if mixed:
-                act = act & (inter if inter_pass else ~inter)
-            if not bool(act.any()):
-                continue
+        steps, rows = _twin_steps(ctus, dm, mm, im, nf, coded_w, coded_h,
+                                  inter_pass)
+        rows = torch.from_numpy(rows).to(dev)
+        for w, gi, s, e in steps:
+            kind, _lx, _ly, n, _d = _GROUPS[gi]
+            f, x0, y0, modes, arow = rows[:, s:e]
             lg = n.bit_length() - 1
-            names = ("l",) if kind == "l" else ("cb", "cr")
-            for name in names:
-                p = planes[name]
-                x0, y0 = bcx * p["s"] + lx, bcy * p["s"] + ly
-                rec_flat = p["rec"].view(-1)
-                idx = _block_index(f, y0, x0, n, p["h"], p["w"])
-                if inter_pass:
-                    blk = p["ipred"].view(-1)[idx]
-                else:
-                    take = takes[gi].to(dev).repeat_interleave(nf, 0)
-                    raw = rec_flat[_ref_index(f, y0, x0, n, p["h"], p["w"])]
-                    raw = torch.cat([raw, torch.full_like(raw[:, :1], half)],
-                                    1)
-                    refs = torch.take_along_dim(raw, take, dim=1)
-                    top = refs[:, 2 * n:]
-                    left = torch.flip(refs[:, :2 * n + 1], [1])
-                    # inter CUs carry mode -1 (inactive in this pass)
-                    blk = intra.predict_plain(top, left, lg,
-                                              modes.clamp_min(0)[:, None],
-                                              kind == "l", bit_depth)[:, 0]
-                    blk = blk.to(torch.int64)
-                src = p["src"].view(-1)[idx]
-                c_idx = 0 if kind == "l" else 1
-                qp = qp_y if kind == "l" else qp_cb
-                rd = rd_tabs[(c_idx, lg)] if rdoq else None
-                recon, levels = _tq_recon(
-                    blk, src, lg, qp, c_idx, modes, bit_depth, sdh, rd,
-                    None if inter is None else ~inter)
-                am = act[:, None, None]
-                rec_flat[idx] = torch.where(am, recon, rec_flat[idx])
-                lv_flat = p["lv"].view(-1)
-                lv_flat[idx] = torch.where(am, levels, lv_flat[idx])
+            p = planes[kind]
+            rec_flat = p["rec"].view(-1)
+            idx = _block_index(f, y0, x0, n, p["h"], p["w"])
+            if inter_pass:
+                blk = p["ipred"].view(-1)[idx]
+            else:
+                # the wave's take table, a row for each active block
+                take = waves[w][2][gi][arow]
+                raw = rec_flat[_ref_index(f, y0, x0, n, p["h"], p["w"])]
+                raw = torch.cat([raw, torch.full_like(raw[:, :1], half)], 1)
+                refs = torch.take_along_dim(raw, take, dim=1)
+                top = refs[:, 2 * n:]
+                left = torch.flip(refs[:, :2 * n + 1], [1])
+                blk = intra.predict_plain(top, left, lg, modes[:, None],
+                                          kind == "l", bit_depth)[:, 0]
+                blk = blk.to(torch.int64)
+            src = p["src"].view(-1)[idx]
+            c_idx = 0 if kind == "l" else 1
+            qp = qp_y if kind == "l" else qp_cb
+            rd = rd_tabs[(c_idx, lg)] if rdoq else None
+            recon, levels = _tq_recon(
+                blk, src, lg, qp, c_idx, modes, bit_depth, sdh, rd,
+                torch.zeros_like(f, dtype=torch.bool) if inter_pass
+                else None)
+            rec_flat[idx] = recon
+            p["lv"].view(-1)[idx] = levels
 
     if mixed:
         # every inter CU of the call first, in one batch
-        commit(torch.cat([cx for cx, _, _ in waves]),
-               torch.cat([cy for _, cy, _ in waves]), None, True)
-    for cx, cy, takes in waves:
-        commit(cx, cy, takes, False)
+        cx, cy = (a.ravel() for a in np.mgrid[0:nctux, 0:nctuy])
+        commit([(cx, cy)], True)
+    commit([(cx, cy) for cx, cy, _ in waves], False)
     ch, cw = coded_h // 2, coded_w // 2
-    return (planes["l"]["rec"][:, :coded_h, :coded_w].to(torch.int32),
-            planes["cb"]["rec"][:, :ch, :cw].to(torch.int32),
-            planes["cr"]["rec"][:, :ch, :cw].to(torch.int32),
-            planes["l"]["lv"][:, :coded_h, :coded_w].to(torch.int16),
-            planes["cb"]["lv"][:, :ch, :cw].to(torch.int16),
-            planes["cr"]["lv"][:, :ch, :cw].to(torch.int16))
+    luma, chroma = planes["l"], planes["c"]
+    return (luma["rec"][:, :coded_h, :coded_w].to(torch.int32),
+            chroma["rec"][:nf, :ch, :cw].to(torch.int32),
+            chroma["rec"][nf:, :ch, :cw].to(torch.int32),
+            luma["lv"][:, :coded_h, :coded_w].to(torch.int16),
+            chroma["lv"][:nf, :ch, :cw].to(torch.int16),
+            chroma["lv"][nf:, :ch, :cw].to(torch.int16))
 
 
 def wavefront_commit_intra(src_y, src_cb, src_cr, depth, mode, qp_y, qp_cb,

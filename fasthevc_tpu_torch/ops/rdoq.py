@@ -234,13 +234,9 @@ def _rev_excl_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _floor_log2(v: torch.Tensor) -> torch.Tensor:
-    """floor(log2 v) of int64 v >= 1 (31 - clz)."""
-    out = torch.zeros_like(v)
-    for b in (16, 8, 4, 2, 1):
-        hit = (v >> b) > 0
-        out = out + torch.where(hit, b, 0)
-        v = torch.where(hit, v >> b, v)
-    return out
+    """floor(log2 v) of int64 v >= 1 (31 - clz): the exponent of v in
+    float64, exact below 2^53."""
+    return torch.frexp(v.to(torch.float64)).exponent.to(torch.int64) - 1
 
 
 def _rem_bits(v: torch.Tensor, rice: torch.Tensor) -> torch.Tensor:
@@ -327,16 +323,12 @@ def rdoq_scan_plain(c_s: torch.Tensor, scan_sel: torch.Tensor, tabs: dict,
     b_b = below.repeat_interleave(cg, 1)
     sig = tabs["sig"][sel]                         # [A, 2, 2, nn, 2]
 
-    def sig_cost(b):                               # bilinear over (r, b)
-        t00 = sig[:, 0, 0, :, b]
-        t01 = sig[:, 0, 1, :, b]
-        t10 = sig[:, 1, 0, :, b]
-        t11 = sig[:, 1, 1, :, b]
-        return (t00 + r_b * (t10 - t00) + b_b * (t01 - t00)
-                + r_b * b_b * (t11 - t10 - t01 + t00))
-
-    s0 = sig_cost(0)
-    s1 = sig_cost(1)
+    # bilinear over (r, b), both bins at once: [A, nn, 2]
+    t00, t01, t10, t11 = sig[:, 0, 0], sig[:, 0, 1], sig[:, 1, 0], sig[:, 1, 1]
+    r_2, b_2 = r_b[..., None], b_b[..., None]
+    s01 = (t00 + r_2 * (t10 - t00) + b_2 * (t01 - t00)
+           + r_2 * b_2 * (t11 - t10 - t01 + t00))
+    s0, s1 = s01[..., 0], s01[..., 1]
 
     # --- per-coefficient level choice ------------------------------------
     kf = k.reshape(a_n, nn)
@@ -360,11 +352,13 @@ def rdoq_scan_plain(c_s: torch.Tensor, scan_sel: torch.Tensor, tabs: dict,
         r = lam + torch.where(kf < 8, r_ctx, rem1)  # lam = sign bypass bit
         return d + s1 + r
 
-    inf = torch.tensor(float("inf"), dtype=F32, device=dev)
+    inf = torch.full((), float("inf"), dtype=F32, device=dev)
     cost0 = d0 + s0
-    cost_m = torch.where(m > 0, level_cost(m.clamp_min(1)), inf)
     m1 = (m - 1).clamp_min(1)
-    cost_m1 = torch.where(m > 1, level_cost(m1), inf)
+    # both candidate levels in one pass (the costs are elementwise)
+    cost_both = level_cost(torch.stack([m.clamp_min(1), m1]))
+    cost_m = torch.where(m > 0, cost_both[0], inf)
+    cost_m1 = torch.where(m > 1, cost_both[1], inf)
     lvl = torch.where((cost_m <= cost0) & (cost_m <= cost_m1), m,
                       torch.where(cost_m1 <= cost0, m1, 0))
     cost_lv = torch.minimum(cost0, torch.minimum(cost_m, cost_m1))
@@ -379,8 +373,8 @@ def rdoq_scan_plain(c_s: torch.Tensor, scan_sel: torch.Tensor, tabs: dict,
 
     # --- coding-group zeroing (not DC, not the provisional last CG) ------
     if g > 1:
-        keep_g = _seq_sum16(cost_lv.reshape(a_n, g, cg))
-        zero_g = _seq_sum16(cost_z.reshape(a_n, g, cg))
+        keep_g, zero_g = _seq_sum16(torch.stack([cost_lv, cost_z])
+                                    .reshape(2, a_n, g, cg))
         cinc = torch.clamp_max(right + below, 1.0)
         csb = tabs["csb"]                          # [2, 2]
         b0 = (1 - cinc) * csb[0, 0] + cinc * csb[1, 0]

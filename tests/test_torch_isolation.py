@@ -2,9 +2,10 @@
 JAX, and its copies of the host layers equal their originals.
 
 The port keeps verbatim copies of the JAX package's host layers (`spec/`,
-`config/`, `utils/`, `codec/gop.py`, `codec/rate_control.py` and the C++
-entropy engine `cabac_cpp/`), so a fix to one of them is made in both
-packages; these tests fail when the two drift apart.
+`config/`, `utils/`, `codec/gop.py`, `codec/rate_control.py`,
+`codec/journal.py` and the C++ entropy engine `cabac_cpp/`), so a fix to
+one of them is made in both packages; these tests fail when the two drift
+apart.
 """
 
 import ast
@@ -21,7 +22,7 @@ PORT = os.path.join(REPO, "fasthevc_tpu_torch")
 REF = os.path.join(REPO, "fasthevc_tpu")
 BANNED = ("fasthevc_tpu", "jax", "flax", "optax")
 COPIED_DIRS = ("spec", "config", "utils")
-COPIED_CODEC = ("gop.py", "rate_control.py")
+COPIED_CODEC = ("gop.py", "rate_control.py", "journal.py")
 CPP_SOURCES = ("cabac.cpp", "slice_engine.cpp", "sanitize_main.cpp")
 
 
@@ -101,9 +102,9 @@ def _python_files(top):
 
 
 def test_copied_python_modules_equal_the_originals():
-    """spec/, config/, utils/, codec/gop.py and codec/rate_control.py byte
-    for byte (cabac_cpp's __init__.py differs in its build location only),
-    and synthesize_yuv makes the same frames from both packages."""
+    """spec/, config/, utils/, codec/gop.py, codec/rate_control.py and
+    codec/journal.py byte for byte (cabac_cpp's __init__.py differs in its
+    build location only), and synthesize_yuv makes the same frames from both packages."""
     for d in COPIED_DIRS:
         ref_files = _python_files(os.path.join(REF, d))
         assert ref_files == _python_files(os.path.join(PORT, d)), d
