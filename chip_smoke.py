@@ -278,14 +278,26 @@ Phases (any failure raises, and the script exits non-zero):
      phase 16 (all 6 pictures, one decoder pass), the IDR and first P of
      each segment of the all-intra and low-delay P streams (pictures 0-1;
      0-1 and 4-5), and config 5's pictures 8-9 (the second process's IDR
-     and first P) decode hash-clean.
+     and first P) decode hash-clean;
+ 19. (the python-commit job, started first among the jobs) the Python
+     commit route, `codec.encoder._native_engine` patched to None:
+     phase 7's first two 1080p frames (1 I + 1 P, SR 64, RDOQ, SAO off)
+     and seven 416x240 cases (all-intra, low-delay P over two references,
+     an I and a GOP-4 of B pictures, lossless, transform skip, weighted
+     prediction on a fade, all-intra with spec.cabac's bin coder), each
+     stream and recon equal to the C++ engine's route on the same frames,
+     the 416x240 streams hash-clean; the route's search, its Python
+     commit and the C++ commit's seconds at 1080p printed with the card;
+     over its encodes every search kernel of the classic route and
+     bi_select launched, no commit, planes, filter or cast kernel.  The
+     full run asserts first that the C++ engine built.
 
 Order: phase 2 without K5's twins, then the timed encodes (3, 6, 7, 10),
 the training (12), the timed fast-partition encodes (13), phases 14, 15,
 18a and 18c, alone on the card, then 16 and 17 (the decodes of their
 streams start as each is written); then every check that runs twins
 (K5's twins of phase 2, phases 4, 5, 6's 416x240 check, 8, 9, 11, 13's
-416x240 checks, classic_small and sharded-small), 18b, 18d and the
+416x240 checks, classic_small and sharded-small), 18b, 18d, 19 and the
 decodes of phases 16 and 17 as JOBS, each a process of its own
 (`chip_smoke.py --job NAME`), all at once: the twins are bound by the
 host's Python and launches, so they overlap.  Each job's start, end and
@@ -2989,6 +3001,141 @@ def job_config1(torch) -> dict:
                    f"Y-PSNR {out['psnr_y']:.3f} dB, {out['fps']:.4f} fps"}
 
 
+# The Python commit route (no C++ slice engine): the classic route's search
+# kernels and K12's bi_select on B pictures; the host commits, compensates,
+# filters and codes, so none of the commit, planes, filter or cast kernels
+PY_COMMIT_ROUTE = CLASSIC_ROUTE + ("bi_select",)
+PY_COMMIT_HOST = ("commit_intra", "commit_mixed", "deblock_fused",
+                  "deblock_fused_bs", "sao_fused", "cast_checksum",
+                  "inter_pred_fused", "inter_pred_fused_bi")
+
+
+def _py_commit_cases() -> dict:
+    """The python-commit job's 416x240 cases, SAO off: name -> (config,
+    clip, the C++ bin coder kept)."""
+    from fasthevc_tpu_torch.config import EncoderConfig, GopEntry, low_delay_p
+    from fasthevc_tpu_torch.utils import synthesize_yuv
+
+    w, h = 416, 240
+    base = dict(width=w, height=h, qp=QP, sao=False)
+
+    def clip(n):
+        return synthesize_yuv(w, h, n, seed=3)
+
+    return {
+        "all-intra": (EncoderConfig(frames=2, **base), clip(2), True),
+        # each P after the first over its two predecessors
+        "low-delay P, 2 references": (EncoderConfig(
+            frames=4, intra_period=-1, num_ref_per_list=2,
+            gop=[GopEntry(k, 1, "P", (-1, -2)) for k in (1, 2, 3)],
+            **base), clip(4), True),
+        # an I, then a GOP-4 of B pictures (POC 4 from 0, then 2, 1, 3)
+        "random access, GOP-4": (EncoderConfig(
+            frames=5, intra_period=8,
+            gop=[GopEntry(4, 1, "B", (-4,)), GopEntry(2, 2, "B", (-2, 2), 1),
+                 GopEntry(1, 3, "B", (-1, 1), 2),
+                 GopEntry(3, 3, "B", (-1, 1), 2)], **base), clip(5), True),
+        "lossless": (EncoderConfig(frames=1, lossless=True, **base), clip(1),
+                     True),
+        "transform skip": (EncoderConfig(frames=1, transform_skip=True,
+                                         **base), clip(1), True),
+        "weighted prediction on a fade": (low_delay_p(
+            frames=3, weighted_pred=True, **base), _fade_clip(3), True),
+        "all-intra, Python bin coder": (EncoderConfig(frames=2, **base),
+                                        clip(2), False),
+    }
+
+
+def _both_commits(torch, cfg, clip, bins: bool = True) -> tuple:
+    """clip through TorchEncoder on the card twice: with the C++ slice
+    engine on its classic route (FASTHEVC_FORCE_CLASSIC; the pipelined
+    route for an all-intra order) and without it (`_native_engine`
+    patched to None, as the JAX package's tests patch theirs; with `bins`
+    False spec.cabac's bin coder too).  Raises unless the streams and
+    every recon plane are equal.  Returns (stream, recons, the C++ route's
+    encoder, the Python route's encoder, the Python route's launches)."""
+    from fasthevc_tpu_torch import _build, cabac_cpp
+    from fasthevc_tpu_torch.codec import encoder as enc_mod
+
+    os.environ["FASTHEVC_FORCE_CLASSIC"] = "1"
+    try:
+        stream, recons, _, cpp_enc = _encode(torch, cfg, clip)
+    finally:
+        os.environ.pop("FASTHEVC_FORCE_CLASSIC", None)
+    saved = enc_mod._native_engine, cabac_cpp.available
+    enc_mod._native_engine = lambda: None
+    if not bins:
+        cabac_cpp.available = lambda: False
+    _build.LAUNCHES.clear()
+    try:
+        py_stream, py_recons, _, py_enc = _encode(torch, cfg, clip)
+    finally:
+        enc_mod._native_engine, cabac_cpp.available = saved
+    launches = dict(_build.LAUNCHES)
+    if set(py_enc.timing) != {"search_s", "commit_s", "wall_s"}:
+        raise AssertionError(f"the Python commit route did not take the "
+                             f"classic route: {py_enc.timing}")
+    if py_stream != stream:
+        raise AssertionError("the Python commit route's stream differs from "
+                             "the C++ engine's")
+    for a, b in zip(py_recons, recons, strict=True):
+        for p in ("y", "cb", "cr"):
+            if not np.array_equal(np.asarray(getattr(a, p)),
+                                  np.asarray(getattr(b, p))):
+                raise AssertionError(f"the Python commit route's {p} recon "
+                                     f"differs from the C++ engine's")
+    return stream, py_recons, cpp_enc, py_enc, launches
+
+
+def job_python_commit(torch) -> dict:
+    """The Python commit route on the card: 1080p low-delay P (1 I + 1 P,
+    SR 64, RDOQ, SAO off) and the 416x240 cases of _py_commit_cases, each
+    byte-equal (stream and recon) to the C++ engine's route on the same
+    frames, the 416x240 streams hash-clean in SpecDecoder; over the
+    Python route's encodes every kernel of PY_COMMIT_ROUTE launched, none
+    of PY_COMMIT_HOST or UNLAUNCHED."""
+    from fasthevc_tpu_torch.codec import encoder as enc_mod
+
+    if enc_mod._native_engine() is None:
+        raise AssertionError("no g++: the C++ slice engine cannot be built")
+    launches: dict = {}
+
+    def count(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    clip = _ldp_clip()[:2]
+    _, _, cpp_enc, py_enc, got = _both_commits(
+        torch, _ldp_cfg(2).replace(sao=False), clip)
+    count(got)
+    tm = py_enc.timing
+    logs = [f"1080p QP32 low-delay P, 1 I + 1 P, SR {SR}, RDOQ, SAO off: "
+            f"the Python route's stream and recon equal the C++ route's; "
+            f"search on the card {tm['search_s']:.4f} s, Python commit "
+            f"(commit, CABAC, deblocking) {tm['commit_s']:.3f} s, C++ "
+            f"commit {cpp_enc.timing['commit_s']:.3f} s (card: "
+            f"{_card_line()})"]
+    for name, (cfg, clip, bins) in _py_commit_cases().items():
+        stream, recons, _, _, got = _both_commits(torch, cfg, clip, bins)
+        count(got)
+        if name == "lossless" and not np.array_equal(
+                recons[0].y[:240, :416], clip[0][0].astype(np.int32)):
+            raise AssertionError("416x240 lossless: recon differs from the "
+                                 "source")
+        if not _decode_clean(stream, len(clip)):
+            raise AssertionError(f"416x240 {name}: the Python route's stream "
+                                 f"does not decode hash-clean")
+        logs.append(f"416x240 {name}: {len(stream)} bytes, {len(clip)} "
+                    f"pictures")
+    _require(launches, PY_COMMIT_ROUTE, "Python commit route")
+    for name in PY_COMMIT_HOST:
+        if launches.get(name, 0):
+            raise AssertionError(f"the Python commit route launched {name}")
+    return {"log": "; ".join(logs) + " (416x240: each equal to the C++ "
+                   "route's, hash_ok); launches of the Python route: "
+                   + json.dumps(launches)}
+
+
 def _cli_dir() -> str:
     """Phase 18's files, under the git-ignored build directory."""
     from fasthevc_tpu_torch import _build
@@ -3727,6 +3874,8 @@ def job_sharded_small(torch, device: str, plain: bool = False) -> dict:
 # twins, 4, 5 and 6's 416x240 check, 8, 9, 11, and phase 13's config 4
 # and 416x240 fast-partition checks (these read phase 12's parameters).
 JOBS = {
+    # the longest: the Python commit of two 1080p pictures
+    "python-commit": job_python_commit,
     "k5-intra": job_k5_intra,
     "k5-mixed": job_k5_mixed,
     "ai-twin-route": lambda torch: {"log": _twin_route(
@@ -3779,11 +3928,13 @@ JOBS = {
 EARLY_JOBS = ("mesh-decode", "mesh-decode-ipb", "config5-decode")
 
 
-# The 1080p twin routes and the 4K decode (one Python thread, started
-# last, when phase 17's stream exists) are the longest single processes:
+# The Python commit route's job, the 1080p twin routes and the 4K decode
+# (one Python thread, started last, when phase 17's stream exists) are the
+# longest single processes:
 # every other job runs at a lower CPU priority, so that it takes the cores
 # they leave.
-LONG_JOBS = ("ai-twin-route", "ldp-twin-route", "config5-decode")
+LONG_JOBS = ("python-commit", "ai-twin-route", "ldp-twin-route",
+             "config5-decode")
 
 
 def _job_log(name: str) -> str:
@@ -4413,6 +4564,13 @@ def main() -> int:
     _build.lib()
     print(f"kernel build: {time.perf_counter() - t_start:.2f} s "
           f"({len(_build.sources())} sources)")
+    from fasthevc_tpu_torch.codec.encoder import _native_engine
+    if _native_engine() is None:
+        # None only without g++ (a failed build raises); every
+        # classic-route phase would then take the Python commit route,
+        # about 20 times slower
+        raise AssertionError("no g++: the C++ slice engine (fasthevc_tpu_"
+                             "torch.cabac_cpp) cannot be built")
     if "--profile-mesh" in argv:
         profile_mesh(torch)
         print(f"card: {card}")

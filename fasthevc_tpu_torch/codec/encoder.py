@@ -25,6 +25,14 @@ TpuEncoder routes (its :239-268):
     each picture's search on the device, then the C++ slice engine,
     against a host DPB, with the two-pass recon-reference intra search of
     `search_recon_refs`.
+Every route but the classic one needs the C++ slice engine.  On a host
+without g++ (`_native_engine()` returns None, the one place the choice is
+made; with g++ a failed build raises) every order takes the classic
+route, whose pictures then go through the Python commit route
+(`encode_frame`'s host branch, as TpuEncoder's): the search on the
+device, then the commit, CABAC, deblocking and the hash in Python on the
+host (spec/), with SAO off and no tiles.  Both commits give the same
+stream from the same decisions.
 Rate control (`target_bitrate`) runs on every route but the pipelined
 one: the device routes then dispatch their batches one after another, a
 batch's QPs chosen from the feedback of every picture emitted before it.
@@ -42,6 +50,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import shutil
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -53,10 +62,17 @@ from .. import cabac_cpp
 from .gop import SLICE_B, SLICE_I, SLICE_P, coding_order, ref_lists
 from ..config import EncoderConfig
 from ..spec import bitstream as bs
-from ..spec.cabac import ContextSet
-from ..spec.ctu import Planes, tu_qps
+from ..spec import ctu as ctu_mod
+from ..spec import inter as inter_mod
+from ..spec import residual as res_mod
+from ..spec import transform as spec_tr
+from ..spec.cabac import CabacEncoder, ContextSet
+from ..spec.ctu import CHROMA_DM, CuDecision, FrameMaps, Planes, TuData, tu_qps
+from ..spec.deblock import deblock_picture
 from ..spec.encoder import config_to_sp, hrd_reorder_delay
-from ..spec.inter import MotionCtx, RefPic, build_mctx
+from ..spec.inter import DIR_L0, DIR_L1, Motion, MotionCtx, RefPic, build_mctx
+from ..spec.mc import mc_cu_motion
+from ..spec.rdoq import rdoq_quantize
 from ..spec.syntax import (
     SliceHeader,
     write_buffering_period_sei,
@@ -74,7 +90,7 @@ from ..models.partition_cnn import as_partition_cnn
 from .device_pipeline import (device_path_ok, encode_group_device,
                               encode_inter_group_device)
 from .rate_control import RateController
-from .search import (search_b_maps, search_intra_maps,
+from .search import (maps_to_trees, search_b_maps, search_intra_maps,
                      search_intra_maps_batch, search_p_maps)
 
 # Frames per search dispatch of the all-intra routes
@@ -107,6 +123,26 @@ def lambda_sqrt(qp: int) -> float:
     return float(np.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0)))
 
 
+def _native_engine():
+    """The C++ slice engine (the port's cabac_cpp), or None on a host
+    without g++: the one place the route is chosen (encoder.py:58-66).
+    With g++ the engine is built and loaded here, and a compile or load
+    failure raises: a broken build never sends the pictures to the slower
+    Python commit."""
+    if shutil.which("g++") is None:
+        return None
+    cabac_cpp._load()
+    return cabac_cpp
+
+
+def _make_cabac(writer, ctx):
+    """The Python commit route's bin coder: the C++ one where the engine
+    loads, else spec.cabac's (encoder.py:69-79)."""
+    if shutil.which("g++") is not None and cabac_cpp.available():
+        return cabac_cpp.CppCabacEncoder(writer, ctx)
+    return CabacEncoder(writer, ctx)
+
+
 class _NativeMotion:
     """MotionField-alike view over the C++ engine's 4x4 motion export
     (what spec.inter.col_arrays reads: .inter, .mv, .ref_idx)."""
@@ -130,8 +166,11 @@ class TorchEncoder:
     once to the device.  `timing` holds the phase times of the last encode:
     device_s, wait_s, entropy_s and wall_s on the device routes; search_s,
     wait_s, commit_s and wall_s on the pipelined route; search_s, commit_s
-    and wall_s on the classic route; `spans` each batch's (on the classic
-    route each picture's search's) time on the device.
+    and wall_s on the classic route (commit_s: the C++ engine's host time,
+    or without it the Python commit's, CABAC's and deblocking's); `spans`
+    each batch's (on the classic route each picture's search's) time on
+    the device.  Without the C++ slice engine (no g++) the encoder runs
+    the classic route only, with SAO off, and refuses tiles.
     """
 
     def __init__(self, cfg: EncoderConfig, device="cuda",
@@ -144,18 +183,19 @@ class TorchEncoder:
         self.cfg = cfg
         self.device = torch.device(device)
         self.plain = plain
-        if not cabac_cpp.available():
-            raise RuntimeError("TorchEncoder needs the C++ slice engine "
-                               "(fasthevc_tpu_torch.cabac_cpp); no g++ found")
-        # lossless pictures are never filtered and never transform-skipped
-        # (encoder.py:88-97)
+        native = _native_engine() is not None
+        # lossless pictures are never filtered and never transform-skipped;
+        # the Python commit route has no SAO pass (encoder.py:88-97)
         self.sp = config_to_sp(cfg)
         self.sp.deblocking_disabled = not cfg.deblocking or cfg.lossless
-        self.sp.sao_enabled = cfg.sao and not cfg.lossless
+        self.sp.sao_enabled = cfg.sao and not cfg.lossless and native
         self.sp.transform_skip_enabled = (bool(cfg.transform_skip)
                                           and not cfg.lossless)
         self.lambda_sqrt = self._lambda_sqrt(cfg.qp)
         # the tools TpuEncoder itself refuses
+        if self.sp.tiles_enabled and not native:
+            raise NotImplementedError("tiles need the C++ slice engine "
+                                      "(no g++): use SpecEncoder")
         if getattr(cfg, "slices", 1) > 1:
             raise NotImplementedError("multi-slice pictures run on the spec "
                                       "tier: use SpecEncoder")
@@ -211,16 +251,18 @@ class TorchEncoder:
             if on_frame is not None:
                 on_frame(-1, False, bytes(headers))
         order = coding_order(self.cfg, len(frames), start_poc)
-        # the reference's routing (fasthevc_tpu/codec/encoder.py:239-268);
+        # the reference's routing (fasthevc_tpu/codec/encoder.py:239-268):
+        # without the C++ slice engine every order takes the classic route;
         # every route runs its search on the device
-        device_ok = (not os.environ.get("FASTHEVC_FORCE_CLASSIC")
+        native = _native_engine() is not None
+        device_ok = (native and not os.environ.get("FASTHEVC_FORCE_CLASSIC")
                      and device_path_ok(self.cfg, sp))
         if all(st == SLICE_I for _, st, _, _ in order):
             if device_ok:
                 self._warn_recon_refs("all-intra device")
                 return self._encode_all_intra_device(frames, start_poc, out,
                                                      on_frame)
-            if self.cfg.target_bitrate == 0 and len(order) > 1:
+            if native and self.cfg.target_bitrate == 0 and len(order) > 1:
                 self._warn_recon_refs("pipelined all-intra")
                 return self._encode_all_intra_pipelined(frames, start_poc,
                                                         out, on_frame)
@@ -510,6 +552,50 @@ class TorchEncoder:
                                     commit, "search_s", "commit_s")
         return self._emit(results, out, start_poc, on_frame)
 
+    @staticmethod
+    def _motion_ctx(src, sp, poc: int, slice_type: int, refs) -> tuple:
+        """The picture's MotionCtx (None for an I picture) and its explicit
+        weighted-prediction tables, estimated from spec.wp where the PPS
+        enables them for the slice type (encoder.py:1163-1172, :1316-1334),
+        else None."""
+        mctx = build_mctx(sp, poc, slice_type, list(refs[0]), list(refs[1]))
+        wp = None
+        if ((sp.weighted_pred and slice_type == SLICE_P)
+                or (sp.weighted_bipred and slice_type == SLICE_B)) and refs[0]:
+            wp = estimate_wp_tables((src.y, src.cb, src.cr), list(refs[0]),
+                                    list(refs[1]), sp.bit_depth)
+            if mctx is not None:
+                mctx.wp = wp
+        return mctx, wp
+
+    @staticmethod
+    def _slice_writer(sp, qp: int, poc: int, slice_type: int, refs,
+                      ref_deltas, mctx, wp, entry_points=()) -> tuple:
+        """The slice header written for one picture: (writer, NAL type)."""
+        is_idr = slice_type == SLICE_I
+        nal_type = bs.NAL_IDR_W_RADL if is_idr else bs.NAL_TRAIL_R
+        sh = SliceHeader(slice_type=slice_type, slice_qp=qp, is_idr=is_idr,
+                         poc_lsb=poc & ((1 << sp.log2_max_poc_lsb) - 1),
+                         ref_pocs_before=() if is_idr else ref_deltas[0],
+                         ref_pocs_after=() if is_idr else ref_deltas[1],
+                         num_ref_idx_l0=max(1, len(refs[0])),
+                         num_ref_idx_l1=max(1, len(refs[1])),
+                         temporal_mvp=bool(mctx and mctx.tmvp),
+                         collocated_from_l0=(mctx.col_from_l0 if mctx
+                                             else True),
+                         sao_luma=sp.sao_enabled, sao_chroma=sp.sao_enabled,
+                         entry_points=tuple(entry_points), wp=wp)
+        return write_slice_header(sh, sp, nal_type), nal_type
+
+    def _picture_nal(self, w, nal_type: int, planes) -> bytes:
+        """The slice NAL unit of writer w, then the recon's hash SEI."""
+        md5s = picture_hash((planes.y, planes.cb, planes.cr),
+                            self.cfg.hash_type)
+        return (bs.write_nal(nal_type, w.get_bytes())
+                + bs.write_nal(bs.NAL_SUFFIX_SEI,
+                               write_picture_hash_sei(md5s,
+                                                      self.cfg.hash_type)))
+
     def _commit(self, src, packed, qp: int, sp=None, poc: int = 0,
                 slice_type: int = SLICE_I, refs=((), ()),
                 ref_deltas=((), ())) -> tuple:
@@ -528,15 +614,9 @@ class TorchEncoder:
         pk = packed[:gh, :gw]
         qp_y, qp_cb, qp_cr = tu_qps(sp, qp)
         init_type = 0 if is_idr else (1 if slice_type == SLICE_P else 2)
-        mctx = build_mctx(sp, poc, slice_type, list(refs[0]), list(refs[1]))
-        wp = None
-        if ((sp.weighted_pred and slice_type == SLICE_P)
-                or (sp.weighted_bipred and slice_type == SLICE_B)) and refs[0]:
-            wp = estimate_wp_tables((src.y, src.cb, src.cr), list(refs[0]),
-                                    list(refs[1]), sp.bit_depth)
-            if mctx is not None:
-                mctx.wp = wp
-        substreams, ry, rcb, rcr, motion = cabac_cpp.encode_slice_native(
+        mctx, wp = self._motion_ctx(src, sp, poc, slice_type, refs)
+        native = _native_engine()
+        substreams, ry, rcb, rcr, motion = native.encode_slice_native(
             (src.y, src.cb, src.cr), sp, qp_y, qp_cb, qp_cr,
             np.ascontiguousarray(pk[..., 0].astype(np.int8)),
             np.ascontiguousarray(pk[..., 1].astype(np.int8)),
@@ -550,47 +630,36 @@ class TorchEncoder:
             ref_map=None if is_idr
             else np.ascontiguousarray(pk[..., 7:9].astype(np.int8)),
             wp=wp)
-        nal_type = bs.NAL_IDR_W_RADL if is_idr else bs.NAL_TRAIL_R
-        sh = SliceHeader(slice_type=slice_type, slice_qp=qp, is_idr=is_idr,
-                         poc_lsb=poc & ((1 << sp.log2_max_poc_lsb) - 1),
-                         ref_pocs_before=() if is_idr else ref_deltas[0],
-                         ref_pocs_after=() if is_idr else ref_deltas[1],
-                         num_ref_idx_l0=max(1, len(refs[0])),
-                         num_ref_idx_l1=max(1, len(refs[1])),
-                         temporal_mvp=bool(mctx and mctx.tmvp),
-                         collocated_from_l0=(mctx.col_from_l0 if mctx
-                                             else True),
-                         sao_luma=sp.sao_enabled, sao_chroma=sp.sao_enabled,
-                         entry_points=tuple(len(s)
-                                            for s in substreams[:-1]),
-                         wp=wp)
-        w = write_slice_header(sh, sp, nal_type)
+        w, nal_type = self._slice_writer(
+            sp, qp, poc, slice_type, refs, ref_deltas, mctx, wp,
+            [len(s) for s in substreams[:-1]])
         for s_bytes in substreams:
             w.append_bytes(s_bytes)
         planes = Planes.__new__(Planes)
         planes.y, planes.cb, planes.cr = ry, rcb, rcr
-        nal = bs.write_nal(nal_type, w.get_bytes())
-        md5s = picture_hash((ry, rcb, rcr), cfg.hash_type)
-        nal += bs.write_nal(bs.NAL_SUFFIX_SEI,
-                            write_picture_hash_sei(md5s, cfg.hash_type))
-        return (nal, planes, mctx,
+        return (self._picture_nal(w, nal_type, planes), planes, mctx,
                 _NativeMotion(motion[0], motion[1], motion[3]))
 
     def _search(self, src, refs, slice_type: int, qp: int, recon_ref,
-                timing: dict, spans: list) -> np.ndarray:
+                timing: dict, spans: list,
+                host_branch: bool = False) -> np.ndarray:
         """One picture's search on the device, the counterpart of
         fasthevc_tpu/codec/encoder.py _search_dispatch (:1048-1109): intra
         with the source chroma (and the recon-reference planes when
         given) for an IDR or a picture without references, B when list 1
         has a reference, else P over list 0's first two references; the
         CNN's override at the picture's QP.  Returns the packed [gh, gw, 9]
-        maps; adds the search's time on the device (host time on the CPU)
-        to timing["search_s"] and spans."""
+        maps.  host_branch: search as encode_frame's host branch does
+        (:1245-1302, :196-210), for the Python commit route: the P and B
+        searches at their default RD shortlist of 3 (the intra search
+        keeps num_intra_rd_candidates), the CNN asked at cfg.qp.  Adds the
+        search's time on the device (host time on the CPU) to
+        timing["search_s"] and spans."""
         sp, cfg = self.sp, self.cfg
         ph, pw = self._padded_dims()
         geo = (sp.log2_ctu, sp.log2_min_cu, sp.coded_width, sp.coded_height)
         kw = dict(rd_cands=cfg.num_intra_rd_candidates, plain=self.plain,
-                  cnn=self.cnn, qp=qp)
+                  cnn=self.cnn, qp=cfg.qp if host_branch else qp)
         ls = self._lambda_sqrt(qp)
         cuda = self.device.type == "cuda"
         t_host = time.perf_counter()
@@ -615,6 +684,8 @@ class TorchEncoder:
                 return self._upload_padded([r.y for r in lst[:2]], ph,
                                            pw)[None]
 
+            if host_branch:
+                kw["rd_cands"] = 3
             if slice_type == SLICE_B and refs[1]:
                 packed = search_b_maps(y, refs_of(refs[0]), refs_of(refs[1]),
                                        ls, *geo, cfg.search_range, **kw)[0]
@@ -635,13 +706,13 @@ class TorchEncoder:
                       qp: int, timing: dict, spans: list,
                       first_pass: bool = False) -> tuple:
         """One picture of the classic route (fasthevc_tpu/codec/encoder.py
-        encode_frame, :1192-1255): its search on the device, then the C++
-        commit.  With search_recon_refs an intra-searched picture is coded
-        twice (:1220-1243): pass 1, with deblocking and SAO off in a copy
-        of the parameter set, gives the reconstruction whose pixels are
-        pass 2's intra references; pass 1 itself searches with source
-        references.  Returns _commit's (nal, planes, mctx, motion) of the
-        picture (pass 2's)."""
+        encode_frame, :1192-1376): its search on the device, then the C++
+        commit, or without the engine the Python commit route.  With
+        search_recon_refs an intra-searched picture is coded twice
+        (:1220-1243): pass 1, with deblocking and SAO off in a copy of the
+        parameter set, gives the reconstruction whose pixels are pass 2's
+        intra references; pass 1 itself searches with source references.
+        Returns (nal, planes, mctx, motion) of the picture (pass 2's)."""
         sp = self.sp
         recon_ref = None
         if first_pass:
@@ -652,13 +723,368 @@ class TorchEncoder:
             recon_ref = self._encode_frame(src, poc, slice_type, refs,
                                            deltas, qp, timing, spans,
                                            first_pass=True)[1]
+        native = _native_engine() is not None
         packed = self._search(src, refs, slice_type, qp, recon_ref, timing,
-                              spans)
+                              spans, host_branch=not native)
         t = time.perf_counter()
-        result = self._commit(src, packed, qp, sp, poc, slice_type, refs,
-                              deltas)
+        commit = self._commit if native else self._commit_python
+        result = commit(src, packed, qp, sp, poc, slice_type, refs, deltas)
         timing["commit_s"] += time.perf_counter() - t
         return result
+
+    def encode_frame(self, frame, poc: int = 0, slice_type: int = SLICE_I,
+                     refs=((), ()), ref_deltas=((), ()), qp=None) -> tuple:
+        """One picture on the classic route, TpuEncoder.encode_frame
+        (fasthevc_tpu/codec/encoder.py:1192-1376): frame (y, cb, cr) at
+        CVS-local `poc`, refs the two lists of spec.inter.RefPic,
+        ref_deltas the signalled RPS, qp the slice QP (default cfg.qp).
+        Returns (NAL units (slice + hash SEI), recon planes); the
+        picture's MotionCtx and motion (for a later picture's TMVP) are
+        left in _last_mctx and _last_motion, its times in timing and
+        spans."""
+        timing = {"search_s": 0.0, "commit_s": 0.0}
+        spans: list = []
+        t0 = time.perf_counter()
+        nal, planes, self._last_mctx, self._last_motion = self._encode_frame(
+            self._source(frame), poc, slice_type, refs, ref_deltas,
+            self.cfg.qp if qp is None else qp, timing, spans)
+        timing["wall_s"] = time.perf_counter() - t0
+        self.timing, self.spans = timing, spans
+        return nal, planes
+
+    # ---- the Python commit route (no C++ slice engine) ---------------
+
+    def _commit_python(self, src, packed, qp: int, sp, poc: int,
+                       slice_type: int, refs, ref_deltas) -> tuple:
+        """One picture through the Python commit route, encode_frame's host
+        branch (fasthevc_tpu/codec/encoder.py:1303-1376): the packed
+        decision maps as CTU trees, the exact commit in z-order (spec.ctu),
+        the slice header and CABAC through _make_cabac, then deblocking
+        (spec.deblock) and the hash SEI; no SAO.  Takes and returns what
+        _commit does: (nal, planes, mctx, motion)."""
+        is_idr = slice_type == SLICE_I
+        self.qp, self.refs, self.slice_type = qp, refs, slice_type
+        trees = maps_to_trees(packed, sp.coded_width, sp.coded_height,
+                              sp.log2_ctu, sp.log2_min_cu)
+        planes = Planes(sp)
+        maps = FrameMaps(sp)
+        mctx, wp = self._motion_ctx(src, sp, poc, slice_type, refs)
+        maps.mctx = mctx
+        qp_y, qp_cb, qp_cr = tu_qps(sp, qp)
+        decisions = [(x0, y0, self._commit_node(src, planes, sp, x0, y0,
+                                                sp.log2_ctu, 0, tree, maps,
+                                                qp_y, qp_cb, qp_cr))
+                     for x0, y0, tree in trees]
+        w, nal_type = self._slice_writer(sp, qp, poc, slice_type, refs,
+                                         ref_deltas, mctx, wp)
+        init_type = 0 if is_idr else (1 if slice_type == SLICE_P else 2)
+        enc = _make_cabac(w, ContextSet(init_type, qp))
+        maps2 = FrameMaps(sp)
+        maps2.mctx = mctx
+        for i, (x0, y0, cu) in enumerate(decisions):
+            ctu_mod.encode_ctu(enc, maps2, sp, x0, y0, cu, slice_type)
+            enc.encode_terminate(1 if i == len(decisions) - 1 else 0)
+        enc.finish()
+        w.byte_align()
+        if not sp.deblocking_disabled:
+            deblock_picture(planes, sp, maps.depth[::2, ::2].astype(np.int32),
+                            qp, qp_cb, qp_cr, maps=None if is_idr else maps)
+        return self._picture_nal(w, nal_type, planes), planes, mctx, \
+            maps.motion
+
+    _rdoq_ctx_cache: dict = {}
+
+    def _quantize_tb(self, coeffs, qp: int, is_intra: bool, blg: int,
+                     c_idx: int, scan_idx: int):
+        """Quantize one TB (encoder.py:135-152), as spec/encoder.py and the
+        C++ engine's quantize_rdoq do: the trellis (spec.rdoq) at the
+        picture QP's lambda when cfg.rdoq, else the HM dead-zone quantizer;
+        the trellis' contexts by (init type 0 intra or 2 inter, qp)."""
+        if not self.cfg.rdoq:
+            return spec_tr.quantize(coeffs, qp, self.sp.bit_depth,
+                                    is_intra=is_intra)
+        key = (0 if is_intra else 2, qp)
+        ctx = self._rdoq_ctx_cache.get(key)
+        if ctx is None:
+            ctx = self._rdoq_ctx_cache[key] = ContextSet(*key)
+        lam = 0.57 * 2.0 ** ((self.qp - 12) / 3.0)
+        return rdoq_quantize(coeffs, qp, self.sp.bit_depth, blg,
+                             0 if c_idx == 0 else 1, scan_idx, lam, ctx)
+
+    @staticmethod
+    def _ibits(lv) -> int:
+        """The integer level-bits estimate of the C++ engine's ts_bits_est
+        (encoder.py:154-161): 2 + 2 * bit_length(|level|) a nonzero
+        level."""
+        if lv is None:
+            return 0
+        a = np.abs(lv)
+        return int(sum(2 + 2 * int(v).bit_length() for v in a[a > 0]))
+
+    def _ts_rd_choose(self, res, levels_dct, qp: int, is_intra: bool,
+                      scan_idx: int) -> tuple:
+        """Transform skip against the DCT for a 4x4 chroma TB
+        (encoder.py:163-194, the C++ engine's commit_tb): SSE plus the
+        picture QP's lambda times _ibits, the DCT kept on ties.  Returns
+        (levels, ts)."""
+        sp = self.sp
+        bd = sp.bit_depth
+        lam = 0.57 * 2.0 ** ((self.qp - 12) / 3.0)
+
+        def cost(lv, ts):
+            rq = np.zeros_like(res)
+            if lv.any():
+                deq = spec_tr.dequantize(lv, qp, bd)
+                rq = (spec_tr.inverse_transform_skip(deq, bd) if ts
+                      else spec_tr.inverse_transform(deq, bd, False))
+            d = (res - rq).astype(np.int64)
+            return float((d * d).sum()) + lam * self._ibits(lv)
+
+        coeffs_ts = spec_tr.forward_transform_skip(res, bd)
+        levels_ts = spec_tr.quantize(coeffs_ts, qp, bd, is_intra=is_intra)
+        if sp.sign_data_hiding and levels_ts.any():
+            levels_ts = res_mod.sdh_adjust(levels_ts, coeffs_ts, qp, bd, 2,
+                                           scan_idx)
+        if cost(levels_ts, True) < cost(levels_dct, False):
+            return levels_ts, True
+        return levels_dct, False
+
+    def _commit_node(self, src, planes, sp, x, y, lg, depth, tree, maps,
+                     qp_y, qp_cb, qp_cr) -> CuDecision:
+        """Commit one node of a CTU tree (encoder.py:1380-1416): a split's
+        children in z-order, an inter leaf, or an intra CU (chroma DM, its
+        TUs split to the largest TU size)."""
+        kind = tree[0]
+        if kind == "split":
+            cu = CuDecision(split=True, children=[])
+            half = 1 << (lg - 1)
+            for i, child in enumerate(tree[1]):
+                if child is None:
+                    cu.children.append(None)
+                    continue
+                cx, cy = x + (i & 1) * half, y + (i >> 1) * half
+                cu.children.append(self._commit_node(
+                    src, planes, sp, cx, cy, lg - 1, depth + 1, child,
+                    maps, qp_y, qp_cb, qp_cr))
+            return cu
+        if kind == "ileaf":
+            return self._commit_inter(src, planes, sp, x, y, lg, depth,
+                                      tree[1], maps, qp_y, qp_cb, qp_cr)
+        mode = tree[1]
+        cu = CuDecision(split=False, luma_mode=mode, chroma_mode=CHROMA_DM,
+                        bypass=self.cfg.lossless)
+        if lg > sp.log2_max_tu:
+            half = 1 << (lg - 1)
+            for i in range(4):
+                tx, ty = x + (i & 1) * half, y + (i >> 1) * half
+                cu.tus.append(self._commit_tu(src, planes, sp, tx, ty,
+                                              lg - 1, cu, qp_y, qp_cb,
+                                              qp_cr))
+        else:
+            cu.tus.append(self._commit_tu(src, planes, sp, x, y, lg, cu,
+                                          qp_y, qp_cb, qp_cr))
+        size = 1 << lg
+        maps.set_cu(x, y, size, depth, mode)
+        maps.set_skip(x, y, size, False)
+        maps.motion.set_intra_cu(
+            x, y, size, any(tu.levels_y is not None for tu in cu.tus))
+        return cu
+
+    def _commit_inter(self, src, planes, sp, x, y, lg, depth, payload,
+                      maps, qp_y, qp_cb, qp_cr) -> CuDecision:
+        """Commit an inter leaf (encoder.py:1418-1568): merge when the
+        search's motion is a merge candidate, else AMVP with the nearer
+        predictor; the residual's TQ per component (transform skip by RD on
+        4x4 chroma, bypass when lossless); under rqt_inter the depth-1
+        transform split chosen by the C++ engine's integer-exact RD cost;
+        skip when merged without residual; then the reconstruction.
+
+        payload: (inter_dir, mv0, mv1, ref0, ref1) of the CU's tree leaf."""
+        n = 1 << lg
+        d, mv0_, mv1_, r0_, r1_ = payload
+        is_b = self.slice_type == SLICE_B
+        motion = Motion(d,
+                        tuple(map(int, mv0_)) if d & DIR_L0 else (0, 0),
+                        r0_ if d & DIR_L0 else -1,
+                        tuple(map(int, mv1_)) if d & DIR_L1 else (0, 0),
+                        r1_ if d & DIR_L1 else -1)
+        cu = CuDecision(split=False, is_inter=True, motion=motion,
+                        bypass=self.cfg.lossless)
+        merge_cands = inter_mod.merge_candidates(maps, maps.motion, x, y, n,
+                                                 is_b)
+        if motion in merge_cands:
+            cu.merge_flag = True
+            cu.merge_idx = merge_cands.index(motion)
+        else:
+            if d & DIR_L0:
+                amvp = inter_mod.amvp_candidates(maps, maps.motion, x, y,
+                                                 n, 0, max(0, motion.ref0))
+                cu.mvp_flag, cu.mvd = self._mvp(motion.mv0, amvp)
+            if d & DIR_L1:
+                amvp = inter_mod.amvp_candidates(maps, maps.motion, x, y,
+                                                 n, 1, max(0, motion.ref1))
+                cu.mvp_flag_l1, cu.mvd_l1 = self._mvp(motion.mv1, amvp)
+        wp = maps.mctx.wp if maps.mctx else None
+        pred_y, pred_cb, pred_cr = mc_cu_motion(
+            motion, self.refs[0], self.refs[1], x, y, n, sp.bit_depth, wp=wp)
+        max_val = (1 << sp.bit_depth) - 1
+
+        def build_variant(split):
+            n_t = 4 if split else 1
+            t_lg = lg - 1 if split else lg
+            half = n >> 1
+            tus, sse_t, bits_t = [], 0, 0
+            for i in range(n_t):
+                oy, ox = (0, 0) if n_t == 1 else ((i >> 1) * half,
+                                                  (i & 1) * half)
+                tu = TuData()
+                for ci, (srcp, predp, qp) in enumerate((
+                        (src.y[y:y + n, x:x + n], pred_y, qp_y),
+                        (src.cb[y >> 1:(y >> 1) + (n >> 1),
+                                x >> 1:(x >> 1) + (n >> 1)], pred_cb,
+                         qp_cb),
+                        (src.cr[y >> 1:(y >> 1) + (n >> 1),
+                                x >> 1:(x >> 1) + (n >> 1)], pred_cr,
+                         qp_cr))):
+                    sub = 0 if ci == 0 else 1
+                    tn = 1 << (t_lg - sub)
+                    o_y, o_x = oy >> sub, ox >> sub
+                    res = (srcp[o_y:o_y + tn, o_x:o_x + tn]
+                           - predp[o_y:o_y + tn, o_x:o_x + tn])
+                    ts = False
+                    if cu.bypass:
+                        levels = res.astype(np.int32)
+                        rq = res
+                    else:
+                        coeffs = spec_tr.forward_transform(
+                            res, sp.bit_depth, False)
+                        levels = self._quantize_tb(coeffs, qp, False,
+                                                   t_lg - sub, ci, 0)
+                        if sp.sign_data_hiding and levels.any():
+                            levels = res_mod.sdh_adjust(
+                                levels, coeffs, qp, sp.bit_depth,
+                                t_lg - sub, 0)
+                        if (sp.transform_skip_enabled and t_lg - sub == 2
+                                and ci != 0):
+                            levels, ts = self._ts_rd_choose(
+                                res, levels, qp, False, 0)
+                        if levels.any():
+                            deq = spec_tr.dequantize(levels, qp,
+                                                     sp.bit_depth)
+                            rq = (spec_tr.inverse_transform_skip(
+                                      deq, sp.bit_depth) if ts else
+                                  spec_tr.inverse_transform(
+                                      deq, sp.bit_depth, False))
+                        else:
+                            rq = np.zeros_like(res)
+                    rec = np.clip(predp[o_y:o_y + tn, o_x:o_x + tn] + rq,
+                                  0, max_val)
+                    dd = (srcp[o_y:o_y + tn, o_x:o_x + tn]
+                          - rec).astype(np.int64)
+                    sse_t += int((dd * dd).sum())
+                    bits_t += self._ibits(levels if levels.any() else None)
+                    if not levels.any():
+                        levels = None
+                        ts = False
+                    if ci == 0:
+                        tu.levels_y = levels
+                    elif ci == 1:
+                        tu.levels_cb = levels
+                        tu.ts_cb = ts
+                    else:
+                        tu.levels_cr = levels
+                        tu.ts_cr = ts
+                tus.append(tu)
+            return tus, sse_t, bits_t
+
+        forced = lg > sp.log2_max_tu
+        tus_u, sse_u, bits_u = build_variant(forced)
+        cu.tus = tus_u
+        if (not forced and not cu.bypass
+                and sp.max_transform_hierarchy_depth_inter > 0
+                and lg > sp.log2_min_tu + 1):
+            # the split candidate (its chroma TBs stay at least 4x4)
+            tus_s, sse_s, bits_s = build_variant(True)
+            lam = 0.57 * 2.0 ** ((self.qp - 12) / 3.0)
+            cost_u = float(sse_u) + lam * (bits_u + 4)
+            cost_s = float(sse_s) + lam * (bits_s + 13)
+            if cost_s < cost_u:
+                cu.tus = tus_s
+                cu.tu_split = True
+        cbf_any = any(t.levels_y is not None or t.levels_cb is not None
+                      or t.levels_cr is not None for t in cu.tus)
+        if cu.merge_flag and not cbf_any:
+            cu.skip = True
+            cu.tus = []
+            cu.tu_split = False
+        ctu_mod._reconstruct_inter_cu(planes, sp, x, y, lg, cu, self.refs,
+                                      self.qp, wp=wp)
+        maps.set_cu(x, y, n, depth, -1)
+        maps.set_skip(x, y, n, cu.skip)
+        cbf_y = any(t.levels_y is not None for t in cu.tus)
+        maps.motion.set_cu(x, y, n, cu.motion, cbf_y)
+        ctu_mod.apply_tu_cbf(maps, x, y, n, cu)
+        return cu
+
+    @staticmethod
+    def _mvp(mv, amvp) -> tuple:
+        """The AMVP predictor nearer to mv (the first on ties) and the MVD:
+        (mvp flag, mvd)."""
+        b0 = abs(mv[0] - amvp[0][0]) + abs(mv[1] - amvp[0][1])
+        b1 = abs(mv[0] - amvp[1][0]) + abs(mv[1] - amvp[1][1])
+        flag = 0 if b0 <= b1 else 1
+        p = amvp[flag]
+        return flag, (mv[0] - p[0], mv[1] - p[1])
+
+    def _commit_tu(self, src, planes, sp, x, y, lg, cu, qp_y, qp_cb,
+                   qp_cr) -> TuData:
+        """Commit one intra TU (encoder.py:1570-1617): per component the
+        prediction from the reconstruction so far, the TQ (DST on 4x4
+        luma, transform skip by RD on 4x4 chroma, bypass when lossless) and
+        the reconstruction."""
+        tu = TuData()
+        cmode = ctu_mod.chroma_mode_from_cu(cu)
+        for c_idx, mode, qp in ((0, cu.luma_mode, qp_y),
+                                (1, cmode, qp_cb), (2, cmode, qp_cr)):
+            if c_idx == 0:
+                bx, by, blg = x, y, lg
+            else:
+                bx, by, blg = x >> 1, y >> 1, lg - 1
+            n = 1 << blg
+            s = src.plane(c_idx)[by:by + n, bx:bx + n]
+            pred = ctu_mod.predict_block(planes, sp, bx, by, blg, mode,
+                                         c_idx)
+            res = s - pred
+            ts = False
+            if cu.bypass:
+                levels = res.astype(np.int32)
+            else:
+                scan_idx = res_mod.intra_scan_idx(blg, c_idx, mode)
+                coeffs = spec_tr.forward_transform(res, sp.bit_depth,
+                                                   c_idx == 0 and blg == 2)
+                levels = self._quantize_tb(coeffs, qp, True, blg, c_idx,
+                                           scan_idx)
+                if sp.sign_data_hiding and levels.any():
+                    levels = res_mod.sdh_adjust(
+                        levels, coeffs, qp, sp.bit_depth, blg, scan_idx)
+                if (sp.transform_skip_enabled and blg == 2
+                        and c_idx != 0):
+                    levels, ts = self._ts_rd_choose(res, levels, qp, True,
+                                                    scan_idx)
+            if not levels.any():
+                levels = None
+                ts = False
+            ctu_mod.reconstruct_tb(planes, sp, bx, by, blg, mode, c_idx,
+                                   levels, qp, cu.bypass, ts)
+            if c_idx == 0:
+                tu.levels_y = levels
+            elif c_idx == 1:
+                tu.levels_cb = levels
+                tu.ts_cb = ts
+            else:
+                tu.levels_cr = levels
+                tu.ts_cr = ts
+        return tu
 
     def _encode_classic(self, frames, start_poc, out, order, on_frame):
         """The classic per-frame route, the counterpart of TpuEncoder.encode's
@@ -669,7 +1095,8 @@ class TorchEncoder:
         picture) or the temporal-layer cascade; with HRD a buffering period
         at each IDR and a pic timing for every picture precede its NAL
         units (:289-298).  timing: search_s (the searches on the device),
-        commit_s (the C++ engine's host time), wall_s; spans: each search's
+        commit_s (the C++ engine's host time, or without it the Python
+        commit's, CABAC's and deblocking's), wall_s; spans: each search's
         time on the device."""
         cfg = self.cfg
         rc = self._rate_controller()

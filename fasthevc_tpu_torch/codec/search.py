@@ -18,7 +18,9 @@ and the bi-prediction of the two lists' winners costed by K12, which also
 chooses the direction in the SATD domain before the one inter RD leaf.
 With a partition CNN (the fast-partition path) every batch's packing
 takes the CNN's depth maps (K13) in place of the DP's splits; the search
-itself runs whole, as the reference runs it.
+itself runs whole, as the reference runs it.  `maps_to_trees` turns one
+picture's packed maps, on the host, into the CTU trees of the Python
+commit route.
 
 The f32 costs are built with the same operations, in the same order, as
 the JAX search, so both take the same decisions; where XLA's CPU backend
@@ -30,6 +32,7 @@ kernels' PyTorch twins instead of the kernels (on any device).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import cost, intra, me, per_frame, transform
@@ -584,3 +587,33 @@ def search_b_maps(y_batch: torch.Tensor, refs0: torch.Tensor,
     dec = {k: torch.stack([d[k] for d in decs]) for k in decs[0]}
     return _pack_maps(dec, f, w, h, coded_w, coded_h, log2_ctu, log2_min_cu,
                       _cnn_override(y_batch, cnn, qp, log2_ctu, plain))
+
+
+def maps_to_trees(packed, coded_w: int, coded_h: int, log2_ctu: int,
+                  log2_min_cu: int) -> list:
+    """One picture's packed [ph/8, pw/8, 9] decision maps (_pack_maps'
+    layout, on the host) as per-CTU (x, y, tree) tuples in CTU raster
+    order: the trees of fasthevc_tpu/codec/search.py decisions_to_trees
+    (:800-849), for the Python commit route.  A tree is ("split", [4
+    children, None outside the picture]), ("leaf", luma mode) or ("ileaf",
+    (dir, mv0, mv1, ref0, ref1)).  The maps already hold the forced splits
+    of blocks that overflow the coded picture and the partition CNN's
+    override: a node splits where its first granule is deeper than it."""
+    pk = np.asarray(packed)
+    ctu = 1 << log2_ctu
+
+    def node(x, y, lg):
+        g = [int(v) for v in pk[y >> 3, x >> 3]]
+        if g[0] > log2_ctu - lg:
+            half = 1 << (lg - 1)
+            kids = [(x + (i & 1) * half, y + (i >> 1) * half)
+                    for i in range(4)]
+            return ("split", [node(cx, cy, lg - 1)
+                              if cx < coded_w and cy < coded_h else None
+                              for cx, cy in kids])
+        if g[2] > 0:
+            return ("ileaf", (g[2], (g[3], g[4]), (g[5], g[6]), g[7], g[8]))
+        return ("leaf", g[1])
+
+    return [(x, y, node(x, y, log2_ctu)) for y in range(0, coded_h, ctu)
+            for x in range(0, coded_w, ctu)]

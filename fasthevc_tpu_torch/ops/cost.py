@@ -70,6 +70,21 @@ def fma_f32(a, b, c) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+_H8: dict = {}
+
+
+def _hadamard_matrix(device) -> torch.Tensor:
+    """The 8x8 Hadamard matrix in natural (Sylvester) order, f32, on
+    `device`: `_hadamard`'s butterflies along one axis, as a product."""
+    key = str(device)
+    if key not in _H8:
+        h = torch.ones((1, 1))
+        while h.shape[0] < 8:
+            h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)
+        _H8[key] = h.to(device)
+    return _H8[key]
+
+
 def satd_plain(src: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     """K2's twin: src [B, N, N], preds [B, M, N, N] -> [B, M] int32 SATD of
     src - pred over 8x8 sub-blocks (4x4 when N == 4), each abs-sum divided
@@ -79,7 +94,14 @@ def satd_plain(src: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     nb = n // hb
     x = (src[:, None].to(torch.int32) - preds.to(torch.int32))
     x = x.reshape(b, m, nb, hb, nb, hb).transpose(3, 4)   # [..,nb,nb,hb,hb]
-    x = _hadamard(_hadamard(x, 4), 5)
+    if hb == 8:
+        # H x H as two f32 products, transposed (the abs-sum does not
+        # mind): exact, since every partial sum is an integer below 2^24
+        # while |src - pred| < 2^18, and the package turns TF32 off
+        h = _hadamard_matrix(x.device)
+        x = ((x.to(torch.float32) @ h).transpose(-1, -2) @ h).to(torch.int32)
+    else:
+        x = _hadamard(_hadamard(x, 4), 5)
     per_block = x.abs().sum(dim=(4, 5), dtype=torch.int32) // hb
     return per_block.sum(dim=(2, 3), dtype=torch.int32)
 

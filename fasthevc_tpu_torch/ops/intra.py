@@ -146,7 +146,20 @@ def predict_plain(top: torch.Tensor, left: torch.Tensor, log2_size: int,
         top_f, left_f = top, left
     refs = torch.cat([top, left, top_f, left_f], dim=1)  # [B, 4(2n+1)]
     ia, ib, wa, wb = _plain_tables(n, is_luma, dev)
-    ang = ((wa * refs[:, ia] + wb * refs[:, ib] + 16) >> 5).view(b, 33, n, n)
+    if modes is not None:
+        # only the selected modes' angular rows: [B, M, n * n] of the
+        # tables (planar and DC read row 0, replaced below)
+        modes = modes.to(torch.int64)
+        m = modes.shape[1]
+        rows = (modes - 2).clamp(0, 32)[:, :, None] * (n * n) + torch.arange(
+            n * n, device=dev)
+        ia, ib, wa, wb = (t[rows] for t in (ia, ib, wa, wb))
+        ang = ((wa * refs.gather(1, ia.view(b, -1)).view(b, m, -1)
+                + wb * refs.gather(1, ib.view(b, -1)).view(b, m, -1)
+                + 16) >> 5).view(b, m, n, n)
+    else:
+        ang = ((wa * refs[:, ia] + wb * refs[:, ib] + 16) >> 5).view(
+            b, 33, n, n)
 
     edge = is_luma and n < 32
     if edge:
@@ -154,8 +167,14 @@ def predict_plain(top: torch.Tensor, left: torch.Tensor, log2_size: int,
                  ).clamp(0, max_val)                       # [B, N] down x=0
         h_row = (left[:, 1:2] + ((top[:, 1:n + 1] - top[:, :1]) >> 1)
                  ).clamp(0, max_val)                       # [B, N] along y=0
-        ang[:, 26 - 2, :, 0] = v_col
-        ang[:, 10 - 2, 0, :] = h_row
+        if modes is None:
+            ang[:, 26 - 2, :, 0] = v_col
+            ang[:, 10 - 2, 0, :] = h_row
+        else:
+            ang[:, :, :, 0] = torch.where((modes == 26)[:, :, None],
+                                          v_col[:, None], ang[:, :, :, 0])
+            ang[:, :, 0, :] = torch.where((modes == 10)[:, :, None],
+                                          h_row[:, None], ang[:, :, 0, :])
 
     pt, pl = (top_f, left_f) if flags[0] else (top, left)
     xs = torch.arange(n, device=dev, dtype=torch.int32)
@@ -172,11 +191,11 @@ def predict_plain(top: torch.Tensor, left: torch.Tensor, log2_size: int,
         dcp[:, 0, :] = (top[:, 1:n + 1] + 3 * dc[:, None] + 2) >> 2
         dcp[:, :, 0] = (left[:, 1:n + 1] + 3 * dc[:, None] + 2) >> 2
         dcp[:, 0, 0] = (left[:, 1] + 2 * dc + top[:, 1] + 2) >> 2
-    allm = torch.cat([planar[:, None], dcp[:, None], ang], dim=1)
     if modes is None:
-        return allm
-    modes = modes.to(torch.int64)
-    return torch.take_along_dim(allm, modes[:, :, None, None], dim=1)
+        return torch.cat([planar[:, None], dcp[:, None], ang], dim=1)
+    sel = modes[:, :, None, None]
+    return torch.where(sel == 0, planar[:, None],
+                       torch.where(sel == 1, dcp[:, None], ang))
 
 
 def predict(top: torch.Tensor, left: torch.Tensor, log2_size: int,

@@ -176,7 +176,9 @@ def _windows(planes: torch.Tensor, sel, oy, ox, size_h: int,
     dev = planes.device
     rows = (oy[:, None] + torch.arange(size_h, device=dev)).clamp(0, h - 1)
     cols = (ox[:, None] + torch.arange(size_w, device=dev)).clamp(0, w - 1)
-    return planes[sel[:, None, None], rows[:, :, None], cols[:, None, :]]
+    # one flat gather: cheaper than indexing the three dimensions
+    flat = ((sel[:, None] * h + rows) * w)[:, :, None] + cols[:, None, :]
+    return planes.reshape(-1)[flat]
 
 
 def _blocks(plane: torch.Tensor, n: int) -> torch.Tensor:
@@ -197,17 +199,20 @@ def _mc_raw_plain(planes, sel, oy, ox, mv, n: int, taps: torch.Tensor,
     half = n_taps // 2 - 1
     mvi = mv >> frac_bits
     frac = mv & ((1 << frac_bits) - 1)
-    fx = taps[frac[:, 0]].to(torch.int64)
-    fy = taps[frac[:, 1]].to(torch.int64)
+    # int32 is exact: a tap row's absolute sum is at most 112, so a
+    # 12-bit sample's first stage stays below 2^19 and the second (after
+    # the shift to 14 bits) below 2^22
+    fx = taps[frac[:, 0]].to(torch.int32)
+    fy = taps[frac[:, 1]].to(torch.int32)
     size = n + n_taps - 1
     win = _windows(planes, sel, oy + mvi[:, 1] - half, ox + mvi[:, 0] - half,
-                   size, size).to(torch.int64)
+                   size, size).to(torch.int32)
     hacc = sum(fx[:, k, None, None] * win[:, :, k:k + n]
                for k in range(n_taps))
     hacc = hacc >> (bit_depth - 8)
     acc = sum(fy[:, k, None, None] * hacc[:, k:k + n, :]
               for k in range(n_taps))
-    return acc >> 6
+    return (acc >> 6).to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -266,21 +271,24 @@ def sad_search_plain(src, refs, center, n: int, rng: int, base_n: int,
     oy, ox = _block_origins(h, w, n, dev)
     b = oy.shape[0]
     c = _centres(center, refs, n, base_n, dev)                # [R, B, 2]
-    srcb = _blocks(src.to(torch.int64), n).repeat(r, 1, 1)    # [R*B, n, n]
+    srcb = _blocks(src.to(torch.int32), n).repeat(r, 1, 1)    # [R*B, n, n]
     sel = torch.arange(r, device=dev).repeat_interleave(b)
     size = n + 2 * rng
     win = _windows(refs, sel, (oy[None] + c[..., 1] - rng).reshape(-1),
                    (ox[None] + c[..., 0] - rng).reshape(-1), size,
-                   size).to(torch.int64)
+                   size).to(torch.int32)
     n_off = 2 * rng + 1
     best = torch.full((r * b,), 2 ** 31 - 1, dtype=torch.int64, device=dev)
     best_i = torch.zeros((r * b,), dtype=torch.int64, device=dev)
     for dy in range(n_off):
-        for dx in range(n_off):
-            sad = (srcb - win[:, dy:dy + n, dx:dx + n]).abs().sum(dim=(1, 2))
-            better = sad < best
-            best = torch.where(better, sad, best)
-            best_i = torch.where(better, dy * n_off + dx, best_i)
+        # every dx of the row at once: [R*B, n rows, n_off, n cols]; min
+        # keeps the first of equal SADs, as the scan's strict < does
+        cand = win[:, dy:dy + n].unfold(2, n, 1)
+        sad = (cand - srcb[:, :, None]).abs().sum(dim=(1, 3))
+        row_best, dx = sad.min(dim=1)
+        better = row_best < best
+        best = torch.where(better, row_best, best)
+        best_i = torch.where(better, dy * n_off + dx, best_i)
     d = torch.stack([best_i % n_off - rng, best_i // n_off - rng], dim=-1)
     out = (c.reshape(-1, 2) + d) * scale
     return out.clamp(-clip, clip).reshape(r, b, 2).to(torch.int32)
@@ -493,30 +501,32 @@ def subpel_plain(src, refs, mv_int, n: int, lambda_sqrt: float):
     mvi4 = mv_int.reshape(-1, 2).to(torch.int64) * 4
     ls = torch.tensor(lambda_sqrt, dtype=torch.float32)
     taps = _const("luma", dev)
-    best_c = torch.full((r * b,), float("inf"), dtype=torch.float32,
-                        device=dev)
-    best_mv = mvi4.clone()
-    best_p = torch.zeros((r * b, n, n), dtype=torch.int32, device=dev)
 
-    def consider(t, state):
-        best_c, best_mv, best_p = state
-        mvq = mvi4 + t
-        raw = _mc_raw_plain(refs, sel, oyr, oxr, mvq, n, taps, 2)
+    def stage(offsets):
+        """The first cheapest of K candidates a block, offsets [K, R*B or
+        1, 2]: all K filtered and costed in one batch; min keeps the first
+        of equal costs, as the scan's strict < does."""
+        k = offsets.shape[0]
+        mvq = (mvi4 + offsets).reshape(-1, 2)                 # [K*R*B, 2]
+        raw = _mc_raw_plain(refs, sel.repeat(k), oyr.repeat(k),
+                            oxr.repeat(k), mvq, n, taps, 2)
         pred = ((raw + 32) >> 6).clamp(0, 255).to(torch.int32)
-        s = cost.satd_plain(srcr, pred[:, None])[:, 0]
+        s = cost.satd_plain(srcr.repeat(k, 1, 1), pred[:, None])[:, 0]
         c = cost.fma_f32(ls, mv_rate_bits(mvq), s.to(torch.float32))
-        better = c < best_c
-        return (torch.where(better, c, best_c),
-                torch.where(better[:, None], mvq, best_mv),
-                torch.where(better[:, None, None], pred, best_p))
+        c, i = c.view(k, -1).min(dim=0)
+        pick = torch.arange(c.shape[0], device=dev)
+        return (c, mvq.view(k, -1, 2)[i, pick],
+                pred.view(k, -1, n, n)[i, pick])
 
-    state = (best_c, best_mv, best_p)
-    for dx, dy in _HALF:
-        state = consider(torch.tensor([dx, dy], device=dev), state)
-    half = state[1] - mvi4
-    for dx, dy in _QUARTER:
-        state = consider(half + torch.tensor([dx, dy], device=dev), state)
-    best_c, best_mv, best_p = state
+    # the costs are finite, so the half-pel scan's first candidate always
+    # replaces the (inf, 4 * mv_int, 0) start
+    best_c, best_mv, best_p = stage(torch.tensor(_HALF, device=dev)[:, None])
+    q_c, q_mv, q_p = stage((best_mv - mvi4)[None]
+                           + torch.tensor(_QUARTER, device=dev)[:, None])
+    better = q_c < best_c
+    best_c = torch.where(better, q_c, best_c)
+    best_mv = torch.where(better[:, None], q_mv, best_mv)
+    best_p = torch.where(better[:, None, None], q_p, best_p)
     return (best_c.reshape(r, b), best_mv.to(torch.int32).reshape(r, b, 2),
             best_p.reshape(r, b, n, n))
 
